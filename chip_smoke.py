@@ -37,7 +37,30 @@ non-zero exit and no result line:
    equal the step count;
 7. per kernel: CUDA-event times (cold L2) of the kernel, its plain
    version and the one PyTorch call that computes the same function where
-   there is one, beside the least time the card could take.
+   there is one, beside the least time the card could take;
+8. the flash-attention kernels (forward, dQ, dK/dV) against their plain
+   version with autograd at the (B, T, H, Hkv, D, causal) of
+   ``FLASH_CASES`` (T 4096 at D 128 MHA and GQA, a ragged T = 1000, D 32,
+   MQA at T = 33): outputs and the row logsumexp within rtol 2e-4 /
+   atol 2e-5, gradients within rtol 2e-3 / atol 2e-4, the same bits
+   twice. Known faults are read against the same limits and must fail
+   them: the causal diagonal hidden (output), dS without its diagonal
+   (dQ, dK) and, under GQA, dK/dV summed over the first query head of
+   each group only;
+9. the long-context path: a one-rank NCCL group,
+   ``make_ulysses_attention(group, local_attention=make_flash_local(True))``,
+   3 steps of forward and ``sum(out**2).backward()`` on q, k, v
+   [1, 16384, 8, 128] with each flash kernel launched once a step; at
+   T = 8192 (MHA and Hkv = 2) its output and gradients match the same
+   schedule over the built-in ``full_attention(causal=True)``, and the
+   backward faults of phase 8, run through the same schedule, fail those
+   limits; one step at T = 32768, where the scores alone would take 34 GB;
+   the ring schedule at world 1 matches ``full_attention`` at T = 4096;
+10. at the path's shape (1, 16384, 8, 8, 128, causal): the three flash
+   kernels held against the plain version on the same inputs (the
+   ``max_abs_err`` of their rows), and their times beside the plain
+   version's, ``scaled_dot_product_attention``'s (its backward alone for
+   the backward rows) and their bound.
 
 The last lines are the ``{"kernels": [...]}`` line, the card line again,
 and ``{"ok": true, "device": {...}}``.
@@ -72,6 +95,21 @@ FIT_LOSS_RTOL = 1e-5
 FIT_PARAM_REL = 1e-5
 # both datasets carry a planted rule: 2 epochs must lower the mean loss
 MIN_LOSS_FALL = 0.01
+# flash attention against the plain version (tests/test_sequence_parallel.py's
+# tolerances): f32 sums over the keys in another order, and the online
+# softmax rescales partial sums per tile
+OUT_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+# (B, T, H, Hkv, D, causal) of phase 8 and tests/test_torch_cuda.py:
+# BASELINE's width with MHA and GQA, a ragged tail (1000 = 15 tiles of 64
+# + 40) at D = 64, D = 32 both ways, and MQA over a sequence shorter than
+# one tile
+FLASH_CASES = ((1, 4096, 8, 8, 128, True), (1, 4096, 8, 2, 128, True),
+               (2, 1000, 8, 2, 64, False), (1, 512, 8, 2, 32, True),
+               (1, 512, 8, 2, 32, False), (3, 33, 4, 1, 64, True))
+# BASELINE.md's long-context width: heads 8, head dim 128
+ATTN_HEADS, ATTN_DIM = 8, 128
+PATH_T, PATH_STEPS, CHECK_T, LONG_T, RING_T = 16384, 3, 8192, 32768, 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -325,6 +363,359 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
     }
 
 
+def tol_ratio(got, want, tol) -> float:
+    """max |got - want| / (atol + rtol·|want|): at most 1 inside ``tol``."""
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def randn(gen, shape, dev, grad=False):
+    return torch.randn(shape, generator=gen, device=dev,
+                       requires_grad=grad)
+
+
+def flash_kernels(q, k, v, dout, causal):
+    """(out, lse, dq, dk, dv) from the three flash kernels."""
+    from dmlc_tpu_torch.ops import kernels
+    from dmlc_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    out, lse = kernels.flash_attention_fwd(q, k, v, causal)
+    return (out, lse) + flash_attention_bwd(q, k, v, out, lse, dout, causal)
+
+
+def diagonal_hidden(q, k, v):
+    """The forward fault: attention whose causal mask also hides the
+    diagonal (query p sees keys < p only)."""
+    from dmlc_tpu_torch.ops.attention import NEG_INF, grouped_pv, grouped_scores
+
+    s = grouped_scores(q, k)
+    pos = torch.arange(s.shape[-1], device=q.device)
+    return grouped_pv(torch.softmax(
+        s.masked_fill(pos[:, None] <= pos[None, :], NEG_INF), -1), v)
+
+
+def diagonal_detached(q, k, v, causal):
+    """The backward fault: the forward is sound, but the scores of query p
+    against key p pass no gradient (dS without its diagonal, in dQ and
+    dK)."""
+    from dmlc_tpu_torch.ops.attention import grouped_pv, masked_scores
+
+    s = masked_scores(q, k, causal)
+    eye = torch.eye(s.shape[-1], dtype=torch.bool, device=q.device)
+    return grouped_pv(torch.softmax(torch.where(eye, s.detach(), s), -1), v)
+
+
+def first_head_mask(h, hk, dev):
+    """[H, 1] of 1 for the first query head of each GQA group, else 0: an
+    output gradient times it gives dK and dV summed over that head only."""
+    return (torch.arange(h, device=dev) % (h // hk) == 0).float()[:, None]
+
+
+def grads_of(fn, q, k, v, dout):
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+def hold_flash(shape, got, want):
+    """The kernels' (out, lse, dq, dk, dv) against the plain version's:
+    each finite and within its tolerance; returns the readings."""
+    names = ("out", "lse", "dq", "dk", "dv")
+    tols = (OUT_TOL, OUT_TOL, GRAD_TOL, GRAD_TOL, GRAD_TOL)
+    report = {"shape": list(shape)}
+    for name, x, w, tol in zip(names, got, want, tols):
+        require(bool(torch.isfinite(x).all()), "flash %s: %s not finite",
+                shape, name)
+        report[name + "_max_abs_err"] = float((x - w).abs().max())
+        report[name + "_tol_ratio"] = tol_ratio(x, w, tol)
+        require(report[name + "_tol_ratio"] <= 1.0,
+                "flash %s: %s differs from plain beyond rtol %g / atol %g "
+                "(max abs err %g)", shape, name, tol["rtol"], tol["atol"],
+                report[name + "_max_abs_err"])
+    return report
+
+
+def read_fault(where, report, key, fault, sound, tol):
+    """Reads a known fault against the limit ``tol``, where the sound
+    result passes, and requires it to fail there."""
+    report[key + "_tol_ratio"] = tol_ratio(fault, sound, tol)
+    report[key + "_max_abs_err"] = float((fault - sound).abs().max())
+    require(report[key + "_tol_ratio"] > 1.0,
+            "%s: the fault %s reads %g, inside the limit", where, key,
+            report[key + "_tol_ratio"])
+
+
+def flash_case(kernels, dev, b, t, h, hk, d, causal, seed):
+    """Phase 8 for one shape: the three kernels against the plain version,
+    and the known faults against the same limits."""
+    from dmlc_tpu_torch.ops import full_attention
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (randn(gen, s, dev) for s in (
+        (b, t, h, d), (b, t, hk, d), (b, t, hk, d), (b, t, h, d)))
+    got = flash_kernels(q, k, v, dout, causal)
+    again = flash_kernels(q, k, v, dout, causal)
+    want = kernels.flash_attention_fwd_plain(q, k, v, causal) + tuple(
+        kernels.flash_attention_bwd_plain(q, k, v, dout, causal))
+    torch.cuda.synchronize()
+    shape = (b, t, h, hk, d, causal)
+    require(all(torch.equal(x, y) for x, y in zip(got, again)),
+            "flash %s: two runs differ in bits", shape)
+    report = hold_flash(shape, got, want)
+    where = "flash %s" % (shape,)
+    if causal:
+        read_fault(where, report, "diagonal_hidden_out",
+                   diagonal_hidden(q, k, v), got[0], OUT_TOL)
+    fault = grads_of(lambda *x: diagonal_detached(*x, causal), q, k, v, dout)
+    read_fault(where, report, "diagonal_detached_dq", fault[0], got[2],
+               GRAD_TOL)
+    read_fault(where, report, "diagonal_detached_dk", fault[1], got[3],
+               GRAD_TOL)
+    if hk < h:
+        fault = grads_of(lambda *x: full_attention(*x, causal), q, k, v,
+                         dout * first_head_mask(h, hk, dev))
+        read_fault(where, report, "first_head_only_dk", fault[1], got[3],
+                   GRAD_TOL)
+        read_fault(where, report, "first_head_only_dv", fault[2], got[4],
+                   GRAD_TOL)
+    del q, k, v, dout, got, again, want, fault
+    torch.cuda.empty_cache()
+    return report
+
+
+def attention_steps(fn, q, k, v, steps):
+    """``steps`` of forward and sum(out**2).backward(); returns the last
+    output, its gradients and each step's milliseconds (host clock, each
+    step ending in a synchronize)."""
+    times = []
+    for _ in range(steps):
+        for x in (q, k, v):
+            x.grad = None
+        t0 = time.perf_counter()
+        out = fn(q, k, v)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out.detach(), [x.grad for x in (q, k, v)], times
+
+
+def attention_inputs(dev, t, hk, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [randn(gen, (1, t, heads, ATTN_DIM), dev, grad=True)
+            for heads in (ATTN_HEADS, hk, hk)]
+
+
+def compare_schedules(name, got, want):
+    """got/want: (out, [dq, dk, dv]); returns the tolerance ratios."""
+    ratios = {"out": tol_ratio(got[0], want[0], OUT_TOL)}
+    for key, g, w in zip(("dq", "dk", "dv"), got[1], want[1]):
+        ratios[key] = tol_ratio(g, w, GRAD_TOL)
+    for key, r in ratios.items():
+        require(r <= 1.0, "%s: %s differs beyond its tolerance (ratio %g)",
+                name, key, r)
+    return ratios
+
+
+def drive_attention(kernels, dev, group):
+    """Phase 9: the long-context path on the card."""
+    from dmlc_tpu_torch.ops import (full_attention, make_flash_local,
+                                    make_ring_attention,
+                                    make_ulysses_attention)
+
+    flash = make_ulysses_attention(group,
+                                   local_attention=make_flash_local(True))
+    builtin = make_ulysses_attention(group, causal=True)
+    result = {}
+    q, k, v = attention_inputs(dev, PATH_T, ATTN_HEADS, 21)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out, grads, times = attention_steps(flash, q, k, v, PATH_STEPS)
+    launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        require(launches[name] == PATH_STEPS,
+                "attention path: %s launched %d times in %d steps", name,
+                launches[name], PATH_STEPS)
+    require(out.shape == q.shape and bool(torch.isfinite(out).all())
+            and all(bool(torch.isfinite(g).all()) for g in grads),
+            "attention path: output or gradients not finite")
+    result["path"] = {"T": PATH_T, "step_ms": times, "launches": launches,
+                      "peak_bytes": peak}
+    del q, k, v, out, grads
+
+    # the known backward faults, through the same schedule, read against
+    # the same limits: dS without its diagonal, and (under GQA) dK/dV
+    # summed over only the first query head of each group
+    diagonal_fault = make_ulysses_attention(
+        group, local_attention=lambda q, k, v: diagonal_detached(q, k, v,
+                                                                 True))
+    for hk in (ATTN_HEADS, 2):
+        q, k, v = attention_inputs(dev, CHECK_T, hk, 22 + hk)
+        got = attention_steps(flash, q, k, v, 1)[:2]
+        want = attention_steps(builtin, q, k, v, 1)[:2]
+        name = f"vs_full_attention_T{CHECK_T}_hkv{hk}"
+        report = compare_schedules(name, got, want)
+        del want
+        fault = attention_steps(diagonal_fault, q, k, v, 1)[1]
+        read_fault(name, report, "diagonal_detached_dq", fault[0],
+                   got[1][0], GRAD_TOL)
+        read_fault(name, report, "diagonal_detached_dk", fault[1],
+                   got[1][1], GRAD_TOL)
+        if hk < ATTN_HEADS:
+            mask = first_head_mask(ATTN_HEADS, hk, dev)
+            fault = attention_steps(lambda *x: builtin(*x) * mask, q, k, v,
+                                    1)[1]
+            read_fault(name, report, "first_head_only_dk", fault[1],
+                       got[1][1], GRAD_TOL)
+            read_fault(name, report, "first_head_only_dv", fault[2],
+                       got[1][2], GRAD_TOL)
+        result[name] = report
+        del q, k, v, got, fault
+        torch.cuda.empty_cache()
+
+    q, k, v = attention_inputs(dev, LONG_T, ATTN_HEADS, 23)
+    torch.cuda.reset_peak_memory_stats()
+    out, grads, times = attention_steps(flash, q, k, v, 1)
+    peak = torch.cuda.max_memory_allocated()
+    scores_bytes = 4 * ATTN_HEADS * LONG_T * LONG_T
+    require(bool(torch.isfinite(out).all())
+            and all(bool(torch.isfinite(g).all()) for g in grads),
+            "attention path at T=%d: not finite", LONG_T)
+    require(peak < scores_bytes / 8,
+            "attention path at T=%d: peak %d bytes, near the %d of the "
+            "scores", LONG_T, peak, scores_bytes)
+    result["long"] = {"T": LONG_T, "step_ms": times, "peak_bytes": peak,
+                      "scores_bytes": scores_bytes}
+    del q, k, v, out, grads
+
+    q, k, v = attention_inputs(dev, RING_T, 2, 24)
+    kernels.reset_launch_counts()
+    got = attention_steps(make_ring_attention(group, causal=True), q, k, v,
+                          1)[:2]
+    ring_launches = sum(fn.launches for fn in kernels.KERNELS.values())
+    want = attention_steps(
+        lambda q, k, v: full_attention(q, k, v, causal=True), q, k, v, 1)[:2]
+    result[f"ring_vs_full_attention_T{RING_T}"] = compare_schedules(
+        "ring vs full_attention", got, want)
+    result["ring_kernel_launches"] = ring_launches
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return result
+
+
+def flash_timing_rows(kernels, dev, launches):
+    """Phase 10: the three flash kernels at the path's shape, held against
+    the plain version on the same inputs and timed beside it,
+    scaled_dot_product_attention and their bound."""
+    import torch.nn.functional as F
+
+    from dmlc_tpu_torch.ops import full_attention
+    from dmlc_tpu_torch.ops.flash_attention import softmax_delta
+
+    b, t, h, d = 1, PATH_T, ATTN_HEADS, ATTN_DIM
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, dout = (randn(gen, (b, t, h, d), dev) for _ in range(4))
+    got = flash_kernels(q, k, v, dout, True)
+    out, lse = got[:2]
+    delta = softmax_delta(out, dout)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    ms = {
+        "flash_attention_fwd": time_ms(
+            lambda: kernels.flash_attention_fwd(q, k, v, True), flush, 10),
+        "flash_attention_bwd_dq": time_ms(
+            lambda: kernels.flash_attention_bwd_dq(
+                q, k, v, dout, lse, delta, True), flush, 10),
+        "flash_attention_bwd_dkv": time_ms(
+            lambda: kernels.flash_attention_bwd_dkv(
+                q, k, v, dout, lse, delta, True), flush, 10),
+    }
+    # the plain version keeps several [B, H, T, T] f32 tensors (8.6 GB
+    # each here); its last results are kept and the kernels held to them
+    plain = {}
+
+    def plain_fwd():
+        plain["fwd"] = kernels.flash_attention_fwd_plain(q, k, v, True)
+
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(plain_fwd, flush, 3)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref = full_attention(*leaves, True)
+
+    def plain_bwd():
+        plain["bwd"] = torch.autograd.grad(ref, leaves, dout,
+                                           retain_graph=True)
+
+    plain_bwd_ms = time_ms(plain_bwd, flush, 3)
+    del ref, leaves
+    torch.cuda.empty_cache()
+    report = hold_flash((b, t, h, h, d, True), got,
+                        plain["fwd"] + tuple(plain["bwd"]))
+    errors = {
+        "flash_attention_fwd": max(report["out_max_abs_err"],
+                                   report["lse_max_abs_err"]),
+        "flash_attention_bwd_dq": report["dq_max_abs_err"],
+        "flash_attention_bwd_dkv": max(report["dk_max_abs_err"],
+                                       report["dv_max_abs_err"]),
+    }
+    del plain
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
+    with torch.no_grad():
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush, 10)
+    leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        torch.autograd.grad(o, leaves, dot)
+
+    sdpa_both = time_ms(sdpa_fwd_bwd, flush, 10)
+    # the backward alone, as the plain backward is timed: one forward
+    # outside the timed region
+    o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        o, leaves, dot, retain_graph=True), flush, 10)
+    extra = {"vs_plain_at_path_shape": report,
+             "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+             "sdpa_fwd_bwd_ms": sdpa_both, "plain_fwd_ms": plain_fwd_ms,
+             "plain_bwd_ms": plain_bwd_ms}
+    del flush, leaves, o
+    torch.cuda.empty_cache()
+
+    pairs = b * h * t * (t + 1) / 2  # causal (query, key) pairs
+    qkv = 4 * b * t * h * d  # bytes of one [B, T, H, D] f32 tensor
+    rows_lse = 4 * b * h * t
+    work = {  # (bytes moved once, f32 flops): 2 products per matmul-pair
+        "flash_attention_fwd": (4 * qkv + rows_lse, 2 * 2 * d * pairs),
+        "flash_attention_bwd_dq": (5 * qkv + 2 * rows_lse, 3 * 2 * d * pairs),
+        "flash_attention_bwd_dkv": (6 * qkv + 2 * rows_lse,
+                                    4 * 2 * d * pairs),
+    }
+    sources = {
+        "flash_attention_fwd": (
+            "dmlc_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+            "dmlc_tpu/ops/sequence_parallel.py:423"),
+        "flash_attention_bwd_dq": (
+            "dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "dmlc_tpu/ops/sequence_parallel.py:423"),
+        "flash_attention_bwd_dkv": (
+            "dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "dmlc_tpu/ops/sequence_parallel.py:423"),
+    }
+    rows = []
+    for name, (source, replaces) in sources.items():
+        fwd = name == "flash_attention_fwd"
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errors[name], "ms": ms[name],
+               "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
+               "library_ms": sdpa_fwd if fwd else sdpa_bwd}
+        row["bound_ms"], row["bound_by"] = bound(*work[name])
+        rows.append(row)
+    del q, k, v, dout, got, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -466,12 +857,40 @@ def main() -> int:
     torch.cuda.synchronize()
     del flush
 
+    # ---- 8. flash kernels vs plain -----------------------------------------
+    for seed, case in enumerate(FLASH_CASES):
+        report = flash_case(kernels, dev, *case, seed=40 + seed)
+        print(json.dumps({"flash_vs_plain": report}), flush=True)
+    torch.cuda.synchronize()
+
+    # ---- 9. the long-context path --------------------------------------------
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/pg",
+                                rank=0, world_size=1)
+        try:
+            attention = drive_attention(kernels, dev, dist.group.WORLD)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    print(json.dumps({"attention": attention}), flush=True)
+
+    # ---- 10. flash timings -----------------------------------------------------
+    flash_rows, flash_extra = flash_timing_rows(
+        kernels, dev, attention["path"]["launches"])
+    torch.cuda.synchronize()
+    print(json.dumps({"flash_timing_extra": flash_extra}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
             "feed_only_seconds": v["feed_only_seconds"]}
         for k, v in paths.items()}}))
-    print(json.dumps({"kernels": [fused_row, seg_row]}))
+    print(json.dumps({"attention_path_ms_per_step": {
+        str(PATH_T): statistics.median(attention["path"]["step_ms"]),
+        str(LONG_T): attention["long"]["step_ms"][0]}}))
+    print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows}))
     print("card:", card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ counterpart sits at the same path:
 - ``dmlc_tpu_torch.data``   — RowBlock, the vectorized libsvm parser
 - ``dmlc_tpu_torch.device`` — static-shape padding and the pinned-memory
   DeviceFeed
-- ``dmlc_tpu_torch.ops``    — objectives, SpMV, and the hand-written CUDA
-  kernels (``ops/csrc``) with their plain PyTorch versions
+- ``dmlc_tpu_torch.ops``    — objectives, SpMV, the long-context attention
+  schedules (ring, Ulysses, flash), and the hand-written CUDA kernels
+  (``ops/csrc``) with their plain PyTorch versions
+- ``dmlc_tpu_torch.parallel`` — differentiable collectives over a
+  ``torch.distributed`` process group (the sequence axis)
 - ``dmlc_tpu_torch.models`` — the allreduce-SGD linear learner
 
 The package imports ``torch`` and numpy only: never ``jax`` and nothing of

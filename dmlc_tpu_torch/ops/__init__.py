@@ -1,3 +1,28 @@
-"""Objectives (``ops.objectives``), sparse products (``ops.spmv``) and the
-CUDA kernels of the training path with their plain versions
-(``ops.kernels``, sources in ``ops/csrc``)."""
+"""Objectives (``ops.objectives``), sparse products (``ops.spmv``), the
+long-context attention schedules (``ops.sequence_parallel``) and the CUDA
+kernels of the port with their plain versions (``ops.kernels``, sources in
+``ops/csrc``): ``fused_linear_grads``, ``coo_segment_sum``,
+``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
+``flash_attention_bwd_dkv``. ``ops.kernels.KERNELS`` holds every wrapper
+and its launch count; ``ops.flash_attention`` joins the three flash kernels
+into an autograd Function."""
+
+from dmlc_tpu_torch.ops.flash_attention import flash_attention
+from dmlc_tpu_torch.ops.sequence_parallel import (
+    full_attention,
+    make_flash_local,
+    make_ring_attention,
+    make_ulysses_attention,
+    zigzag_shard,
+    zigzag_unshard,
+)
+
+__all__ = [
+    "flash_attention",
+    "full_attention",
+    "make_flash_local",
+    "make_ring_attention",
+    "make_ulysses_attention",
+    "zigzag_shard",
+    "zigzag_unshard",
+]

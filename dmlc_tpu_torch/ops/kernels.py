@@ -1,10 +1,16 @@
-"""The hand-written CUDA kernels of the training path, each beside its plain
-PyTorch version — the port of ``dmlc_tpu/ops/pallas_kernels.py``.
+"""The hand-written CUDA kernels of the port, each beside its plain PyTorch
+version — the port of ``dmlc_tpu/ops/pallas_kernels.py`` and of the TPU
+flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
 
 - :func:`fused_linear_grads` — the whole dense local step
   (csrc/fused_linear_grads.cu);
 - :func:`coo_segment_sum` — the row-direction reduce of the csr margin
-  (csrc/coo_segment_sum.cu).
+  (csrc/coo_segment_sum.cu);
+- :func:`flash_attention_fwd` — attention output and row logsumexp
+  (csrc/flash_attention_fwd.cu);
+- :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` — its
+  gradients (csrc/flash_attention_bwd.cu). ``ops/flash_attention.py`` joins
+  the three into an autograd Function.
 
 The tensor's device picks the route: on a CUDA tensor the wrapper launches
 the kernel (built at first use by ops/_build.py) or raises; the plain
@@ -21,6 +27,11 @@ import ctypes
 import torch
 
 from dmlc_tpu_torch.ops import _build
+from dmlc_tpu_torch.ops.attention import (
+    full_attention,
+    grouped_pv,
+    masked_scores,
+)
 from dmlc_tpu_torch.ops.objectives import margin_loss_grad
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
@@ -43,6 +54,13 @@ def _lib() -> ctypes.CDLL:
         lib.dmlc_fused_linear_grads.restype = ctypes.c_int
         lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _P, _P]
         lib.dmlc_coo_segment_sum.restype = ctypes.c_int
+        dims = [ctypes.c_int] * 6 + [_P]  # B T H Hkv D causal, stream
+        lib.dmlc_flash_attention_fwd.argtypes = [_P] * 5 + dims
+        lib.dmlc_flash_attention_fwd.restype = ctypes.c_int
+        lib.dmlc_flash_attention_bwd_dq.argtypes = [_P] * 7 + dims
+        lib.dmlc_flash_attention_bwd_dq.restype = ctypes.c_int
+        lib.dmlc_flash_attention_bwd_dkv.argtypes = [_P] * 8 + dims
+        lib.dmlc_flash_attention_bwd_dkv.restype = ctypes.c_int
         _declared = True
     return lib
 
@@ -170,10 +188,154 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
 
 coo_segment_sum.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# flash attention: forward, dQ, dK/dV
+# ---------------------------------------------------------------------------
+
+#: head dims the CUDA kernels are compiled for (csrc/flash_attention.cuh)
+FLASH_HEAD_DIMS = (32, 64, 128)
+
+
+def check_flash_inputs(q, k, v):
+    """(B, T, H, Hkv, D) after checking q [B, T, H, D] and k, v
+    [B, T, Hkv, D]: f32, contiguous, one device, H % Hkv == 0, D one of
+    FLASH_HEAD_DIMS. The same checks hold on both routes."""
+    check(isinstance(q, torch.Tensor) and q.dim() == 4,
+          "q must be a [B, T, H, D] tensor")
+    b, t, h, d = q.shape
+    check(k.dim() == 4 and k.shape[:2] == q.shape[:2]
+          and k.shape[3] == d, "k must be [B, T, Hkv, D] for q %s, got %s",
+          tuple(q.shape), tuple(k.shape))
+    hk = k.shape[2]
+    check(d in FLASH_HEAD_DIMS, "head dim %d is not one of %s", d,
+          FLASH_HEAD_DIMS)
+    check(b > 0 and t > 0 and hk > 0 and h % hk == 0,
+          "num_heads %d must divide by num_kv_heads %d (T=%d, B=%d)", h, hk,
+          t, b)
+    _check_input(q, "q", torch.float32, (b, t, h, d), q.device)
+    _check_input(k, "k", torch.float32, (b, t, hk, d), q.device)
+    _check_input(v, "v", torch.float32, (b, t, hk, d), q.device)
+    if q.device.type == "cuda":
+        check(b * h <= 65535 and t < 2**31 - 64,
+              "flash attention: B*H=%d or T=%d out of range", b * h, t)
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check(x.data_ptr() % 16 == 0, "%s must be 16-byte aligned", name)
+    else:
+        check(q.device.type == "cpu", "unsupported device %s", q.device)
+    return b, t, h, hk, d
+
+
+def flash_attention_fwd_plain(q, k, v, causal: bool = False):
+    """(out, lse) of :func:`flash_attention_fwd` from the materialised
+    scores of :func:`ops.attention.full_attention`."""
+    s = masked_scores(q, k, causal)
+    return grouped_pv(torch.softmax(s, dim=-1), v), torch.logsumexp(s, -1)
+
+
+def flash_attention_bwd_plain(q, k, v, dout, causal: bool = False):
+    """(dq, dk, dv): :func:`ops.attention.full_attention` differentiated
+    by autograd for the output gradient ``dout``."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        return torch.autograd.grad(full_attention(*leaves, causal), leaves,
+                                   dout)
+
+
+def flash_attention_fwd(q, k, v, causal: bool = False):
+    """(out [B, T, H, D], lse [B, H, T]): attention and the natural-log
+    logsumexp of each query row's masked scores (scaled by 1/√D).
+
+    On a CUDA tensor this launches csrc/flash_attention_fwd.cu; on a CPU
+    tensor it runs :func:`flash_attention_fwd_plain`."""
+    b, t, h, hk, d = check_flash_inputs(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _lib().dmlc_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, t, h, hk, d, int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(rc, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def _flash_bwd_inputs(q, k, v, dout, lse, delta):
+    b, t, h, hk, d = check_flash_inputs(q, k, v)
+    _check_input(dout, "dout", torch.float32, (b, t, h, d), q.device)
+    _check_input(lse, "lse", torch.float32, (b, h, t), q.device)
+    _check_input(delta, "delta", torch.float32, (b, h, t), q.device)
+    if q.device.type == "cuda":
+        check(dout.data_ptr() % 16 == 0, "dout must be 16-byte aligned")
+    return b, t, h, hk, d
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False):
+    """dQ [B, T, H, D] of :func:`flash_attention_fwd` for the output
+    gradient ``dout``, from its ``lse`` and ``delta`` = rowsum(dout·out)
+    as [B, H, T].
+
+    On a CUDA tensor this launches the dQ kernel of
+    csrc/flash_attention_bwd.cu; on a CPU tensor it runs
+    :func:`flash_attention_bwd_plain` (``lse`` and ``delta`` are checked,
+    and the plain route recomputes them)."""
+    b, t, h, hk, d = _flash_bwd_inputs(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal)[0]
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _lib().dmlc_flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, hk, d,
+            int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(rc, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False):
+    """(dK, dV), each [B, T, Hkv, D], of :func:`flash_attention_fwd`; the
+    inputs as for :func:`flash_attention_bwd_dq`. Under GQA each KV head's
+    gradient sums over the H / Hkv query heads that read it.
+
+    On a CUDA tensor this launches the dK/dV kernel of
+    csrc/flash_attention_bwd.cu; on a CPU tensor it runs
+    :func:`flash_attention_bwd_plain`."""
+    b, t, h, hk, d = _flash_bwd_inputs(q, k, v, dout, lse, delta)
+    if q.device.type == "cpu":
+        return tuple(flash_attention_bwd_plain(q, k, v, dout, causal)[1:])
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _lib().dmlc_flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, hk, d, int(bool(causal)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _launch_check(rc, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
 #: every kernel wrapper of the package, by name
 KERNELS = {
     "fused_linear_grads": fused_linear_grads,
     "coo_segment_sum": coo_segment_sum,
+    "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_bwd_dq": flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
 }
 
 

@@ -6,13 +6,16 @@ has only PyTorch; from the root of a checkout::
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-(``--noconftest``: tests/conftest.py sets JAX up for the rest of the suite.)
+(``--noconftest``: tests/conftest.py sets JAX up for the rest of the suite;
+``python -m`` puts the checkout's root on the path, for ``chip_smoke``,
+whose flash cases and phase-8 checks the flash test shares.)
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import FLASH_CASES, flash_case
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
 from dmlc_tpu_torch.ops import kernels
@@ -121,6 +124,64 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(Exception, match="int32"):
         kernels.coo_segment_sum(
             vec, torch.zeros(4, dtype=torch.int64, device=cuda), 2)
+
+
+@pytest.mark.parametrize("b,t,h,hk,d,causal", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
+    """chip_smoke.py's phase 8 for one shape: forward and both backward
+    kernels against the plain version with autograd, within
+    tests/test_sequence_parallel.py's tolerances (outputs rtol 2e-4 /
+    atol 2e-5, gradients rtol 2e-3 / atol 2e-4: f32 sums over the keys in
+    another order), the same bits twice (no atomics), and the known
+    forward and backward faults outside those limits. Any miss raises."""
+    before = {n: kernels.KERNELS[n].launches for n in kernels.KERNELS}
+    report = flash_case(kernels, cuda, b, t, h, hk, d, causal,
+                        seed=t + hk + d)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert kernels.KERNELS[name].launches == before[name] + 2
+    assert report["dq_tol_ratio"] <= 1.0
+    assert report["diagonal_detached_dq_tol_ratio"] > 1.0
+
+
+def test_flash_path_trains_through_the_kernels(cuda):
+    """Ulysses over a one-rank group with the flash local kernel: forward
+    and backward launch each flash kernel once and match the built-in
+    full_attention schedule."""
+    from dmlc_tpu_torch.ops import make_flash_local, make_ulysses_attention
+
+    rng = np.random.RandomState(5)
+    leaves = [torch.tensor(rng.randn(1, 1024, heads, 64).astype(np.float32),
+                           device=cuda, requires_grad=True)
+              for heads in (8, 2, 2)]  # q, then GQA k and v
+    kernels.reset_launch_counts()
+    flash = make_ulysses_attention(local_attention=make_flash_local(True))
+    out = flash(*leaves)
+    (out ** 2).sum().backward()
+    got = [out.detach()] + [x.grad.clone() for x in leaves]
+    assert {n: kernels.KERNELS[n].launches for n in kernels.KERNELS} == {
+        "fused_linear_grads": 0, "coo_segment_sum": 0,
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    for x in leaves:
+        x.grad = None
+    out = make_ulysses_attention(causal=True)(*leaves)
+    (out ** 2).sum().backward()
+    want = [out.detach()] + [x.grad for x in leaves]
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=2e-5)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
+
+
+def test_flash_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 64, 4, 128, device=cuda)
+    with pytest.raises(Exception, match="head dim 96"):
+        kernels.flash_attention_fwd(torch.zeros(1, 64, 4, 96, device=cuda),
+                                    torch.zeros(1, 64, 4, 96, device=cuda),
+                                    torch.zeros(1, 64, 4, 96, device=cuda))
+    with pytest.raises(Exception, match="aligned"):
+        flat = torch.zeros(1 + 64 * 4 * 128, device=cuda)
+        kernels.flash_attention_fwd(flat[1:].view(1, 64, 4, 128), q, q)
 
 
 def _write_svm(path, rows):

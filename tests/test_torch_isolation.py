@@ -15,13 +15,20 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 _FIT_AND_LIST_MODULES = """
 import sys
+import torch
 import dmlc_tpu_torch
 from dmlc_tpu_torch.models import LinearLearner
+from dmlc_tpu_torch.ops import sequence_parallel as sp
 
 for layout in ("dense", "csr"):
     history = LinearLearner(device="cpu", momentum=0.5).fit_uri(
         sys.argv[1], batch_size=4, epochs=2, layout=layout, num_features=8)
     assert len(history) == 2, history
+attend = sp.make_ulysses_attention(local_attention=sp.make_flash_local(True))
+q = torch.randn(1, 16, 4, 32, requires_grad=True)
+kv = torch.randn(1, 16, 2, 32, requires_grad=True)
+(attend(q, kv, kv) ** 2).sum().backward()
+assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

@@ -123,4 +123,6 @@ def test_plain_route_counts_no_launch():
     kernels.coo_segment_sum(torch.ones(4), torch.zeros(4, dtype=torch.int32),
                             2)
     assert {k: fn.launches for k, fn in kernels.KERNELS.items()} == {
-        "fused_linear_grads": 0, "coo_segment_sum": 0}
+        "fused_linear_grads": 0, "coo_segment_sum": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}

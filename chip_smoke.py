@@ -60,20 +60,38 @@ non-zero exit and no result line:
    kernels held against the plain version on the same inputs (the
    ``max_abs_err`` of their rows), and their times beside the plain
    version's, ``scaled_dot_product_attention``'s (its backward alone for
-   the backward rows) and their bound.
+   the backward rows) and their bound;
+11. ``tokenize_boundaries`` against its plain version on the card, masks
+   equal bit for bit: the sizes of ``TOKEN_SIZES`` (ragged n, separators
+   only, none, an 8 MiB chunk), chunks starting 1-15 bytes into a buffer,
+   and the first 8 MiB chunk of a seeded Criteo-shaped file (262,144
+   rows, ~120 MB); masks that leave ':' out of the separators must differ
+   from the kernel's there. The kernel and its plain version are timed at
+   that chunk, and the ``kernel_token_spans`` route step by step;
+12. the ingest path: ``create_row_block_iter`` over that file on the card
+   and on the CPU must give the same RowBlock, bit for bit, and the
+   tokenizer must launch once for each non-empty chunk part handed to
+   ``LibSVMParser.parse_chunk`` (counted here); then the same through a
+   ``#cachefile`` (``DiskRowIter``), cold (parses, launches) and warm
+   (pages only, no launch). MB/s of each route, and the seconds
+   ``kernel_token_spans`` takes over all the file's chunks.
 
-The last lines are the ``{"kernels": [...]}`` line, the card line again,
-and ``{"ok": true, "device": {...}}``.
+Phases 5 and 6 also require the tokenizer to launch once for each chunk
+part of their fits on the card: the parser tokenizes on the learner's
+device. The last lines are the ``{"kernels": [...]}`` line, the card line
+again, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -110,6 +128,19 @@ FLASH_CASES = ((1, 4096, 8, 8, 128, True), (1, 4096, 8, 2, 128, True),
 # BASELINE.md's long-context width: heads 8, head dim 128
 ATTN_HEADS, ATTN_DIM = 8, 128
 PATH_T, PATH_STEPS, CHECK_T, LONG_T, RING_T = 16384, 3, 8192, 32768, 4096
+# the InputSplit's chunk (dmlc_tpu_torch/io/input_split.py)
+CHUNK_BYTES = 8 << 20
+# (kind, n) of phase 11 and tests/test_torch_cuda.py: tests/test_parse_parity
+# .py's sizes around the 16-byte group and the TPU's 128-byte lane, a chunk
+# of separators only and one with none, and a whole InputSplit chunk
+TOKEN_SIZES = (("mixed", 0), ("mixed", 1), ("mixed", 127), ("mixed", 128),
+               ("mixed", 129), ("mixed", 4096), ("mixed", 33000),
+               ("all_sep", 4099), ("no_sep", 4099), ("mixed", CHUNK_BYTES))
+TOKEN_ALPHABETS = {"mixed": b"0123456789.:-+e \t\r\nqid",
+                   "all_sep": b" \t:\r\n", "no_sep": b"0123456789.-+eqid"}
+# the ingest path's file: Criteo's widths (write_criteo), ~120 MB, ~15
+# chunks: one partition of a many-worker Criteo job
+INGEST_ROWS = 262_144
 
 
 class SmokeFailure(RuntimeError):
@@ -134,6 +165,13 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+def token_chunk(kind: str, size: int, seed: int) -> np.ndarray:
+    """``size`` seeded random bytes of ``TOKEN_ALPHABETS[kind]``."""
+    alphabet = np.frombuffer(TOKEN_ALPHABETS[kind], dtype=np.uint8)
+    return alphabet[np.random.RandomState(seed).randint(0, alphabet.size,
+                                                        size)]
+
+
 def write_higgs(path: str, rows: int, seed: int) -> None:
     """HIGGS-shaped libsvm: 28 dense float features (ids 1-28), labels
     0/1 from a noisy linear rule so the loss has something to learn."""
@@ -155,9 +193,11 @@ def write_criteo(path: str, rows: int, seed: int) -> None:
     values (the bench.py csr tier's widths). Ids are skewed as hashed
     categorical values are (1 + 2^20·u^8 for uniform u: ~42 % of entries
     fall on the 1024 hottest ids), and labels 0/1 come from a noisy sparse
-    linear rule, so that two epochs can lower the loss."""
+    linear rule, so that two epochs can lower the loss. Each row is one
+    ``%`` format over a float64 row (ids and labels are exact there)."""
     rng = np.random.RandomState(seed)
     true_w = rng.randn(CRITEO_DIM + 1)
+    fmt = "%d " + " ".join(["%d:%.4f"] * CRITEO_NNZ)
     with open(path, "w") as fh:
         for start in range(0, rows, 8192):
             n = min(8192, rows - start)
@@ -166,10 +206,35 @@ def write_criteo(path: str, rows: int, seed: int) -> None:
             vals = rng.rand(n, CRITEO_NNZ)
             margin = (vals * true_w[ids]).sum(axis=1)
             labels = (margin + 0.5 * rng.randn(n) > 0).astype(int)
-            fh.write("\n".join(
-                str(labels[i]) + " " + " ".join(
-                    f"{ids[i, j]}:{vals[i, j]:.4f}" for j in range(CRITEO_NNZ))
-                for i in range(n)) + "\n")
+            table = np.empty((n, 1 + 2 * CRITEO_NNZ))
+            table[:, 0] = labels
+            table[:, 1::2] = ids
+            table[:, 2::2] = vals
+            fh.write("\n".join(fmt % tuple(row) for row in table.tolist())
+                     + "\n")
+
+
+@contextlib.contextmanager
+def count_parts():
+    """The lengths of the non-empty chunk parts handed to
+    ``LibSVMParser.parse_chunk`` while the block runs, counted here (the
+    parse pool calls it from several threads): the tokenizer must launch
+    once for each."""
+    from dmlc_tpu_torch.data.parsers import LibSVMParser
+
+    parts, lock, real = [], threading.Lock(), LibSVMParser.parse_chunk
+
+    def counting(self, chunk):
+        if chunk:
+            with lock:
+                parts.append(len(chunk))
+        return real(self, chunk)
+
+    LibSVMParser.parse_chunk = counting
+    try:
+        yield parts
+    finally:
+        LibSVMParser.parse_chunk = real
 
 
 # ---------------------------------------------------------------------------
@@ -316,13 +381,17 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
                num_features, rows):
     steps = EPOCHS * (-(-rows // batch_size))
     kernels.reset_launch_counts()
-    history, params, seconds = run_fit(path, layout, batch_size,
-                                       num_features, None)
+    with count_parts() as parts:
+        history, params, seconds = run_fit(path, layout, batch_size,
+                                           num_features, None)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     feed_only = feed_seconds(path, layout, batch_size, num_features)
     require(launches[kernel_name] == steps,
             "%s path: %s launched %d times for %d steps", name, kernel_name,
             launches[kernel_name], steps)
+    require(launches["tokenize_boundaries"] == len(parts) > 0,
+            "%s path: tokenize_boundaries launched %d times for %d chunk "
+            "parts", name, launches["tokenize_boundaries"], len(parts))
     require(np.all(np.isfinite(history)), "%s path: loss history %s",
             name, history)
     for k in ("w", "b"):
@@ -352,7 +421,9 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
             "%s path: a halved gradient reads %g, within the limit %g",
             name, halved_err, FIT_PARAM_REL)
     return {
-        "steps": steps, "launches": launches, "seconds": seconds,
+        "steps": steps, "launches": launches, "chunk_parts": len(parts),
+        "tokenize_launches": launches["tokenize_boundaries"],
+        "seconds": seconds,
         "steps_per_s": steps / seconds, "rows_per_s": EPOCHS * rows / seconds,
         "feed_only_seconds": feed_only,
         "loss_history": history, "cpu_loss_history": cpu_history,
@@ -716,6 +787,210 @@ def flash_timing_rows(kernels, dev, launches):
     return rows, extra
 
 
+def hold_masks(kernels, where, a):
+    """The kernel's masks of ``a`` against the plain version's: equal, bit
+    for bit (they are exact booleans). Returns the kernel's masks and the
+    max |kernel - plain| over both, each mask read as 0/1."""
+    got = kernels.tokenize_boundaries(a)
+    want = kernels.tokenize_boundaries_plain(a)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, w in zip(("starts", "ends"), got, want):
+        require(g.dtype == torch.bool and g.shape == a.shape,
+                "tokenize_boundaries %s: %s is %s %s", where, name, g.dtype,
+                tuple(g.shape))
+        require(torch.equal(g, w),
+                "tokenize_boundaries %s: %s differ from plain at %d bytes",
+                where, name, int((g != w).sum()))
+        if g.numel():
+            err = max(err, float((g.to(torch.int8) - w.to(torch.int8))
+                                 .abs().max()))
+    return got, err
+
+
+def colon_dropped_masks(a):
+    """The known fault: token masks whose separators leave out ':'."""
+    sep = torch.zeros_like(a, dtype=torch.bool)
+    for code in (0x20, 0x09, 0x0A, 0x0D):
+        sep |= a == code
+    edge = torch.ones(1, dtype=torch.bool, device=a.device)
+    return ~sep & torch.cat([edge, sep[:-1]]), ~sep & torch.cat([sep[1:],
+                                                                 edge])
+
+
+def first_chunk(path: str) -> np.ndarray:
+    from dmlc_tpu_torch.io import create_input_split
+
+    split = create_input_split(path, 0, 1)
+    try:
+        return np.frombuffer(split.next_chunk(), dtype=np.uint8)
+    finally:
+        split.close()
+
+
+def host_ms(fn, repeats: int = 5):
+    """(median host milliseconds of ``fn()``, its last result); ``fn``
+    ends in a synchronize or a copy to the host."""
+    times, out = [], None
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), out
+
+
+def tokenizer_vs_plain(kernels, dev, path):
+    """Phase 11: the tokenizer against its plain version on the card, the
+    colon-dropped fault, and the kernel, its plain version and the whole
+    ``kernel_token_spans`` route timed at one chunk of ``path``."""
+    from dmlc_tpu_torch.data import vparse
+
+    err = 0.0
+    for kind, size in TOKEN_SIZES:
+        err = max(err, hold_masks(kernels, "%s n=%d" % (kind, size),
+                                  torch.tensor(token_chunk(kind, size,
+                                                           seed=size),
+                                               device=dev))[1])
+    buf = torch.tensor(token_chunk("mixed", 70_000, seed=5), device=dev)
+    for off in range(1, 16):
+        for n in (1, 15, 16, 17, 65_536 - off):
+            err = max(err, hold_masks(kernels, "offset %d n=%d" % (off, n),
+                                      buf[off:off + n])[1])
+    chunk = first_chunk(path)
+    a = torch.tensor(chunk, device=dev)
+    n = a.shape[0]
+    got, chunk_err = hold_masks(kernels, "criteo chunk n=%d" % n, a)
+    err = max(err, chunk_err)
+    fault = colon_dropped_masks(a)
+    fault_bytes = int(sum(int((g != f).sum()) for g, f in zip(got, fault)))
+    require(fault_bytes > 0, "the colon-dropped masks equal the kernel's")
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    ms = time_ms(lambda: kernels.tokenize_boundaries(a), flush, 30)
+    plain_ms = time_ms(lambda: kernels.tokenize_boundaries_plain(a), flush,
+                       30)
+    del flush
+    # the route, step by step, on the host's clock (pageable copies)
+    own_ms, owned = host_ms(lambda: torch.from_numpy(chunk.copy()))
+    h2d_ms, on_card = host_ms(lambda: (owned.to(dev),
+                                       torch.cuda.synchronize())[0])
+    d2h_ms, masks = host_ms(lambda: tuple(
+        m.cpu().numpy() for m in kernels.tokenize_boundaries(on_card)))
+    spans_ms, _ = host_ms(lambda: (np.flatnonzero(masks[0]),
+                                   np.flatnonzero(masks[1]) + 1))
+    route_ms, spans = host_ms(lambda: vparse.kernel_token_spans(chunk, dev))
+    want = vparse.token_boundary_masks(chunk)
+    require(np.array_equal(spans[0], np.flatnonzero(want[0]))
+            and np.array_equal(spans[1], np.flatnonzero(want[1]) + 1),
+            "kernel_token_spans differs from the numpy spans")
+    numpy_ms, _ = host_ms(lambda: vparse.token_boundary_masks(chunk))
+    report = {"chunk_bytes": n, "fault_colon_dropped_differing_bytes":
+              fault_bytes, "kernel_ms": ms, "plain_ms": plain_ms,
+              "route_ms": {"kernel_token_spans": route_ms,
+                           "copy_into_owned_tensor": own_ms,
+                           "h2d": h2d_ms, "kernel_and_d2h": d2h_ms,
+                           "flatnonzero": spans_ms},
+              "numpy_masks_ms": numpy_ms}
+    row = {"name": "tokenize_boundaries", "route": "cuda",
+           "source": "dmlc_tpu_torch/ops/csrc/tokenize_boundaries.cu",
+           "replaces": "dmlc_tpu/ops/pallas_kernels.py:279",
+           "launches": None, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound(3 * n, 0)
+    del a, got, fault, buf, on_card
+    torch.cuda.empty_cache()
+    return row, report
+
+
+def same_blocks(where, got, want) -> None:
+    for name in ("offset", "label", "index", "value", "weight", "qid",
+                 "field"):
+        g, w = getattr(got, name), getattr(want, name)
+        require((g is None) == (w is None) and (
+            g is None or (g.dtype == w.dtype and np.array_equal(g, w))),
+            "%s: %s differs from the CPU route's", where, name)
+
+
+def read_all(it):
+    from dmlc_tpu_torch.data import RowBlockContainer
+
+    cont = RowBlockContainer()
+    try:
+        for block in it:
+            cont.push_block(block)
+        return cont.to_block(), it.num_col()
+    finally:
+        it.close()
+
+
+def drive_ingest(kernels, dev, path, tmp):
+    """Phase 12: create_row_block_iter over the Criteo-shaped file on the
+    card and on the CPU, bit for bit, with one tokenizer launch a chunk
+    part; then through a #cachefile, cold and warm."""
+    from dmlc_tpu_torch.data import create_row_block_iter
+
+    nbytes = os.path.getsize(path)
+    result = {"file_bytes": nbytes}
+
+    def timed(uri, device):
+        kernels.reset_launch_counts()
+        with count_parts() as parts:
+            t0 = time.perf_counter()
+            block, ncol = read_all(create_row_block_iter(uri, device=device))
+            seconds = time.perf_counter() - t0
+        return block, ncol, seconds, len(parts), \
+            kernels.tokenize_boundaries.launches
+
+    card, ncol, sec, parts, launches = timed(path, dev)
+    require(launches == parts > 0, "ingest: %d tokenizer launches for %d "
+            "chunk parts", launches, parts)
+    cpu, cpu_ncol, cpu_sec, _, cpu_launches = timed(path, "cpu")
+    require(cpu_launches == 0, "ingest: the CPU route launched a kernel")
+    same_blocks("ingest on the card", card, cpu)
+    require(ncol == cpu_ncol and len(card) == INGEST_ROWS,
+            "ingest: num_col %d/%d, %d rows", ncol, cpu_ncol, len(card))
+    result.update({"rows": len(card), "nnz": card.num_nonzero,
+                   "num_col": ncol, "chunk_parts": parts,
+                   "launches": launches, "card_seconds": sec,
+                   "card_mb_per_s": nbytes / 1e6 / sec,
+                   "cpu_seconds": cpu_sec,
+                   "cpu_mb_per_s": nbytes / 1e6 / cpu_sec})
+    cache = os.path.join(tmp, "criteo.cache")
+    for state in ("cold", "warm"):
+        block, dncol, dsec, dparts, dlaunches = timed(path + "#" + cache,
+                                                      dev)
+        same_blocks("ingest through the %s cache" % state, block, cpu)
+        require(dncol == cpu_ncol, "ingest %s cache: num_col %d", state,
+                dncol)
+        require(dlaunches == dparts and (dparts > 0) == (state == "cold"),
+                "ingest %s cache: %d launches for %d chunk parts", state,
+                dlaunches, dparts)
+        result["disk_" + state] = {"seconds": dsec,
+                                   "mb_per_s": nbytes / 1e6 / dsec,
+                                   "launches": dlaunches}
+    del card, cpu, block
+    # the seconds kernel_token_spans takes over every chunk of the file
+    from dmlc_tpu_torch.data import vparse
+    from dmlc_tpu_torch.io import create_input_split
+
+    split = create_input_split(path, 0, 1)
+    spans_seconds, chunks = 0.0, 0
+    try:
+        while True:
+            chunk = split.next_chunk()
+            if chunk is None:
+                break
+            a = np.frombuffer(chunk, dtype=np.uint8)
+            t0 = time.perf_counter()
+            vparse.kernel_token_spans(a, dev)
+            spans_seconds += time.perf_counter() - t0
+            chunks += 1
+    finally:
+        split.close()
+    result["kernel_token_spans"] = {"chunks": chunks,
+                                    "seconds": spans_seconds}
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -724,6 +999,7 @@ def main() -> int:
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
     from dmlc_tpu_torch.utils.device import resolve_device
 
+    started = time.perf_counter()
     dev = resolve_device(None)  # also turns TF32 off
     card = card_line()
     print("card:", card, flush=True)
@@ -882,15 +1158,41 @@ def main() -> int:
     torch.cuda.synchronize()
     print(json.dumps({"flash_timing_extra": flash_extra}), flush=True)
 
+    # ---- 11./12. the tokenizer and the ingest path --------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        ingest_file = os.path.join(tmp, "criteo_ingest.svm")
+        t0 = time.perf_counter()
+        write_criteo(ingest_file, INGEST_ROWS, seed=13)
+        write_seconds = time.perf_counter() - t0
+        token_row, token_report = tokenizer_vs_plain(kernels, dev,
+                                                     ingest_file)
+        torch.cuda.synchronize()
+        print(json.dumps({"tokenizer_vs_plain": token_report}), flush=True)
+        ingest = drive_ingest(kernels, dev, ingest_file, tmp)
+        ingest["write_seconds"] = write_seconds
+        torch.cuda.synchronize()
+    print(json.dumps({"ingest": ingest}), flush=True)
+    token_row["launches"] = ingest["launches"]
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
-            "feed_only_seconds": v["feed_only_seconds"]}
+            "feed_only_seconds": v["feed_only_seconds"],
+            "chunk_parts": v["chunk_parts"],
+            "tokenize_launches": v["tokenize_launches"]}
         for k, v in paths.items()}}))
     print(json.dumps({"attention_path_ms_per_step": {
         str(PATH_T): statistics.median(attention["path"]["step_ms"]),
         str(LONG_T): attention["long"]["step_ms"][0]}}))
-    print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows}))
+    print(json.dumps({"ingest_mb_per_s": {
+        "card": ingest["card_mb_per_s"], "cpu": ingest["cpu_mb_per_s"],
+        "disk_cold": ingest["disk_cold"]["mb_per_s"],
+        "disk_warm": ingest["disk_warm"]["mb_per_s"],
+        "kernel_token_spans_seconds":
+            ingest["kernel_token_spans"]["seconds"]}}))
+    print(json.dumps({"seconds": time.perf_counter() - started}))
+    print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
+                      + [token_row]}))
     print("card:", card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

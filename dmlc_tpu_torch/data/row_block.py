@@ -1,24 +1,53 @@
-"""CSR row batches: ``RowBlock`` and its growable builder
+"""CSR row batches: ``Row``, ``RowBlock`` and its growable builder
 ``RowBlockContainer`` (include/dmlc/data.h, src/data/row_block.h) — the
-parts the parser and the device feed use, copied from
+parts the parsers, the row iterators and the device feed use, copied from
 ``dmlc_tpu/data/row_block.py``.
 
 A missing ``value`` means "all ones" and a missing ``weight`` means "all
 1.0", like the reference's NULL pointers. Arrays are numpy; the device feed
-pads them into static-shape tensors.
+pads them into static-shape tensors. ``RowBlockContainer.save`` / ``load``
+are the cache-file page format, byte for byte the JAX package's.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
 
+from dmlc_tpu_torch.io.serializer import load_obj, save_obj
+from dmlc_tpu_torch.io.stream import Stream
 from dmlc_tpu_torch.utils.logging import check, check_eq
 
 # data.h: real_t = float, index_t = unsigned
 REAL_DTYPE = np.float32
 INDEX_DTYPE = np.uint32
+
+
+@dataclass
+class Row:
+    """One sparse row view (data.h:70-158)."""
+
+    label: float
+    index: np.ndarray
+    value: Optional[np.ndarray] = None
+    weight: float = 1.0
+    qid: Optional[int] = None
+    field: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def get_value(self, i: int) -> float:
+        """value == NULL means 1 (data.h:146-151)."""
+        return 1.0 if self.value is None else float(self.value[i])
+
+    def sdot(self, weight: np.ndarray) -> float:
+        """Sparse dot with a dense vector (data.h:152-158)."""
+        if self.value is None:
+            return float(weight[self.index].sum())
+        return float(weight[self.index] @ self.value)
 
 
 class RowBlock:
@@ -60,6 +89,22 @@ class RowBlock:
     def num_nonzero(self) -> int:
         return len(self.index)
 
+    def __getitem__(self, i: int) -> Row:
+        """Zero-copy row view (data.h:354-383)."""
+        lo, hi = int(self.offset[i]), int(self.offset[i + 1])
+        return Row(
+            label=float(self.label[i]),
+            index=self.index[lo:hi],
+            value=None if self.value is None else self.value[lo:hi],
+            weight=1.0 if self.weight is None else float(self.weight[i]),
+            qid=None if self.qid is None else int(self.qid[i]),
+            field=None if self.field is None else self.field[lo:hi],
+        )
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
     def slice(self, begin: int, end: int) -> "RowBlock":
         """Sub-range view sharing data (data.h:210-230)."""
         check(0 <= begin <= end <= len(self), "bad slice range")
@@ -73,6 +118,28 @@ class RowBlock:
             qid=None if self.qid is None else self.qid[begin:end],
             field=None if self.field is None else self.field[lo:hi],
         )
+
+    def mem_cost_bytes(self) -> int:
+        """Bytes of the arrays (data.h MemCostBytes:194-208)."""
+        cost = self.offset.nbytes + self.label.nbytes + self.index.nbytes
+        for arr in (self.value, self.weight, self.qid, self.field):
+            if arr is not None:
+                cost += arr.nbytes
+        return cost
+
+    def num_col(self) -> int:
+        """max feature index + 1 (basic_row_iter.h:46)."""
+        return int(self.index.max()) + 1 if len(self.index) else 0
+
+    def to_dense(self, num_col: Optional[int] = None) -> np.ndarray:
+        """A dense [rows, num_col] f32 copy (for tests and small data)."""
+        ncol = num_col if num_col is not None else self.num_col()
+        out = np.zeros((len(self), ncol), dtype=REAL_DTYPE)
+        values = (np.ones(len(self.index), dtype=REAL_DTYPE)
+                  if self.value is None else self.value)
+        rows = np.repeat(np.arange(len(self)), np.diff(self.offset))
+        out[rows, self.index] = values
+        return out
 
 
 class RowBlockContainer:
@@ -223,3 +290,50 @@ class RowBlockContainer:
             )
         return RowBlock(offset=offset, label=label, index=index, value=value,
                         weight=weight, qid=qid, field=field)
+
+    # ---- binary page format (row_block.h:189-215) ----------------------
+    def save(self, stream: Stream) -> None:
+        block = self.to_block()
+        save_obj(stream, {
+            "offset": block.offset,
+            "label": block.label,
+            "index": block.index,
+            "value": block.value,
+            "weight": block.weight,
+            "qid": block.qid,
+            "field": block.field,
+            "max_index": self.max_index,
+        })
+
+    @classmethod
+    def load(cls, stream: Stream) -> "RowBlockContainer":
+        """One page from ``stream``; EOFError at the end of the stream."""
+        payload = load_obj(stream)
+        out = cls()
+        out.push_block(RowBlock(
+            offset=payload["offset"],
+            label=payload["label"],
+            index=payload["index"],
+            value=payload["value"],
+            weight=payload["weight"],
+            qid=payload["qid"],
+            field=payload["field"],
+        ))
+        out.max_index = int(payload["max_index"])
+        return out
+
+    def mem_cost_bytes(self) -> int:
+        """Size of the finalized block, computed from the counts alone
+        (data.h MemCostBytes:194-208)."""
+        nrows = self._nrows
+        idx_item = np.dtype(self.index_dtype).itemsize
+        cost = (nrows + 1) * 8 + nrows * 4 + self._nnz * idx_item
+        if self._any_value:
+            cost += self._nnz * 4
+        if self._any_weight:
+            cost += nrows * 4
+        if self._any_qid:
+            cost += nrows * 8
+        if any(f is not None for f in self._field_parts):
+            cost += self._nnz * idx_item
+        return cost

@@ -1,12 +1,14 @@
-"""Vectorized libsvm parse: whole-chunk byte tokenization, columnar output.
+"""Vectorized text parse: whole-chunk byte tokenization, columnar output.
 
-A copy of the libsvm half of ``dmlc_tpu/data/vparse.py`` (host numpy code,
-copied rather than imported so that this package loads nothing of
-``dmlc_tpu``):
+A copy of ``dmlc_tpu/data/vparse.py`` (host numpy code, copied rather than
+imported so that this package loads nothing of ``dmlc_tpu``):
 
-1. **Tokenize the whole chunk at once.** Separator classification is a few
-   fused compares over a ``uint8`` view of the chunk; token start/end
-   offsets fall out of shifted boolean masks.
+1. **Tokenize the whole chunk at once.** The libsvm token start/end masks
+   are per-byte compares with a neighbour; :func:`parse_libsvm_vector`
+   takes them precomputed (the parsers make them on their device with the
+   ``tokenize_boundaries`` kernel, :func:`kernel_token_masks`) or makes
+   them in numpy (:func:`token_boundary_masks`). Token offsets fall out of
+   the masks.
 2. **Convert grouped by width.** Tokens of equal byte length gather into an
    exact-width ``(n, l)`` matrix; digits become an exact float64 mantissa
    and one correctly-rounded divide by 10^decimals lands the value —
@@ -19,12 +21,17 @@ copied rather than imported so that this package loads nothing of
 Rows outside the vectorized grammar (``qid:`` groups, ``1:2:3`` shapes,
 over-long tokens) are re-parsed by the scalar line parser
 :func:`parse_libsvm_line`, the single source of truth, in order.
-:func:`parse_libsvm_scalar` is the oracle the vector path is held to.
+:func:`parse_libsvm_scalar` is the oracle the vector path is held to. The
+csv half (:func:`parse_csv_vector_table`, its oracle
+:func:`parse_csv_scalar_table`) is host code only, as in the JAX package.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
+import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
 from dmlc_tpu_torch.data.row_block import (
@@ -32,6 +39,8 @@ from dmlc_tpu_torch.data.row_block import (
     REAL_DTYPE,
     RowBlockContainer,
 )
+from dmlc_tpu_torch.ops import kernels
+from dmlc_tpu_torch.utils.device import resolve_device
 
 _NL = 0x0A
 _CR = 0x0D
@@ -256,26 +265,26 @@ def parse_libsvm_scalar(chunk: bytes, out: RowBlockContainer) -> None:
 # ---------------------------------------------------------------------------
 
 
-def parse_libsvm_vector(chunk: bytes, out: RowBlockContainer) -> None:
+def parse_libsvm_vector(chunk: bytes, out: RowBlockContainer,
+                        masks: Optional[Tuple[np.ndarray, np.ndarray]] = None
+                        ) -> None:
     """Vectorized libsvm chunk parse, bit-identical to the scalar path.
 
-    Columnar outputs are pushed as whole-array runs; rows outside the
-    vectorized grammar are re-parsed by :func:`parse_libsvm_line` at
-    their in-order position.
+    ``masks`` are the chunk's token (starts_mask, ends_mask) as bool
+    arrays, made on a device by :func:`kernel_token_masks`; None makes
+    them here with :func:`token_boundary_masks`. Columnar outputs are
+    pushed as whole-array runs; rows outside the vectorized grammar are
+    re-parsed by :func:`parse_libsvm_line` at their in-order position.
     """
     a = np.frombuffer(chunk, dtype=np.uint8)
     if a.size == 0:
         return
 
-    # --- tokenize: boundary masks from fused compares ---
+    # --- tokenize: boundary masks (the rest of the parse reads the line
+    # breaks and the colons as well) ---
     is_eol = (a == _NL) | (a == _CR)
     c58 = a == _COLON
-    sep = (a == 0x20) | (a == 0x09) | c58 | is_eol
-    nonsep = ~sep
-    sm = nonsep.copy()
-    sm[1:] &= sep[:-1]
-    em = nonsep.copy()
-    em[:-1] &= sep[1:]
+    sm, em = token_boundary_masks(a) if masks is None else masks
     starts = np.flatnonzero(sm)
     ends = np.flatnonzero(em) + 1
     n = starts.size
@@ -408,3 +417,151 @@ def parse_libsvm_vector(chunk: bytes, out: RowBlockContainer) -> None:
             r1 += 1
         push_run(r, r1)
         r = r1
+
+
+# ---------------------------------------------------------------------------
+# csv
+# ---------------------------------------------------------------------------
+
+
+def _csv_line_spans(a: np.ndarray):
+    """splitlines-equivalent (start, end) spans: ``\\r\\n`` is one break,
+    lone ``\\r`` and ``\\n`` each break, no phantom final line."""
+    brk = np.flatnonzero((a == _CR) | (a == _NL))
+    if brk.size:
+        # a '\n' directly after a '\r' belongs to the same break
+        drop = (a[brk] == _NL) & (brk > 0)
+        drop[drop] &= a[brk[drop] - 1] == _CR
+        ends = brk[~drop]
+        two = (a[ends] == _CR) & (ends + 1 < a.size)
+        if two.any():
+            two[two] &= a[ends[two] + 1] == _NL
+        starts = np.concatenate(([0], ends + 1 + two))
+        ends = np.concatenate((ends, [a.size]))
+    else:
+        starts = np.zeros(1, dtype=np.int64)
+        ends = np.full(1, a.size, dtype=np.int64)
+    keep = starts < ends  # a chunk ending in a newline has no final line
+    return starts[keep], ends[keep]
+
+
+def parse_csv_scalar_table(chunk: bytes) -> np.ndarray:
+    """Scalar csv parse → dense float64 table (the oracle).
+
+    Blank / whitespace-only lines are skipped; empty cells — a blank last
+    column from a trailing comma too — read 0.0 (strtof on empty); ragged
+    rows right-pad with 0.0 to the widest; anything non-numeric (quoted
+    cells too) raises ValueError, as ``float()`` does.
+    """
+    rows = [
+        [float(c or b"0") for c in ln.split(b",")]
+        for ln in chunk.splitlines()
+        if ln.strip()
+    ]
+    if not rows:
+        return np.zeros((0, 0), dtype=np.float64)
+    width = max(len(r) for r in rows)
+    table = np.zeros((len(rows), width), dtype=np.float64)
+    for i, r in enumerate(rows):
+        table[i, : len(r)] = r
+    return table
+
+
+def parse_csv_vector_table(chunk: bytes) -> np.ndarray:
+    """Vectorized csv parse → dense float64 table, bit-identical to
+    :func:`parse_csv_scalar_table`: cell spans come straight from
+    comma/newline offset arrays."""
+    a = np.frombuffer(chunk, dtype=np.uint8)
+    if a.size == 0:
+        return np.zeros((0, 0), dtype=np.float64)
+    ls, le = _csv_line_spans(a)
+    if ls.size == 0:
+        return np.zeros((0, 0), dtype=np.float64)
+    # keep lines with any comma or any non-whitespace byte (the scalar
+    # path's `if ln.strip()` keeps b",,": commas are not whitespace)
+    cm = np.flatnonzero(a == 0x2C)
+    nonws = ~((a == 0x20) | (a == 0x09) | (a == _CR) | (a == _NL)
+              | (a == 0x0B) | (a == 0x0C))
+    nwpos = np.flatnonzero(nonws)
+    ncomma = (np.searchsorted(cm, le) - np.searchsorted(cm, ls))
+    has_text = (np.searchsorted(nwpos, le) - np.searchsorted(nwpos, ls)) > 0
+    keep = has_text | (ncomma > 0)
+    ls, le, ncomma = ls[keep], le[keep], ncomma[keep]
+    nrows = ls.size
+    if nrows == 0:
+        return np.zeros((0, 0), dtype=np.float64)
+    cm = cm[np.searchsorted(cm, ls[0]):]
+
+    # cells: line starts and comma+1 open, commas and line ends close;
+    # scatter each into its global cell slot (row-major by construction)
+    ncols = ncomma + 1
+    row_first = np.zeros(nrows + 1, dtype=np.int64)
+    np.cumsum(ncols, out=row_first[1:])
+    total = int(row_first[-1])
+    cs = np.empty(total, dtype=np.int64)
+    ce = np.empty(total, dtype=np.int64)
+    cs[row_first[:-1]] = ls
+    ce[row_first[1:] - 1] = le
+    if cm.size:
+        line_of_cm = np.searchsorted(le, cm, side="left")
+        cslot = (
+            row_first[line_of_cm]
+            + (np.arange(cm.size) - np.searchsorted(cm, ls)[line_of_cm])
+        )
+        ce[cslot] = cm
+        cs[cslot + 1] = cm + 1
+    clen = ce - cs
+    vals = np.empty(total, dtype=np.float64)
+    ne = np.flatnonzero(clen)
+    vals[np.flatnonzero(clen == 0)] = 0.0  # strtof on empty: a blank cell
+    vals[ne] = _gather_floats(a, cs[ne], clen[ne])
+
+    if int(ncols.min()) == int(ncols.max()):
+        return vals.reshape(nrows, int(ncols[0]))
+    # ragged: right-pad with 0.0 to the widest row
+    cell_row = np.repeat(np.arange(nrows), ncols)
+    col = np.arange(total, dtype=np.int64) - row_first[cell_row]
+    table = np.zeros((nrows, int(ncols.max())), dtype=np.float64)
+    table[cell_row, col] = vals
+    return table
+
+
+# ---------------------------------------------------------------------------
+# token masks: numpy, and the tokenize_boundaries kernel
+# ---------------------------------------------------------------------------
+
+
+def token_boundary_masks(a: np.ndarray):
+    """(starts_mask, ends_mask) bool arrays for the libsvm tokens of the
+    uint8 chunk ``a``, in numpy: the reference the device route
+    (:func:`kernel_token_masks`) is held to."""
+    sep = ((a == 0x20) | (a == 0x09) | (a == _COLON)
+           | (a == _NL) | (a == _CR))
+    nonsep = ~sep
+    starts = nonsep.copy()
+    starts[1:] &= sep[:-1]
+    ends = nonsep.copy()
+    ends[:-1] &= sep[1:]
+    return starts, ends
+
+
+def kernel_token_masks(a: np.ndarray, device=None):
+    """(starts_mask, ends_mask) bool numpy arrays for the uint8 chunk
+    ``a``, made by ``ops.kernels.tokenize_boundaries`` on ``device``
+    (None means cuda): the bytes are copied into a tensor this function
+    owns, moved to the device, tokenized there, and the masks copied
+    back. On a CPU device the kernel's plain version makes them."""
+    dev = resolve_device(device)
+    cur = torch.from_numpy(np.array(a, dtype=np.uint8, copy=True))
+    starts, ends = kernels.tokenize_boundaries(cur.to(dev))
+    return starts.cpu().numpy(), ends.cpu().numpy()
+
+
+def kernel_token_spans(a: np.ndarray, device=None):
+    """(starts, ends) int64 token offsets of the uint8 chunk ``a`` from
+    the tokenize_boundaries kernel on ``device`` (None means cuda): the
+    counterpart of the JAX package's ``vparse.pallas_token_spans``, with
+    no knob and no fallback — a device that cannot run the kernel raises.
+    The offsets come from the masks on the host (``flatnonzero``)."""
+    starts_mask, ends_mask = kernel_token_masks(a, device)
+    return np.flatnonzero(starts_mask), np.flatnonzero(ends_mask) + 1

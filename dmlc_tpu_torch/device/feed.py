@@ -103,18 +103,21 @@ class PinnedPool:
 
 
 class DeviceFeed:
-    """Iterate fixed-shape device batches from a parser or a uri."""
+    """Iterate fixed-shape device batches from a parser or a uri; a uri
+    gets ``create_parser`` on the feed's device, so its libsvm chunks
+    tokenize there too."""
 
     def __init__(self, source, spec: BatchSpec, device=None,
                  part_index: int = 0, num_parts: int = 1):
         check(spec.layout in ("dense", "csr"), "layout must be dense or csr")
         if spec.layout == "dense":
             check(spec.num_features > 0, "dense layout requires num_features")
+        self.device = resolve_device(device)
         if isinstance(source, str):
-            source = create_parser(source, part_index, num_parts)
+            source = create_parser(source, part_index, num_parts,
+                                   device=self.device)
         self._parser: Parser = source
         self.spec = spec
-        self.device = resolve_device(device)
         self.pool = PinnedPool() if self.device.type == "cuda" else None
 
     # ---- host side: re-batch parser blocks into fixed-size slices ------

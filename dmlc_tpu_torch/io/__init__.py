@@ -1,14 +1,24 @@
-"""URI parsing and the text InputSplit over local files."""
+"""I/O layer: streams, the serializer, local files, URI parsing and the
+text InputSplit over local files."""
 
+from dmlc_tpu_torch.io.filesystem import create_stream
 from dmlc_tpu_torch.io.input_split import (
     InputSplitBase,
     LineSplitter,
     create_input_split,
     list_split_files,
 )
+from dmlc_tpu_torch.io.serializer import load_obj, save_obj
+from dmlc_tpu_torch.io.stream import (
+    FileObjStream,
+    MemoryStream,
+    SeekStream,
+    Stream,
+)
 from dmlc_tpu_torch.io.uri_spec import URISpec
 
 __all__ = [
-    "InputSplitBase", "LineSplitter", "URISpec", "create_input_split",
-    "list_split_files",
+    "Stream", "SeekStream", "FileObjStream", "MemoryStream", "save_obj",
+    "load_obj", "create_stream", "InputSplitBase", "LineSplitter",
+    "URISpec", "create_input_split", "list_split_files",
 ]

@@ -13,8 +13,9 @@ src/io/input_split_base.cc and line_split.cc), for local files:
   ``overflow`` buffer, and a chunk with no line start inside doubles until
   it holds one (Chunk::Load).
 
-Left out here: remote filesystems, RecordIO, the disk cache (a
-``#cachefile`` uri raises), chunk shuffle and the prefetch thread.
+Left out here: remote filesystems, RecordIO, chunk shuffle and the
+prefetch thread. A ``#cachefile`` uri raises: ``data/row_iter.py`` serves
+cache files.
 """
 
 from __future__ import annotations
@@ -24,19 +25,12 @@ import os
 import re
 from typing import List, Optional, Tuple
 
+from dmlc_tpu_torch.io.filesystem import local_path
 from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
 # 8 MiB chunk buffer (kBufferSize, src/io/input_split_base.h)
 DEFAULT_CHUNK_BYTES = (2 << 20) * 4
-
-
-def _local_path(part: str) -> str:
-    if part.startswith("file://"):
-        return part[len("file://"):]
-    check("://" not in part,
-          "only local files are supported, got %s", part)
-    return part
 
 
 def _expand_patterns(uri: str) -> List[str]:
@@ -48,7 +42,7 @@ def _expand_patterns(uri: str) -> List[str]:
     for part in uri.split(";"):
         if not part:
             continue
-        name = _local_path(part)
+        name = local_path(part)
         pos = name.rfind("/")
         if pos < 0 or pos + 1 == len(name):
             out.append(name)

@@ -1,7 +1,8 @@
 """URI "sugar" parsing: ``path?key=val&...#cachefile`` (``dmlc::io::URISpec``).
 
-The ``?args`` and ``#cachefile`` split is kept; cache files are not served by
-this package's InputSplit, which raises on them (see io/input_split.py).
+The ``?args`` and ``#cachefile`` split is kept. The InputSplit (and so the
+parser) raises on a cache file; ``data/row_iter.create_row_block_iter``
+strips it and caches the parsed pages there.
 """
 
 from __future__ import annotations

@@ -271,15 +271,15 @@ class LinearLearner:
         drop_remainder: bool = False,
     ):
         """One call from data uri to fitted params: InputSplit part →
-        parser → DeviceFeed → fit_feed. Returns the per-epoch mean
-        losses."""
+        parser (tokenizing on the learner's device) → DeviceFeed →
+        fit_feed. Returns the per-epoch mean losses."""
         from dmlc_tpu_torch.data.parsers import create_parser
         from dmlc_tpu_torch.device.feed import BatchSpec, DeviceFeed
 
         nf = num_features or self.param.num_features
         check(nf > 0, "fit_uri requires num_features")
         feed = DeviceFeed(
-            create_parser(uri, part_index, num_parts),
+            create_parser(uri, part_index, num_parts, device=self.device),
             BatchSpec(batch_size=batch_size, layout=layout, num_features=nf,
                       drop_remainder=drop_remainder),
             device=self.device,

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -32,6 +33,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
+# the parse pool's threads may all reach their first launch at once: one
+# of them builds, the others wait for it
+_lib_lock = threading.Lock()
 #: seconds the build in this process took; None when the library was cached
 build_seconds: Optional[float] = None
 
@@ -109,9 +113,10 @@ def _build(target: Path) -> None:
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
-    if _lib is None:
-        target = library_path()
-        if not target.exists():
-            _build(target)
-        _lib = ctypes.CDLL(str(target))
+    with _lib_lock:
+        if _lib is None:
+            target = library_path()
+            if not target.exists():
+                _build(target)
+            _lib = ctypes.CDLL(str(target))
     return _lib

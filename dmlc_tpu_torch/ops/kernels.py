@@ -10,19 +10,24 @@ flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
   (csrc/flash_attention_fwd.cu);
 - :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` — its
   gradients (csrc/flash_attention_bwd.cu). ``ops/flash_attention.py`` joins
-  the three into an autograd Function.
+  the three into an autograd Function;
+- :func:`tokenize_boundaries` — the libsvm token start/end masks of a
+  chunk of bytes (csrc/tokenize_boundaries.cu), for the parsers.
 
 The tensor's device picks the route: on a CUDA tensor the wrapper launches
 the kernel (built at first use by ops/_build.py) or raises; the plain
 version runs only for tensors on the CPU. Each wrapper counts its launches
 in a plain int attribute, ``<wrapper>.launches``, so that a run can show
-that its main path went through the kernel. Kernels launch on the current
-CUDA stream and allocate nothing: the wrapper allocates outputs and scratch.
+that its main path went through the kernel; :func:`count_launch` adds one
+under a lock, since the parsers launch from several threads at once.
+Kernels launch on the current CUDA stream and allocate nothing: the wrapper
+allocates outputs and scratch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -42,6 +47,9 @@ FUSED_TILE_ROWS = 64
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _declared = False
+#: guards every wrapper's ``launches`` count (a += from two threads can
+#: lose one)
+_LAUNCH_LOCK = threading.Lock()
 
 
 def _lib() -> ctypes.CDLL:
@@ -61,6 +69,8 @@ def _lib() -> ctypes.CDLL:
         lib.dmlc_flash_attention_bwd_dq.restype = ctypes.c_int
         lib.dmlc_flash_attention_bwd_dkv.argtypes = [_P] * 8 + dims
         lib.dmlc_flash_attention_bwd_dkv.restype = ctypes.c_int
+        lib.dmlc_tokenize_boundaries.argtypes = [_P, _I64, _P, _P, _P]
+        lib.dmlc_tokenize_boundaries.restype = ctypes.c_int
         _declared = True
     return lib
 
@@ -78,6 +88,12 @@ def _check_input(t, name: str, dtype, shape, device) -> None:
 def _launch_check(rc: int, name: str) -> None:
     if rc != 0:
         raise DMLCError(f"{name}: CUDA kernel launch failed with error {rc}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, safe under threads."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +146,7 @@ def fused_linear_grads(x, label, weight, w, b, objective="logistic"):
             FUSED_TILE_ROWS, partials.data_ptr(), gw.data_ptr(),
             scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "fused_linear_grads")
-    fused_linear_grads.launches += 1
+    count_launch(fused_linear_grads)
     return gw, scalars[0], scalars[1], scalars[2]
 
 
@@ -182,7 +198,7 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
             contrib.data_ptr(), row_ids.data_ptr(), entries, num_rows,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "coo_segment_sum")
-    coo_segment_sum.launches += 1
+    count_launch(coo_segment_sum)
     return out
 
 
@@ -259,7 +275,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
             lse.data_ptr(), b, t, h, hk, d, int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _launch_check(rc, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    count_launch(flash_attention_fwd)
     return out, lse
 
 
@@ -296,7 +312,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False):
             int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _launch_check(rc, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    count_launch(flash_attention_bwd_dq)
     return dq
 
 
@@ -323,11 +339,72 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False):
             b, t, h, hk, d, int(bool(causal)),
             torch.cuda.current_stream(q.device).cuda_stream)
     _launch_check(rc, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    count_launch(flash_attention_bwd_dkv)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# tokenize_boundaries
+# ---------------------------------------------------------------------------
+
+#: the libsvm separators: space, tab, ':', '\n', '\r'
+TOKEN_SEPARATORS = (0x20, 0x09, 0x3A, 0x0A, 0x0D)
+
+
+def tokenize_boundaries_plain(a):
+    """(starts, ends) bool [n] in plain PyTorch ops: a byte starts (ends)
+    a token when it is no separator and the byte before (after) it is one;
+    the byte before the chunk and the byte after it count as separators
+    (``vparse.token_boundary_masks``)."""
+    sep = torch.zeros_like(a, dtype=torch.bool)
+    for code in TOKEN_SEPARATORS:
+        sep |= a == code
+    edge = torch.ones(1, dtype=torch.bool, device=a.device)
+    starts = ~sep & torch.cat([edge, sep[:-1]])
+    ends = ~sep & torch.cat([sep[1:], edge])
+    return starts, ends
+
+
+def tokenize_boundaries(a):
+    """(starts, ends) bool [n]: the token start and end masks of the uint8
+    chunk ``a`` [n], as :func:`tokenize_boundaries_plain` defines them.
+
+    On a CUDA tensor this launches csrc/tokenize_boundaries.cu once, at any
+    n >= 1 and any base address (the outputs may be views into slightly
+    larger buffers: the wrapper aligns them as the input is aligned, so
+    the kernel stores 16 bytes at a time); on a CPU tensor it runs
+    :func:`tokenize_boundaries_plain`. n == 0 gives two empty masks and
+    launches nothing."""
+    check(isinstance(a, torch.Tensor) and a.dim() == 1,
+          "a must be a 1-d tensor")
+    n = a.shape[0]
+    _check_input(a, "a", torch.uint8, (n,), a.device)
+    if a.device.type == "cpu":
+        return tokenize_boundaries_plain(a)
+    check(a.device.type == "cuda", "unsupported device %s", a.device)
+    if n == 0:
+        return (torch.empty(0, dtype=torch.bool, device=a.device),
+                torch.empty(0, dtype=torch.bool, device=a.device))
+    shift = a.data_ptr() % 16
+    outs = []
+    for _ in range(2):
+        buf = torch.empty(n + 16, dtype=torch.bool, device=a.device)
+        lead = (shift - buf.data_ptr()) % 16
+        outs.append(buf[lead:lead + n])
+    starts, ends = outs
+    with torch.cuda.device(a.device):
+        rc = _lib().dmlc_tokenize_boundaries(
+            a.data_ptr(), n, starts.data_ptr(), ends.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _launch_check(rc, "tokenize_boundaries")
+    count_launch(tokenize_boundaries)
+    return starts, ends
+
+
+tokenize_boundaries.launches = 0
 
 #: every kernel wrapper of the package, by name
 KERNELS = {
@@ -336,9 +413,11 @@ KERNELS = {
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd_dq": flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "tokenize_boundaries": tokenize_boundaries,
 }
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    with _LAUNCH_LOCK:
+        for fn in KERNELS.values():
+            fn.launches = 0

@@ -1,4 +1,5 @@
-"""Parameter structs (the subset the learners use)."""
+"""Parameter structs (the subset the learners and parsers use) and the
+factory Registry."""
 
 from dmlc_tpu_torch.params.parameter import (
     FieldInfo,
@@ -6,5 +7,7 @@ from dmlc_tpu_torch.params.parameter import (
     ParamError,
     field,
 )
+from dmlc_tpu_torch.params.registry import Registry, RegistryEntry
 
-__all__ = ["FieldInfo", "Parameter", "ParamError", "field"]
+__all__ = ["FieldInfo", "Parameter", "ParamError", "field", "Registry",
+           "RegistryEntry"]

@@ -1,9 +1,10 @@
-"""Logging/check layer and the device rule."""
+"""Logging/check layer, the device rule and the prefetch iterator."""
 
 from dmlc_tpu_torch.utils.device import resolve_device, strict_f32
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq, log_info
+from dmlc_tpu_torch.utils.threaded_iter import ThreadedIter
 
 __all__ = [
-    "DMLCError", "check", "check_eq", "log_info", "resolve_device",
-    "strict_f32",
+    "DMLCError", "ThreadedIter", "check", "check_eq", "log_info",
+    "resolve_device", "strict_f32",
 ]

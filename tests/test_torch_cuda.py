@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLASH_CASES, flash_case
+from chip_smoke import FLASH_CASES, TOKEN_SIZES, flash_case, token_chunk
+from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
 from dmlc_tpu_torch.ops import kernels
@@ -162,7 +163,7 @@ def test_flash_path_trains_through_the_kernels(cuda):
     assert {n: kernels.KERNELS[n].launches for n in kernels.KERNELS} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
         "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
-        "flash_attention_bwd_dkv": 1}
+        "flash_attention_bwd_dkv": 1, "tokenize_boundaries": 0}
     for x in leaves:
         x.grad = None
     out = make_ulysses_attention(causal=True)(*leaves)
@@ -230,3 +231,52 @@ def test_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path, layout):
     name = "fused_linear_grads" if layout == "dense" else "coo_segment_sum"
     assert kernels.KERNELS[name].launches == 2 * 8
     np.testing.assert_allclose(history, cpu, rtol=1e-5)
+
+
+def _hold_masks(got, a):
+    want = kernels.tokenize_boundaries_plain(a)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bool and g.shape == a.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind,size", TOKEN_SIZES)
+def test_tokenize_boundaries_kernel_matches_plain(cuda, kind, size):
+    """chip_smoke.py's phase-11 sizes: ragged n around the 16-byte group,
+    an all-separator and a separator-free chunk, and an 8 MiB chunk; the
+    masks are exact, so they must be equal."""
+    a = torch.tensor(token_chunk(kind, size, seed=size), device=cuda)
+    before = kernels.tokenize_boundaries.launches
+    got = kernels.tokenize_boundaries(a)
+    torch.cuda.synchronize()
+    assert kernels.tokenize_boundaries.launches == before + (size > 0)
+    _hold_masks(got, a)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_tokenize_boundaries_unaligned_starts(cuda, offset):
+    """A chunk that starts 1-15 bytes into a buffer: partial first and
+    last groups, and outputs aligned as the input is."""
+    buf = torch.tensor(token_chunk("mixed", 5000, seed=offset), device=cuda)
+    for n in (1, 15, 16, 17, 4096 - offset):
+        _hold_masks(kernels.tokenize_boundaries(buf[offset:offset + n]),
+                    buf[offset:offset + n])
+
+
+def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
+    """create_row_block_iter on the card and on the CPU: the same
+    RowBlock, bit for bit, with one kernel launch a non-empty chunk part
+    (nthread=2 splits a chunk of 4096 bytes or more in two)."""
+    path = _write_svm(tmp_path / "t.svm", 3000)
+    kernels.reset_launch_counts()
+    got = next(iter(create_row_block_iter(path, nthread=1)))
+    launches = kernels.tokenize_boundaries.launches
+    want = next(iter(create_row_block_iter(path, device="cpu")))
+    assert launches == 1  # one chunk, one part, under 8 MiB
+    for name in ("offset", "label", "index", "value"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+    kernels.reset_launch_counts()
+    again = next(iter(create_row_block_iter(path)))
+    assert kernels.tokenize_boundaries.launches == 2
+    assert np.array_equal(again.index, want.index)

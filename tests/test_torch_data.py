@@ -124,7 +124,8 @@ def test_parser_rowblocks_match_reference(tmp_path, monkeypatch, weights,
     path = tmp_path / "w.svm"
     path.write_text("\n".join(_libsvm_lines(2, 250, weights=weights)) + "\n")
     for part in range(nparts):
-        parser = create_parser(str(path), part, nparts)
+        parser = create_parser(str(path), part, nparts, threaded=False,
+                               device="cpu")
         ref = ref_create_parser(str(path), part, nparts, threaded=False)
         parser._source.hint_chunk_size(512)
         ref._source.hint_chunk_size(512)
@@ -199,7 +200,7 @@ def test_device_feed_matches_reference(svm_file, monkeypatch, layout,
     monkeypatch.setenv("DMLC_TPU_PARSE_BACKEND", "vector")
     kw = dict(batch_size=32, layout=layout, num_features=40,
               drop_remainder=drop_remainder)
-    parser = create_parser(svm_file)
+    parser = create_parser(svm_file, threaded=False, device="cpu")
     ref = ref_create_parser(svm_file, threaded=False)
     # chunks of ~20 lines: batches straddle chunk boundaries
     parser._source.hint_chunk_size(1024)

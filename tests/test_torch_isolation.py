@@ -17,6 +17,8 @@ _FIT_AND_LIST_MODULES = """
 import sys
 import torch
 import dmlc_tpu_torch
+import dmlc_tpu_torch.data.row_iter
+from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch.models import LinearLearner
 from dmlc_tpu_torch.ops import sequence_parallel as sp
 
@@ -24,6 +26,10 @@ for layout in ("dense", "csr"):
     history = LinearLearner(device="cpu", momentum=0.5).fit_uri(
         sys.argv[1], batch_size=4, epochs=2, layout=layout, num_features=8)
     assert len(history) == 2, history
+it = create_row_block_iter(sys.argv[1] + "#" + sys.argv[1] + ".cache",
+                           device="cpu")
+assert sum(len(b) for b in it) == 11 and it.num_col() == 8
+it.close()
 attend = sp.make_ulysses_attention(local_attention=sp.make_flash_local(True))
 q = torch.randn(1, 16, 4, 32, requires_grad=True)
 kv = torch.randn(1, 16, 2, 32, requires_grad=True)

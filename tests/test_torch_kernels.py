@@ -7,6 +7,9 @@ JAX dense step with no Pallas. The CUDA kernels themselves are held against
 the plain versions on the card, in tests/test_torch_cuda.py.
 """
 
+import concurrent.futures
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,7 +125,42 @@ def test_plain_route_counts_no_launch():
     kernels.fused_linear_grads(*args, torch.tensor(0.0))
     kernels.coo_segment_sum(torch.ones(4), torch.zeros(4, dtype=torch.int32),
                             2)
+    kernels.tokenize_boundaries(torch.tensor(list(b"1 2:3\n"),
+                                             dtype=torch.uint8))
     assert {k: fn.launches for k, fn in kernels.KERNELS.items()} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0}
+        "flash_attention_bwd_dkv": 0, "tokenize_boundaries": 0}
+
+
+def test_launch_counts_lose_nothing_under_threads():
+    """8 threads x 10,000 increments through count_launch, with the
+    interpreter switching threads every microsecond: a thread switch
+    between the read and the write of a bare += loses an increment, the
+    lock keeps them all. reset_launch_counts takes the same lock."""
+    def counter():
+        pass
+
+    counter.launches = 0
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+            futures = [pool.submit(lambda: [kernels.count_launch(counter)
+                                            for _ in range(10_000)])
+                       for _ in range(8)]
+            for f in concurrent.futures.as_completed(futures, timeout=120):
+                f.result()
+    finally:
+        sys.setswitchinterval(switch)
+    assert counter.launches == 80_000
+    kernels.count_launch(kernels.tokenize_boundaries)
+    kernels.reset_launch_counts()
+    assert kernels.tokenize_boundaries.launches == 0
+
+
+def test_tokenize_boundaries_takes_uint8_vectors_only():
+    with pytest.raises(Exception, match="uint8"):
+        kernels.tokenize_boundaries(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(Exception, match="1-d"):
+        kernels.tokenize_boundaries(torch.zeros(2, 2, dtype=torch.uint8))

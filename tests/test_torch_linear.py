@@ -54,7 +54,8 @@ def _init(num_features, seed, integer):
 
 def _first_batches(path, layout, nf, batch_size, count):
     spec = dict(batch_size=batch_size, layout=layout, num_features=nf)
-    port = DeviceFeed(create_parser(path), BatchSpec(**spec), device="cpu")
+    port = DeviceFeed(create_parser(path, device="cpu"), BatchSpec(**spec),
+                      device="cpu")
     ref = RefDeviceFeed(ref_create_parser(path, threaded=False),
                         RefBatchSpec(**spec), host_prefetch=0)
     # copy the reference's batches out at once: its host staging is reused

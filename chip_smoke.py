@@ -45,12 +45,16 @@ non-zero exit and no result line:
    atol 2e-5, gradients within rtol 2e-3 / atol 2e-4, the same bits
    twice. Known faults are read against the same limits and must fail
    them: the causal diagonal hidden (output), dS without its diagonal
-   (dQ, dK) and, under GQA, dK/dV summed over the first query head of
-   each group only;
+   (dQ, dK), under GQA dK/dV summed over the first query head of each
+   group only, and from T = 512 on dq, dk and dv of ``full_attention``'s
+   backward with one TF32 pass (``allow_tf32``: what the kernels would
+   give without their 3-pass split; at T = 33 only recorded);
 9. the long-context path: a one-rank NCCL group,
    ``make_ulysses_attention(group, local_attention=make_flash_local(True))``,
    3 steps of forward and ``sum(out**2).backward()`` on q, k, v
-   [1, 16384, 8, 128] with each flash kernel launched once a step; at
+   [1, 16384, 8, 128] with each flash kernel launched once a step, then
+   one more step under torch.profiler (``path.profile``: each CUDA
+   kernel's device ms, their sum and the device's idle share); at
    T = 8192 (MHA and Hkv = 2) its output and gradients match the same
    schedule over the built-in ``full_attention(causal=True)``, and the
    backward faults of phase 8, run through the same schedule, fail those
@@ -58,9 +62,17 @@ non-zero exit and no result line:
    the ring schedule at world 1 matches ``full_attention`` at T = 4096;
 10. at the path's shape (1, 16384, 8, 8, 128, causal): the three flash
    kernels held against the plain version on the same inputs (the
-   ``max_abs_err`` of their rows), and their times beside the plain
-   version's, ``scaled_dot_product_attention``'s (its backward alone for
-   the backward rows) and their bound;
+   ``max_abs_err`` of their rows) and the one-TF32-pass fault read there,
+   and their times beside the plain version's,
+   ``scaled_dot_product_attention``'s (its backward alone for the
+   backward rows) and their bound. The backward rows' ``bound_ms`` is
+   their tensor-core route (3 TF32 products per f32 product at 495
+   TFLOP/s), with the f32 CUDA-core figure under
+   ``f32_cuda_core_bound_ms``. ``flash_timing_extra`` adds ``port_bwd_ms``
+   (delta and both kernels, as the autograd Function runs them) beside
+   ``sdpa_bwd_ms``, ``kernels_bwd_ms`` and ``sdpa_backend``, which an
+   earlier ``sdpa_backend`` line names from the kernels of one
+   torch.profiler step;
 11. ``tokenize_boundaries`` against its plain version on the card, masks
    equal bit for bit: the sizes of ``TOKEN_SIZES`` (ragged n, separators
    only, none, an 8 MiB chunk), chunks starting 1-15 bytes into a buffer,
@@ -100,6 +112,13 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
+# the flash backward kernels compute each f32 product as three TF32
+# products on the tensor cores (csrc/flash_mma.cuh)
+TF32_PASSES = 3
+# the one-TF32-pass fault must fail GRAD_TOL from this T on; below it
+# (T = 33) it is only recorded
+TF32_FAULT_MIN_T = 512
 
 HIGGS_ROWS, HIGGS_FEATURES, HIGGS_BATCH = 262_144, 28, 16_384
 CRITEO_ROWS, CRITEO_NNZ, CRITEO_DIM, CRITEO_BATCH = 65_536, 39, 1 << 20, 8192
@@ -261,9 +280,11 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
+    memory rate and ``flops`` over ``peak``."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -505,14 +526,45 @@ def hold_flash(shape, got, want):
     return report
 
 
-def read_fault(where, report, key, fault, sound, tol):
+def read_fault(where, report, key, fault, sound, tol, must_fail=True):
     """Reads a known fault against the limit ``tol``, where the sound
-    result passes, and requires it to fail there."""
+    result passes, and (with ``must_fail``) requires it to fail there."""
     report[key + "_tol_ratio"] = tol_ratio(fault, sound, tol)
     report[key + "_max_abs_err"] = float((fault - sound).abs().max())
-    require(report[key + "_tol_ratio"] > 1.0,
+    require(not must_fail or report[key + "_tol_ratio"] > 1.0,
             "%s: the fault %s reads %g, inside the limit", where, key,
             report[key + "_tol_ratio"])
+
+
+def one_tf32_pass_grads(q, k, v, dout, causal):
+    """The numerics fault: (dq, dk, dv) of ``full_attention``'s autograd
+    backward with torch's matmuls in one TF32 pass
+    (``allow_tf32 = True``), what the flash kernels would give without
+    the 3-pass split. TF32 goes off again (``strict_f32``) however it
+    ends."""
+    from dmlc_tpu_torch.ops import full_attention
+    from dmlc_tpu_torch.utils.device import strict_f32
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return grads_of(lambda *x: full_attention(*x, causal), q, k, v,
+                        dout)
+    finally:
+        strict_f32()
+
+
+def read_tf32_fault(where, report, q, k, v, dout, causal, got_grads):
+    """Reads the one-TF32-pass gradients (dq, dk, dv) against GRAD_TOL
+    beside the kernels'; from TF32_FAULT_MIN_T on the fault must fail
+    there (the largest of its three readings above 1)."""
+    fault = one_tf32_pass_grads(q, k, v, dout, causal)
+    keys = ["one_tf32_pass_" + name for name in ("dq", "dk", "dv")]
+    for key, f, g in zip(keys, fault, got_grads):
+        read_fault(where, report, key, f, g, GRAD_TOL, must_fail=False)
+    worst = max(report[key + "_tol_ratio"] for key in keys)
+    require(q.shape[1] < TF32_FAULT_MIN_T or worst > 1.0,
+            "%s: the one-TF32-pass fault reads %g, inside the limit", where,
+            worst)
 
 
 def flash_case(kernels, dev, b, t, h, hk, d, causal, seed):
@@ -548,6 +600,7 @@ def flash_case(kernels, dev, b, t, h, hk, d, causal, seed):
                    GRAD_TOL)
         read_fault(where, report, "first_head_only_dv", fault[2], got[4],
                    GRAD_TOL)
+    read_tf32_fault(where, report, q, k, v, dout, causal, got[2:])
     del q, k, v, dout, got, again, want, fault
     torch.cuda.empty_cache()
     return report
@@ -567,6 +620,30 @@ def attention_steps(fn, q, k, v, steps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return out.detach(), [x.grad for x in (q, k, v)], times
+
+
+def profile_step(fn, q, k, v) -> dict:
+    """One step of ``attention_steps`` under torch.profiler: the device
+    milliseconds of each CUDA kernel (by name, summed), their total, the
+    step's host milliseconds (profiler on) and the device's idle share of
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_ms = attention_steps(fn, q, k, v, 1)[2][0]
+    kernel_ms = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernel_ms[e.key[:96]] = kernel_ms.get(e.key[:96], 0.0) + us / 1e3
+    busy = sum(kernel_ms.values())
+    top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8])
+    return {"step_ms": step_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / step_ms, "kernel_ms": top}
 
 
 def attention_inputs(dev, t, hk, seed):
@@ -611,7 +688,8 @@ def drive_attention(kernels, dev, group):
             and all(bool(torch.isfinite(g).all()) for g in grads),
             "attention path: output or gradients not finite")
     result["path"] = {"T": PATH_T, "step_ms": times, "launches": launches,
-                      "peak_bytes": peak}
+                      "peak_bytes": peak,
+                      "profile": profile_step(flash, q, k, v)}
     del q, k, v, out, grads
 
     # the known backward faults, through the same schedule, read against
@@ -674,14 +752,38 @@ def drive_attention(kernels, dev, group):
     return result
 
 
+def sdpa_backend(fn) -> dict:
+    """The backend behind ``fn`` (one scaled_dot_product_attention step),
+    named from the CUDA kernels one torch.profiler run of it records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if getattr(e, "device_type", None)
+                    == torch.autograd.DeviceType.CUDA})
+    lower = " ".join(names).lower()
+    backend = ("cudnn" if "cudnn" in lower else
+               "flash" if "flash" in lower else
+               "efficient" if ("fmha" in lower or "efficient" in lower
+                               or "mem_eff" in lower) else "math")
+    return {"backend": backend, "kernels": names}
+
+
 def flash_timing_rows(kernels, dev, launches):
     """Phase 10: the three flash kernels at the path's shape, held against
     the plain version on the same inputs and timed beside it,
-    scaled_dot_product_attention and their bound."""
+    scaled_dot_product_attention and their bound; the one-TF32-pass fault
+    read there; the port's whole backward (delta and both kernels) beside
+    SDPA's, and SDPA's backend."""
     import torch.nn.functional as F
 
     from dmlc_tpu_torch.ops import full_attention
-    from dmlc_tpu_torch.ops.flash_attention import softmax_delta
+    from dmlc_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                    softmax_delta)
 
     b, t, h, d = 1, PATH_T, ATTN_HEADS, ATTN_DIM
     gen = torch.Generator(device=dev).manual_seed(31)
@@ -700,6 +802,9 @@ def flash_timing_rows(kernels, dev, launches):
             lambda: kernels.flash_attention_bwd_dkv(
                 q, k, v, dout, lse, delta, True), flush, 10),
     }
+    # the backward as the autograd Function runs it: delta, dQ, dK/dV
+    port_bwd_ms = time_ms(lambda: flash_attention_bwd(
+        q, k, v, out, lse, dout, True), flush, 10)
     # the plain version keeps several [B, H, T, T] f32 tensors (8.6 GB
     # each here); its last results are kept and the kernels held to them
     plain = {}
@@ -729,6 +834,10 @@ def flash_timing_rows(kernels, dev, launches):
                                        report["dv_max_abs_err"]),
     }
     del plain
+    torch.cuda.empty_cache()
+    read_tf32_fault("flash at the path shape", report, q, k, v, dout, True,
+                    got[2:])
+    torch.cuda.empty_cache()
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
     with torch.no_grad():
         sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
@@ -740,6 +849,8 @@ def flash_timing_rows(kernels, dev, launches):
         torch.autograd.grad(o, leaves, dot)
 
     sdpa_both = time_ms(sdpa_fwd_bwd, flush, 10)
+    backend = sdpa_backend(sdpa_fwd_bwd)
+    print(json.dumps({"sdpa_backend": backend}), flush=True)
     # the backward alone, as the plain backward is timed: one forward
     # outside the timed region
     o = F.scaled_dot_product_attention(*leaves, is_causal=True)
@@ -748,7 +859,10 @@ def flash_timing_rows(kernels, dev, launches):
     extra = {"vs_plain_at_path_shape": report,
              "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
              "sdpa_fwd_bwd_ms": sdpa_both, "plain_fwd_ms": plain_fwd_ms,
-             "plain_bwd_ms": plain_bwd_ms}
+             "plain_bwd_ms": plain_bwd_ms, "port_bwd_ms": port_bwd_ms,
+             "kernels_bwd_ms": ms["flash_attention_bwd_dq"]
+             + ms["flash_attention_bwd_dkv"],
+             "sdpa_backend": backend["backend"]}
     del flush, leaves, o
     torch.cuda.empty_cache()
 
@@ -780,7 +894,15 @@ def flash_timing_rows(kernels, dev, launches):
                "max_abs_err": errors[name], "ms": ms[name],
                "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
                "library_ms": sdpa_fwd if fwd else sdpa_bwd}
-        row["bound_ms"], row["bound_by"] = bound(*work[name])
+        if fwd:
+            row["bound_ms"], row["bound_by"] = bound(*work[name])
+        else:
+            # the route the kernels take: TF32_PASSES TF32 products per f32
+            # product on the tensor cores; the f32 CUDA-core figure beside
+            nbytes, flops = work[name]
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, TF32_PASSES * flops, PEAK_TF32_FLOPS)
+            row["f32_cuda_core_bound_ms"] = bound(nbytes, flops)[0]
         rows.append(row)
     del q, k, v, dout, got, out, lse, delta
     torch.cuda.empty_cache()
@@ -1014,7 +1136,8 @@ def main() -> int:
     log = _build.build_log_path()
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line
+                    or line.startswith("==") or "Compiling entry" in line):
                 print("  ptxas:", line.strip())
     torch.cuda.synchronize()
 

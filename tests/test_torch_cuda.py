@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FLASH_CASES, TOKEN_SIZES, flash_case, token_chunk
+from chip_smoke import (FLASH_CASES, TF32_FAULT_MIN_T, TOKEN_SIZES,
+                         flash_case, token_chunk)
 from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -134,7 +135,9 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
     tests/test_sequence_parallel.py's tolerances (outputs rtol 2e-4 /
     atol 2e-5, gradients rtol 2e-3 / atol 2e-4: f32 sums over the keys in
     another order), the same bits twice (no atomics), and the known
-    forward and backward faults outside those limits. Any miss raises."""
+    forward and backward faults outside those limits, among them, from
+    T = 512 on, the gradients of one TF32 pass per product (what the
+    kernels' 3-pass split is there to avoid). Any miss raises."""
     before = {n: kernels.KERNELS[n].launches for n in kernels.KERNELS}
     report = flash_case(kernels, cuda, b, t, h, hk, d, causal,
                         seed=t + hk + d)
@@ -143,6 +146,10 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
         assert kernels.KERNELS[name].launches == before[name] + 2
     assert report["dq_tol_ratio"] <= 1.0
     assert report["diagonal_detached_dq_tol_ratio"] > 1.0
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    if t >= TF32_FAULT_MIN_T:
+        assert max(report["one_tf32_pass_%s_tol_ratio" % g]
+                   for g in ("dq", "dk", "dv")) > 1.0
 
 
 def test_flash_path_trains_through_the_kernels(cuda):

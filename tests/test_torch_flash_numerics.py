@@ -1,0 +1,167 @@
+"""Why the flash backward kernels split every f32 product into three TF32
+products, and may not drop to one.
+
+The dQ and dK/dV kernels (``dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu``)
+compute their five products (S, dP, dV, dK, dQ) on the tensor cores, whose
+TF32 operands keep 10 bits of mantissa. Each f32 operand x is split as
+big = tf32(x), small = tf32(x - big), and a product is
+small·big + big·small + big·big. This file models those products on the
+CPU (TF32 rounding to nearest, ties away from zero, by masking the low 13
+bits of an f32) at the small shapes of ``chip_smoke.FLASH_CASES`` and
+holds the model against the JAX package's ``full_attention`` differentiated
+by ``jax.vjp``, within the gradient tolerance the card's kernels are held to
+(``chip_smoke.GRAD_TOL``): the 3-pass model passes it, a one-pass model
+fails it from ``chip_smoke.TF32_FAULT_MIN_T`` on.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import FLASH_CASES, GRAD_TOL, OUT_TOL, TF32_FAULT_MIN_T
+from dmlc_tpu.ops import sequence_parallel as jsp
+
+SMALL_CASES = [c for c in FLASH_CASES if c[1] <= 1024]
+FAULT_CASES = [c for c in SMALL_CASES if c[1] >= TF32_FAULT_MIN_T]
+
+
+def tf32(x):
+    """f32 -> the nearest TF32 value (ties away from zero), as
+    ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits to the
+    magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_matmul(a, b):
+    """a @ b as the kernels form it: three TF32 products, small terms
+    first, each summed in f32."""
+    a_big, b_big = tf32(a), tf32(b)
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def one_pass_matmul(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def model_backward(matmul, q, k, v, dout, causal):
+    """(dq, dk, dv) of attention by the kernels' recipe with every product
+    formed by ``matmul``; lse and delta from the plain f32 forward, as the
+    forward kernel hands them over. q, dout [B, T, H, D]; k, v
+    [B, T, Hk, D]."""
+    b, t, h, d = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    scale = 1.0 / math.sqrt(float(d))
+
+    def heads(x, n):  # [B, T, n*, D] -> [B, Hk, n, T, D]
+        return x.reshape(b, t, hk, n, d).permute(0, 2, 3, 1, 4)
+
+    qh, doh = heads(q, g), heads(dout, g)
+    kh, vh = heads(k, 1), heads(v, 1)
+    keep = torch.ones(t, t, dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    s_plain = (qh @ kh.transpose(-1, -2)) * scale
+    s_plain = s_plain.masked_fill(~keep, -1e30)
+    lse = torch.logsumexp(s_plain, -1, keepdim=True)
+    out = torch.softmax(s_plain, -1) @ vh
+    delta = (doh * out).sum(-1, keepdim=True)
+
+    s = matmul(qh, kh.transpose(-1, -2).expand(-1, -1, g, -1, -1))
+    p = torch.where(keep, torch.exp(s * scale - lse), torch.zeros(()))
+    dp = matmul(doh, vh.transpose(-1, -2).expand(-1, -1, g, -1, -1))
+    ds = p * (dp - delta)
+    dq = matmul(ds, kh.expand(-1, -1, g, -1, -1)) * scale
+    dk = (matmul(ds.transpose(-1, -2), qh) * scale).sum(2, keepdim=True)
+    dv = matmul(p.transpose(-1, -2), doh).sum(2, keepdim=True)
+
+    def back(x, n):  # [B, Hk, n, T, D] -> [B, T, Hk*n, D]
+        return x.permute(0, 3, 1, 2, 4).reshape(b, t, hk * n, d)
+
+    return back(dq, g), back(dk, 1), back(dv, 1)
+
+
+def tol_ratio(got, want, tol):
+    """max |got - want| / (atol + rtol·|want|), as chip_smoke reads it."""
+    return float(np.max(np.abs(got - want)
+                        / (tol["atol"] + tol["rtol"] * np.abs(want))))
+
+
+def _inputs(b, t, h, hk, d, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for shape in (
+        (b, t, h, d), (b, t, hk, d), (b, t, hk, d), (b, t, h, d))]
+
+
+def _jax_grads(q, k, v, dout, causal):
+    _, vjp = jax.vjp(lambda q, k, v: jsp.full_attention(q, k, v, causal),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _ratios(matmul, case):
+    b, t, h, hk, d, causal = case
+    q, k, v, dout = _inputs(b, t, h, hk, d, seed=t + hk + d)
+    want = _jax_grads(q, k, v, dout, causal)
+    got = model_backward(matmul, *(torch.from_numpy(x)
+                                   for x in (q, k, v, dout)), causal)
+    return [tol_ratio(g.numpy(), w, GRAD_TOL) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", SMALL_CASES, ids=str)
+def test_three_pass_split_holds_gradient_tolerance(case):
+    """The 3-pass model of the kernels' products stays inside GRAD_TOL
+    for dq, dk and dv, with a margin of 4."""
+    ratios = _ratios(split_matmul, case)
+    assert max(ratios) < 0.25, ratios
+
+
+@pytest.mark.parametrize("case", FAULT_CASES, ids=str)
+def test_one_tf32_pass_fails_gradient_tolerance(case):
+    """One TF32 pass per product, the rest unchanged, falls outside
+    GRAD_TOL on each of dq, dk and dv: why the split stays."""
+    ratios = _ratios(one_pass_matmul, case)
+    assert min(ratios) > 1.0, ratios
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e-39])
+    got = tf32(x)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                         -(1.0 + 2.0 ** -10), 1.0, 3.0e-39])
+    # ties go away from zero; a subnormal keeps its top 10 bits
+    assert torch.equal(got[:5], want[:5])
+    assert abs(float(got[5]) - 3.0e-39) < 2.0 ** -136
+    a = torch.randn(64, 64, generator=torch.Generator().manual_seed(0))
+    b = torch.randn(64, 64, generator=torch.Generator().manual_seed(1))
+    exact = (a.double() @ b.double())
+    split_err = float((split_matmul(a, b).double() - exact).abs().max())
+    one_err = float((one_pass_matmul(a, b).double() - exact).abs().max())
+    plain_err = float(((a @ b).double() - exact).abs().max())
+    assert split_err < 4 * plain_err < one_err
+
+
+def test_model_forward_agrees_with_jax():
+    """The model's plain f32 forward (its lse and delta) is the JAX
+    package's attention within OUT_TOL, so the gradient readings above
+    test the products alone."""
+    b, t, h, hk, d, causal = SMALL_CASES[0]
+    q, k, v, _ = _inputs(b, t, h, hk, d, seed=3)
+    want = np.asarray(jsp.full_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                         causal))
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    g = h // hk
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qt.reshape(b, t, hk, g, d), kt)
+    s = s / math.sqrt(float(d))
+    if causal:
+        s = s.masked_fill(~torch.tril(torch.ones(t, t, dtype=torch.bool)),
+                          -1e30)
+    got = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), vt)
+    assert tol_ratio(got.reshape(b, t, h, d).numpy(), want, OUT_TOL) < 1.0

@@ -5,12 +5,17 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It needs one CUDA device and exits non-zero without one. Phases, each
+It needs one CUDA device and exits non-zero without one. With ``--times``
+it only builds the kernels and prints one ``{"times": ...}`` line: each
+kernel's cold-L2 CUDA-event time at the main path's shapes beside its
+yardstick, to compare two checkouts in turns on one card. Phases, each
 ending in ``torch.cuda.synchronize()``; any failure ends the run with a
 non-zero exit and no result line:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a);
+2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a)
+   and print ptxas's registers and spills of each kernel; every flash
+   kernel must show 0 spill bytes;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
    [16384, 29] (HIGGS), a ragged [1000, 29] and a wide [4096, 2048]:
    integer-valued data with the squared and hinge objectives must match bit
@@ -19,9 +24,13 @@ non-zero exit and no result line:
    against torch's sigmoid); two runs must give the same bits;
 4. ``coo_segment_sum`` against its plain version at a Criteo batch (8192
    rows, 327,680 bucketed entries, row ids from ``expand_row_ids`` over
-   real offsets with a padded tail): bit-equal on integer data, the same
-   bits twice; ``spmv_transpose`` gives the same bits twice, and the same
-   bits again under ``torch.use_deterministic_algorithms(True)``;
+   real offsets with a padded tail) and at the edge cases of
+   ``seg_sum_edge_cases`` (no entries, fewer than a warp, one row holding
+   every entry, empty rows at the start, middle and end, a -1 pad before
+   row 0, ids past the last row, a row longer than 32 x 32 entries):
+   bit-equal on integer data, the same bits twice; ``spmv_transpose``
+   gives the same bits twice, and the same bits again under
+   ``torch.use_deterministic_algorithms(True)``;
 5. the dense path: ``LinearLearner(objective="logistic").fit_uri`` over a
    seeded HIGGS-shaped LibSVM file (262,144 rows x 28 features), batch
    16384, 2 epochs, on the card and on the CPU; the launch count of
@@ -46,9 +55,10 @@ non-zero exit and no result line:
    twice. Known faults are read against the same limits and must fail
    them: the causal diagonal hidden (output), dS without its diagonal
    (dQ, dK), under GQA dK/dV summed over the first query head of each
-   group only, and from T = 512 on dq, dk and dv of ``full_attention``'s
-   backward with one TF32 pass (``allow_tf32``: what the kernels would
-   give without their 3-pass split; at T = 33 only recorded);
+   group only, and from T = 512 on the plain forward's out and lse, and
+   dq, dk and dv of ``full_attention``'s backward, with one TF32 pass
+   (``allow_tf32``: what the kernels would give without their 3-pass
+   split; at T = 33 only recorded);
 9. the long-context path: a one-rank NCCL group,
    ``make_ulysses_attention(group, local_attention=make_flash_local(True))``,
    3 steps of forward and ``sum(out**2).backward()`` on q, k, v
@@ -62,11 +72,11 @@ non-zero exit and no result line:
    the ring schedule at world 1 matches ``full_attention`` at T = 4096;
 10. at the path's shape (1, 16384, 8, 8, 128, causal): the three flash
    kernels held against the plain version on the same inputs (the
-   ``max_abs_err`` of their rows) and the one-TF32-pass fault read there,
+   ``max_abs_err`` of their rows) and the one-TF32-pass faults read there,
    and their times beside the plain version's,
    ``scaled_dot_product_attention``'s (its backward alone for the
-   backward rows) and their bound. The backward rows' ``bound_ms`` is
-   their tensor-core route (3 TF32 products per f32 product at 495
+   backward rows) and their bound. Every flash row's ``bound_ms`` is the
+   kernels' tensor-core route (3 TF32 products per f32 product at 495
    TFLOP/s), with the f32 CUDA-core figure under
    ``f32_cuda_core_bound_ms``. ``flash_timing_extra`` adds ``port_bwd_ms``
    (delta and both kernels, as the autograd Function runs them) beside
@@ -113,11 +123,11 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
-# the flash backward kernels compute each f32 product as three TF32
-# products on the tensor cores (csrc/flash_mma.cuh)
+# the flash kernels compute each f32 product as three TF32 products on the
+# tensor cores (csrc/flash_mma.cuh)
 TF32_PASSES = 3
-# the one-TF32-pass fault must fail GRAD_TOL from this T on; below it
-# (T = 33) it is only recorded
+# the one-TF32-pass faults must fail OUT_TOL (forward) and GRAD_TOL
+# (backward) from this T on; below it (T = 33) they are only recorded
 TF32_FAULT_MIN_T = 512
 
 HIGGS_ROWS, HIGGS_FEATURES, HIGGS_BATCH = 262_144, 28, 16_384
@@ -280,6 +290,21 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
     return statistics.median(times)
 
 
+def ptxas_spills(log: str) -> dict:
+    """{kernel entry (mangled): spill store + load bytes} from the
+    ``-Xptxas -v`` lines of a build log."""
+    spills, entry = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            entry = line.split("Function properties for", 1)[1].strip()
+        elif "bytes spill stores" in line and entry is not None:
+            words = line.replace(",", " ").split()
+            spills[entry] = sum(int(words[i - 2]) for i, w in enumerate(words)
+                                if w == "spill")
+            entry = None
+    return spills
+
+
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
     """(ms, "bytes" or "operations"): the larger of ``nbytes`` over the
     memory rate and ``flops`` over ``peak``."""
@@ -354,6 +379,49 @@ def criteo_batch(dev, seed):
     batch = pad_to_bucket(block, rows)
     return {k: torch.tensor(getattr(batch, k), device=dev)
             for k in ("labels", "weights", "indices", "values", "offsets")}
+
+
+def seg_sum_edge_cases():
+    """(name, row_ids, num_rows) of phase 4 and tests/test_torch_cuda.py:
+    sorted int32 row ids where a search for a row's entries can go wrong.
+    Each run of equal ids is one row's entries."""
+    def runs(*pairs):  # (id, count), ...
+        return np.concatenate([np.full(n, r, dtype=np.int32)
+                               for r, n in pairs] or
+                              [np.zeros(0, dtype=np.int32)])
+
+    rng = np.random.RandomState(7)
+    return [
+        ("no entries", runs(), 5),
+        ("fewer than a warp", np.sort(rng.randint(0, 6, 20)).astype(
+            np.int32), 6),
+        ("one row holds every entry", runs((3, 5000)), 8),
+        ("empty rows at start, middle and end",
+         runs((2, 40), (3, 1), (7, 300), (8, 33)), 12),
+        ("-1 pad before row 0", runs((-1, 77), (0, 5), (1, 64), (4, 2)), 5),
+        ("ids past the last row", runs((0, 9), (1, 31), (2, 1), (5, 50),
+                                       (9, 700)), 5),
+        ("a row longer than 32 x 32", runs((0, 3), (1, 1025), (2, 3000),
+                                           (3, 1)), 4),
+        ("one entry a row", np.arange(4099, dtype=np.int32), 4099),
+    ]
+
+
+def hold_seg_sum(kernels, dev, name, row_ids, num_rows):
+    """coo_segment_sum on ``row_ids`` with seeded integer contributions:
+    bit-equal to the plain version and the same bits twice."""
+    rng = np.random.RandomState(len(row_ids) + num_rows)
+    contrib = torch.tensor(rng.randint(-5, 6, len(row_ids)).astype(
+        np.float32), device=dev)
+    ids = torch.tensor(row_ids, device=dev)
+    got = kernels.coo_segment_sum(contrib, ids, num_rows)
+    again = kernels.coo_segment_sum(contrib, ids, num_rows)
+    want = kernels.coo_segment_sum_plain(contrib, ids, num_rows)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want),
+            "coo_segment_sum %s: kernel and plain differ", name)
+    require(torch.equal(got, again), "coo_segment_sum %s: two runs differ",
+            name)
 
 
 def run_fit(path, layout, batch_size, num_features, device,
@@ -536,35 +604,51 @@ def read_fault(where, report, key, fault, sound, tol, must_fail=True):
             report[key + "_tol_ratio"])
 
 
-def one_tf32_pass_grads(q, k, v, dout, causal):
-    """The numerics fault: (dq, dk, dv) of ``full_attention``'s autograd
-    backward with torch's matmuls in one TF32 pass
-    (``allow_tf32 = True``), what the flash kernels would give without
-    the 3-pass split. TF32 goes off again (``strict_f32``) however it
-    ends."""
-    from dmlc_tpu_torch.ops import full_attention
+def one_tf32_pass(fn):
+    """``fn()`` with torch's matmuls in one TF32 pass (``allow_tf32 =
+    True``): what the flash kernels would give without their 3-pass split.
+    TF32 goes off again (``strict_f32``) however it ends."""
     from dmlc_tpu_torch.utils.device import strict_f32
 
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        return grads_of(lambda *x: full_attention(*x, causal), q, k, v,
-                        dout)
+        return fn()
     finally:
         strict_f32()
 
 
-def read_tf32_fault(where, report, q, k, v, dout, causal, got_grads):
-    """Reads the one-TF32-pass gradients (dq, dk, dv) against GRAD_TOL
-    beside the kernels'; from TF32_FAULT_MIN_T on the fault must fail
-    there (the largest of its three readings above 1)."""
-    fault = one_tf32_pass_grads(q, k, v, dout, causal)
-    keys = ["one_tf32_pass_" + name for name in ("dq", "dk", "dv")]
-    for key, f, g in zip(keys, fault, got_grads):
-        read_fault(where, report, key, f, g, GRAD_TOL, must_fail=False)
+def read_tf32_fault(where, report, names, fault, got, tol, t):
+    """Reads the one-TF32-pass results ``fault`` against ``tol`` beside the
+    kernels' ``got`` (keys ``one_tf32_pass_<name>``); from
+    TF32_FAULT_MIN_T on the fault must fail there (the largest of its
+    readings above 1)."""
+    keys = ["one_tf32_pass_" + name for name in names]
+    for key, f, g in zip(keys, fault, got):
+        read_fault(where, report, key, f, g, tol, must_fail=False)
     worst = max(report[key + "_tol_ratio"] for key in keys)
-    require(q.shape[1] < TF32_FAULT_MIN_T or worst > 1.0,
-            "%s: the one-TF32-pass fault reads %g, inside the limit", where,
-            worst)
+    require(t < TF32_FAULT_MIN_T or worst > 1.0,
+            "%s: the one-TF32-pass fault on %s reads %g, inside the limit",
+            where, "/".join(names), worst)
+
+
+def read_tf32_faults(kernels, where, report, q, k, v, dout, causal, got):
+    """The forward's (out, lse against OUT_TOL: the plain forward) and the
+    backward's (dq, dk, dv against GRAD_TOL: ``full_attention``'s autograd
+    backward) one-TF32-pass faults beside the kernels' (out, lse, dq, dk,
+    dv)."""
+    from dmlc_tpu_torch.ops import full_attention
+
+    t = q.shape[1]
+    fault = one_tf32_pass(
+        lambda: kernels.flash_attention_fwd_plain(q, k, v, causal))
+    read_tf32_fault(where, report, ("out", "lse"), fault, got[:2], OUT_TOL,
+                    t)
+    del fault
+    torch.cuda.empty_cache()
+    fault = one_tf32_pass(lambda: grads_of(
+        lambda *x: full_attention(*x, causal), q, k, v, dout))
+    read_tf32_fault(where, report, ("dq", "dk", "dv"), fault, got[2:],
+                    GRAD_TOL, t)
 
 
 def flash_case(kernels, dev, b, t, h, hk, d, causal, seed):
@@ -600,7 +684,7 @@ def flash_case(kernels, dev, b, t, h, hk, d, causal, seed):
                    GRAD_TOL)
         read_fault(where, report, "first_head_only_dv", fault[2], got[4],
                    GRAD_TOL)
-    read_tf32_fault(where, report, q, k, v, dout, causal, got[2:])
+    read_tf32_faults(kernels, where, report, q, k, v, dout, causal, got)
     del q, k, v, dout, got, again, want, fault
     torch.cuda.empty_cache()
     return report
@@ -835,8 +919,8 @@ def flash_timing_rows(kernels, dev, launches):
     }
     del plain
     torch.cuda.empty_cache()
-    read_tf32_fault("flash at the path shape", report, q, k, v, dout, True,
-                    got[2:])
+    read_tf32_faults(kernels, "flash at the path shape", report, q, k, v,
+                     dout, True, got)
     torch.cuda.empty_cache()
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, dout))
     with torch.no_grad():
@@ -894,15 +978,12 @@ def flash_timing_rows(kernels, dev, launches):
                "max_abs_err": errors[name], "ms": ms[name],
                "plain_ms": plain_fwd_ms if fwd else plain_bwd_ms,
                "library_ms": sdpa_fwd if fwd else sdpa_bwd}
-        if fwd:
-            row["bound_ms"], row["bound_by"] = bound(*work[name])
-        else:
-            # the route the kernels take: TF32_PASSES TF32 products per f32
-            # product on the tensor cores; the f32 CUDA-core figure beside
-            nbytes, flops = work[name]
-            row["bound_ms"], row["bound_by"] = bound(
-                nbytes, TF32_PASSES * flops, PEAK_TF32_FLOPS)
-            row["f32_cuda_core_bound_ms"] = bound(nbytes, flops)[0]
+        # the route the kernels take: TF32_PASSES TF32 products per f32
+        # product on the tensor cores; the f32 CUDA-core figure beside
+        nbytes, flops = work[name]
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, TF32_PASSES * flops, PEAK_TF32_FLOPS)
+        row["f32_cuda_core_bound_ms"] = bound(nbytes, flops)[0]
         rows.append(row)
     del q, k, v, dout, got, out, lse, delta
     torch.cuda.empty_cache()
@@ -1113,10 +1194,69 @@ def drive_ingest(kernels, dev, path, tmp):
     return result
 
 
+def kernel_times(kernels, dev) -> dict:
+    """``--times``: the kernels' times at the main path's shapes (as phases
+    7, 10 and 11 take them, the forward twice) beside SDPA's forward and
+    ``index_add_``."""
+    import torch.nn.functional as F
+
+    from dmlc_tpu_torch.ops.flash_attention import softmax_delta
+    from dmlc_tpu_torch.ops.spmv import expand_row_ids
+
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    gen = torch.Generator(device=dev).manual_seed(31)
+    q, k, v, dout = (randn(gen, (1, PATH_T, ATTN_HEADS, ATTN_DIM), dev)
+                     for _ in range(4))
+    out, lse = kernels.flash_attention_fwd(q, k, v, True)
+    delta = softmax_delta(out, dout)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    batch = criteo_batch(dev, 3)
+    row_ids = expand_row_ids(batch["offsets"], batch["values"].shape[0])
+    ids64 = row_ids.long()
+    contrib = batch["values"] * 0.5
+    dense = fused_case(kernels, dev, HIGGS_BATCH, HIGGS_FEATURES + 1,
+                       "logistic", False, 2)[1]
+    chunk = torch.tensor(token_chunk("mixed", CHUNK_BYTES, seed=1),
+                         device=dev)
+    with torch.no_grad():
+        return {
+            "flash_attention_fwd": [
+                time_ms(lambda: kernels.flash_attention_fwd(q, k, v, True),
+                        flush, 10) for _ in range(2)],
+            "flash_attention_bwd_dq": time_ms(
+                lambda: kernels.flash_attention_bwd_dq(
+                    q, k, v, dout, lse, delta, True), flush, 10),
+            "flash_attention_bwd_dkv": time_ms(
+                lambda: kernels.flash_attention_bwd_dkv(
+                    q, k, v, dout, lse, delta, True), flush, 10),
+            "sdpa_fwd": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), flush, 10),
+            "coo_segment_sum": time_ms(lambda: kernels.coo_segment_sum(
+                contrib, row_ids, CRITEO_BATCH), flush),
+            "index_add_": time_ms(lambda: torch.zeros(
+                CRITEO_BATCH, device=dev).index_add_(0, ids64, contrib),
+                flush),
+            "fused_linear_grads": time_ms(lambda: kernels.fused_linear_grads(
+                *dense, objective="logistic"), flush),
+            "tokenize_boundaries": time_ms(
+                lambda: kernels.tokenize_boundaries(chunk), flush),
+        }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--times"]:
+        from dmlc_tpu_torch.ops import kernels
+        from dmlc_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(None)
+        print("card:", card_line())
+        print(json.dumps({"times": kernel_times(kernels, dev)}))
+        return 0
+    require(not sys.argv[1:], "unknown arguments %s (only --times)",
+            sys.argv[1:])
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
     from dmlc_tpu_torch.utils.device import resolve_device
@@ -1134,11 +1274,18 @@ def main() -> int:
     print(json.dumps({"build_seconds": built,
                       "nvcc_seconds": _build.build_seconds}), flush=True)
     log = _build.build_log_path()
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if ("registers" in line or "spill" in line
-                    or line.startswith("==") or "Compiling entry" in line):
-                print("  ptxas:", line.strip())
+    require(log.exists(), "no build log beside the kernels' library")
+    text = log.read_text()
+    for line in text.splitlines():
+        if ("registers" in line or "spill" in line
+                or line.startswith("==") or "Compiling entry" in line):
+            print("  ptxas:", line.strip())
+    spills = ptxas_spills(text)
+    flash = {name: n for name, n in spills.items() if "flash_" in name}
+    require(len(flash) == 3 * 3 * 2,
+            "ptxas reported %d flash kernel variants, expected 18", len(flash))
+    require(not any(flash.values()), "flash kernels spill: %s",
+            {name: n for name, n in flash.items() if n})
     torch.cuda.synchronize()
 
     # ---- 3. fused_linear_grads vs plain ------------------------------------
@@ -1173,6 +1320,8 @@ def main() -> int:
     require(torch.equal(got, want),
             "coo_segment_sum integer data: kernel and plain differ")
     require(torch.equal(got, again), "coo_segment_sum: two runs differ")
+    for name, ids, num_rows in seg_sum_edge_cases():
+        hold_seg_sum(kernels, dev, name, ids, num_rows)
     w_vec = torch.tensor(rng.randn(CRITEO_DIM + 1).astype(np.float32) * 0.1,
                          device=dev)
     contrib = batch["values"] * w_vec.index_select(0, batch["indices"])

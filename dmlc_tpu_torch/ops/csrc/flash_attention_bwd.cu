@@ -24,8 +24,9 @@
 // same bits):
 // - Every product is mma.sync m16n8k8 TF32 with the 3-pass split of each
 //   f32 operand into big + small TF32 parts: f32 accuracy on the tensor
-//   cores. A tile's product is summed on the tensor cores, the tiles with
-//   f32 adds.
+//   cores. Tensor-core sums stay short (they round toward zero): the
+//   score products S and dP add 32 head-dim columns on the tensor cores
+//   before an f32 add, the value products one tile.
 // - Eight warps a CTA in two groups of four; warp w of each group owns rows
 //   16w .. 16w+15 of the CTA's 64-row tile, so the two warps of a pair own
 //   the same rows and split the products between them, meeting at a

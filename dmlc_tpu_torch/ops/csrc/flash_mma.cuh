@@ -1,10 +1,11 @@
-// Tensor-core tiles for flash_attention_bwd.cu: f32-accurate products as
-// three TF32 mma.sync products, and tiles copied with cp.async.
+// Tensor-core tiles for flash_attention_fwd.cu and flash_attention_bwd.cu:
+// f32-accurate products as three TF32 mma.sync products, and tiles copied
+// with cp.async.
 //
-// A CTA of kThreads = 256 threads is eight warps in two groups of four;
-// warp w of a group owns the rows 16w .. 16w+15 of its 64-row tile, and
-// the two warps of a pair share those rows and meet at a barrier of their
-// own (pair_sync). Products are
+// A CTA of kThreads = 256 threads is eight warps. In the backward they form
+// two groups of four; warp w of a group owns the rows 16w .. 16w+15 of its
+// 64-row tile, and the two warps of a pair share those rows and meet at a
+// barrier of their own (pair_sync). Products are
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 accumulating in f32
 // registers. Each f32 operand x is split as big = rna.tf32(x) and
 // small = rna.tf32(x - big) (round to nearest, ties away from zero, as
@@ -23,7 +24,7 @@
 // with no trip through shared memory: its column 2tig goes into k-slot tig
 // and 2tig+1 into k-slot tig+4, and the B rows are read in that same order.
 //
-// Tiles of 64 rows x D (D a multiple of 32) sit in shared memory row-major
+// Tiles of rows x D (D a multiple of 32) sit in shared memory row-major
 // with no padding; element (r, c) is at r*D + (c ^ ((r & 7) << 2)). That
 // XOR keeps every 4-float group whole (16-byte cp.async stores), and both
 // read patterns are free of bank conflicts: (row gid, col tig) and
@@ -36,8 +37,8 @@
 
 namespace dmlc_flash_mma {
 
-constexpr int kRows = 64;  // rows of every tile
-constexpr int kWarps = 8;  // two groups of a warp per 16 rows
+constexpr int kRows = 64;  // rows of the backward's tiles
+constexpr int kWarps = 8;  // warps of a CTA
 constexpr int kThreads = 32 * kWarps;
 
 template <int D>
@@ -104,18 +105,18 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows row0 .. row0+63 of one head of a [B, T, heads, D] tensor into a
+// Rows row0 .. row0+R-1 of one head of a [B, T, heads, D] tensor into a
 // swizzled tile; rows at or past T are zeros. `g` points at (b, t=0, head),
 // `row_stride` = heads * D.
-template <int D>
+template <int D, int R = kRows>
 __device__ __forceinline__ void load_tile_async(float* s,
                                                 const float* __restrict__ g,
                                                 int64_t row_stride, int row0,
                                                 int T) {
   constexpr int kPerRow = D / 4;
-  static_assert(kRows * kPerRow % kThreads == 0, "whole rounds of copies");
+  static_assert(R * kPerRow % kThreads == 0, "whole rounds of copies");
 #pragma unroll
-  for (int i = 0; i < kRows * kPerRow / kThreads; ++i) {
+  for (int i = 0; i < R * kPerRow / kThreads; ++i) {
     const int f = static_cast<int>(threadIdx.x) + i * kThreads;
     const int r = f / kPerRow;
     const int c = (f % kPerRow) * 4;
@@ -180,19 +181,15 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc[j][.] = X[r0 .. r0+15, :] · Y[c0+8j .. c0+8j+7, :]^T over the head
-// dim, for j < NT: a 16 x 8NT score block of the warp (X, Y swizzled tiles).
-// Each k-step issues its 3·NT mma in three rounds over j, the small terms
-// first, so that NT independent products stand between two that share an
+// c[j][.] += X[r0 .. r0+15, d0 .. d0+31] · Y[c0+8j .. c0+8j+7, d0 ..
+// d0+31]^T for j < NT: one 32-column part of mma_abt, 12 mma a block. Each
+// k-step issues its 3·NT mma in three rounds over j, the small terms first,
+// so that NT independent products stand between two that share an
 // accumulator.
 template <int D, int NT>
-__device__ __forceinline__ void mma_abt(const float* X, int r0,
-                                        const float* Y, int c0,
-                                        float (&acc)[NT][4], int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+__device__ __forceinline__ void mma_abt_part(const float* X, int r0,
+                                             const float* Y, int c0, int d0,
+                                             float (&c)[NT][4], int lane) {
   static_assert(NT % 2 == 0, "ldmatrix.x4 takes two column blocks");
   // ldmatrix row addresses: lane l names row l & 7 of 8x8 b16 matrix l >> 3
   const int mi = lane >> 3;
@@ -202,14 +199,14 @@ __device__ __forceinline__ void mma_abt(const float* X, int r0,
   const int b_row = c0 + rr + 8 * (mi >> 1);
   const int b_col = 4 * (mi & 1);
 #pragma unroll 2
-  for (int d0 = 0; d0 < D; d0 += 8) {
+  for (int d = d0; d < d0 + 32; d += 8) {
     uint32_t ab[4], as[4];
-    ldmatrix_split(X + at<D>(a_row, d0 + a_col), ab, as);
+    ldmatrix_split(X + at<D>(a_row, d + a_col), ab, as);
     uint32_t bb[NT][2], bs[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {
       uint32_t b4[4], s4[4];
-      ldmatrix_split(Y + at<D>(b_row + 8 * j, d0 + b_col), b4, s4);
+      ldmatrix_split(Y + at<D>(b_row + 8 * j, d + b_col), b4, s4);
       bb[j][0] = b4[0];
       bb[j][1] = b4[1];
       bb[j + 1][0] = b4[2];
@@ -220,11 +217,40 @@ __device__ __forceinline__ void mma_abt(const float* X, int r0,
       bs[j + 1][1] = s4[3];
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], as, bb[j]);
+    for (int j = 0; j < NT; ++j) mma_tf32(c[j], as, bb[j]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ab, bs[j]);
+    for (int j = 0; j < NT; ++j) mma_tf32(c[j], ab, bs[j]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[j], ab, bb[j]);
+    for (int j = 0; j < NT; ++j) mma_tf32(c[j], ab, bb[j]);
+  }
+}
+
+// acc[j][.] = X[r0 .. r0+15, :] · Y[c0+8j .. c0+8j+7, :]^T over the head
+// dim, for j < NT: a 16 x 8NT score block of the warp (X, Y swizzled
+// tiles). Each 32 head-dim columns are summed on the tensor cores and the
+// parts added in f32: a tensor-core accumulation rounds toward zero. The
+// first part goes straight into acc (from zero, the same value).
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(const float* X, int r0,
+                                        const float* Y, int c0,
+                                        float (&acc)[NT][4], int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  mma_abt_part<D, NT>(X, r0, Y, c0, 0, acc, lane);
+#pragma unroll
+  for (int d0 = 32; d0 < D; d0 += 32) {
+    float part[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+    mma_abt_part<D, NT>(X, r0, Y, c0, d0, part, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] += part[j][i];
   }
 }
 

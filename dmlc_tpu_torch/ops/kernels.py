@@ -60,7 +60,8 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int,
             _P, _P, _P, _P]
         lib.dmlc_fused_linear_grads.restype = ctypes.c_int
-        lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _P, _P]
+        lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _P, _P,
+                                             _P]
         lib.dmlc_coo_segment_sum.restype = ctypes.c_int
         dims = [ctypes.c_int] * 6 + [_P]  # B T H Hkv D causal, stream
         lib.dmlc_flash_attention_fwd.argtypes = [_P] * 5 + dims
@@ -175,7 +176,8 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
     contrib [E] f32 and row_ids [E] i32 on one device; returns
     [num_rows] f32. Row ids outside [0, num_rows) contribute nothing (the
     reference's -1 pad). On a CUDA tensor this launches
-    csrc/coo_segment_sum.cu, which requires ``row_ids`` to never decrease
+    csrc/coo_segment_sum.cu (two kernels: each row's first entry, then the
+    row sums), which requires ``row_ids`` to never decrease
     — what ops/spmv.expand_row_ids produces — and is not checked here,
     since checking would cost a device sync per call. On a CPU tensor it
     runs :func:`coo_segment_sum_plain`, which takes any order.
@@ -192,11 +194,13 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
     _check_input(contrib, "contrib", torch.float32, (entries,), dev)
     _check_input(row_ids, "row_ids", torch.int32, (entries,), dev)
     out = torch.empty(num_rows, dtype=torch.float32, device=dev)
+    starts = torch.empty(num_rows + 1, dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.dmlc_coo_segment_sum(
             contrib.data_ptr(), row_ids.data_ptr(), entries, num_rows,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            starts.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "coo_segment_sum")
     count_launch(coo_segment_sum)
     return out

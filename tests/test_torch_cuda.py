@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from chip_smoke import (FLASH_CASES, TF32_FAULT_MIN_T, TOKEN_SIZES,
-                         flash_case, token_chunk)
+                         flash_case, hold_seg_sum, seg_sum_edge_cases,
+                         token_chunk)
 from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -78,11 +79,22 @@ def test_fused_linear_grads_kernel_matches_plain(cuda, objective, rows,
             torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("rows,per_row,bucket",
-                         [(8192, 39, 327_680), (100, 3, 512), (7, 0, 256)])
-def test_coo_segment_sum_kernel_matches_plain(cuda, rows, per_row, bucket):
+SEG_EDGE_CASES = {name: (ids, rows) for name, ids, rows
+                  in seg_sum_edge_cases()}
+
+
+@pytest.mark.parametrize("case", [(8192, 39, 327_680), (100, 3, 512),
+                                  (7, 0, 256)] + sorted(SEG_EDGE_CASES),
+                         ids=str)
+def test_coo_segment_sum_kernel_matches_plain(cuda, case):
     """Row ids from expand_row_ids over ragged offsets (empty rows, a
-    padded entry tail), as the main path hands them to the kernel."""
+    padded entry tail), as the main path hands them to the kernel, and
+    chip_smoke.py's phase-4 edge cases of the row search: bit-equal to
+    the plain version on integer data, the same bits twice."""
+    if isinstance(case, str):
+        hold_seg_sum(kernels, cuda, case, *SEG_EDGE_CASES[case])
+        return
+    rows, per_row, bucket = case
     rng = np.random.RandomState(rows)
     counts = rng.randint(0, 2 * per_row + 1, rows)
     offsets = np.minimum(np.concatenate([[0], np.cumsum(counts)]), bucket)
@@ -136,8 +148,9 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
     atol 2e-5, gradients rtol 2e-3 / atol 2e-4: f32 sums over the keys in
     another order), the same bits twice (no atomics), and the known
     forward and backward faults outside those limits, among them, from
-    T = 512 on, the gradients of one TF32 pass per product (what the
-    kernels' 3-pass split is there to avoid). Any miss raises."""
+    T = 512 on, the output and gradients of one TF32 pass per product
+    (what the kernels' 3-pass split is there to avoid). Any miss
+    raises."""
     before = {n: kernels.KERNELS[n].launches for n in kernels.KERNELS}
     report = flash_case(kernels, cuda, b, t, h, hk, d, causal,
                         seed=t + hk + d)
@@ -148,6 +161,8 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
     assert report["diagonal_detached_dq_tol_ratio"] > 1.0
     assert torch.backends.cuda.matmul.allow_tf32 is False
     if t >= TF32_FAULT_MIN_T:
+        assert max(report["one_tf32_pass_%s_tol_ratio" % g]
+                   for g in ("out", "lse")) > 1.0
         assert max(report["one_tf32_pass_%s_tol_ratio" % g]
                    for g in ("dq", "dk", "dv")) > 1.0
 

@@ -1,17 +1,21 @@
-"""Why the flash backward kernels split every f32 product into three TF32
-products, and may not drop to one.
+"""Why the flash kernels split every f32 product into three TF32 products,
+and may not drop to one.
 
-The dQ and dK/dV kernels (``dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu``)
-compute their five products (S, dP, dV, dK, dQ) on the tensor cores, whose
-TF32 operands keep 10 bits of mantissa. Each f32 operand x is split as
-big = tf32(x), small = tf32(x - big), and a product is
+The forward kernel (``dmlc_tpu_torch/ops/csrc/flash_attention_fwd.cu``)
+computes its two products (S = Q K^T, then P V a tile of keys at a time
+under the online softmax) and the dQ and dK/dV kernels
+(``flash_attention_bwd.cu``) their five (S, dP, dV, dK, dQ) on the tensor
+cores, whose TF32 operands keep 10 bits of mantissa. Each f32 operand x is
+split as big = tf32(x), small = tf32(x - big), and a product is
 small·big + big·small + big·big. This file models those products on the
 CPU (TF32 rounding to nearest, ties away from zero, by masking the low 13
-bits of an f32) at the small shapes of ``chip_smoke.FLASH_CASES`` and
-holds the model against the JAX package's ``full_attention`` differentiated
-by ``jax.vjp``, within the gradient tolerance the card's kernels are held to
-(``chip_smoke.GRAD_TOL``): the 3-pass model passes it, a one-pass model
-fails it from ``chip_smoke.TF32_FAULT_MIN_T`` on.
+bits of an f32) at the small shapes of ``chip_smoke.FLASH_CASES`` and holds
+the models against the JAX package's ``full_attention`` (the backward's
+differentiated by ``jax.vjp``) within the tolerances the card's kernels are
+held to: the forward's ``out`` and ``lse`` within ``chip_smoke.OUT_TOL``,
+the gradients within ``chip_smoke.GRAD_TOL``. The 3-pass models pass them;
+one-pass models fail them, the forward's at every case, the backward's
+from ``chip_smoke.TF32_FAULT_MIN_T`` on.
 """
 
 import math
@@ -87,6 +91,40 @@ def model_backward(matmul, q, k, v, dout, causal):
     return back(dq, g), back(dk, 1), back(dv, 1)
 
 
+def model_forward(matmul, q, k, v, causal, tile=32):
+    """(out [B, T, H, D], lse [B, H, T]) by the forward kernel's recipe:
+    S = Q K^T by ``matmul``, scaled and masked; an online softmax over
+    ``tile`` keys at a time (running max and sum, O rescaled); each tile's
+    P V by ``matmul``, added to O in f32. q [B, T, H, D]; k, v
+    [B, T, Hk, D]."""
+    b, t, h, d = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    scale = 1.0 / math.sqrt(float(d))
+    qh = q.reshape(b, t, hk, g, d).permute(0, 2, 3, 1, 4)  # [B,Hk,G,T,D]
+    kh = k.permute(0, 2, 1, 3)[:, :, None]                 # [B,Hk,1,T,D]
+    vh = v.permute(0, 2, 1, 3)[:, :, None]
+    s_all = matmul(qh, kh.transpose(-1, -2).expand(-1, -1, g, -1, -1))
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, hk, g, t, 1), -math.inf)
+    l = torch.zeros((b, hk, g, t, 1))
+    o = torch.zeros((b, hk, g, t, d))
+    for n0 in range(0, t, tile):
+        keys = torch.arange(n0, min(t, n0 + tile))[None, :]
+        s = s_all[..., n0:n0 + tile] * scale
+        if causal:
+            s = s.masked_fill(keys > rows, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + matmul(p, vh[..., n0:n0 + tile, :].expand(
+            -1, -1, g, -1, -1))
+        m = m_new
+    out = (o / l).permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+    return out, (m + torch.log(l)).reshape(b, h, t)
+
+
 def tol_ratio(got, want, tol):
     """max |got - want| / (atol + rtol·|want|), as chip_smoke reads it."""
     return float(np.max(np.abs(got - want)
@@ -112,6 +150,44 @@ def _ratios(matmul, case):
     got = model_backward(matmul, *(torch.from_numpy(x)
                                    for x in (q, k, v, dout)), causal)
     return [tol_ratio(g.numpy(), w, GRAD_TOL) for g, w in zip(got, want)]
+
+
+def _fwd_ratios(matmul, case):
+    """(out, lse) tolerance ratios of the forward model against the JAX
+    package's full_attention (out) and a float64 logsumexp of the scores
+    (lse)."""
+    b, t, h, hk, d, causal = case
+    q, k, v, _ = _inputs(b, t, h, hk, d, seed=t + hk + d)
+    want_out = np.asarray(jsp.full_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal))
+    g = h // hk
+    s = np.einsum("bqhgd,bkhd->bhgqk", q.reshape(b, t, hk, g, d).astype(
+        np.float64), k.astype(np.float64)) / math.sqrt(float(d))
+    if causal:
+        s = np.where(np.tril(np.ones((t, t), bool)), s, -np.inf)
+    top = s.max(-1, keepdims=True)
+    want_lse = (top + np.log(np.exp(s - top).sum(-1, keepdims=True)))
+    want_lse = want_lse.reshape(b, h, t)
+    out, lse = model_forward(matmul, *(torch.from_numpy(x)
+                                       for x in (q, k, v)), causal)
+    return (tol_ratio(out.numpy(), want_out, OUT_TOL),
+            tol_ratio(lse.numpy(), want_lse, OUT_TOL))
+
+
+@pytest.mark.parametrize("case", SMALL_CASES, ids=str)
+def test_forward_three_pass_split_holds_output_tolerance(case):
+    """The 3-pass model of the forward kernel's products keeps out and lse
+    inside OUT_TOL, with a margin of 4."""
+    ratios = _fwd_ratios(split_matmul, case)
+    assert max(ratios) < 0.25, ratios
+
+
+@pytest.mark.parametrize("case", SMALL_CASES, ids=str)
+def test_forward_one_tf32_pass_fails_output_tolerance(case):
+    """One TF32 pass per product in the forward, the rest unchanged, puts
+    out (or lse) outside OUT_TOL at every case: why the split stays."""
+    ratios = _fwd_ratios(one_pass_matmul, case)
+    assert max(ratios) > 1.0, ratios
 
 
 @pytest.mark.parametrize("case", SMALL_CASES, ids=str)

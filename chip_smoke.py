@@ -8,20 +8,25 @@ Run from the root of a checkout, with no arguments::
 It needs one CUDA device and exits non-zero without one. With ``--times``
 it only builds the kernels and prints one ``{"times": ...}`` line: each
 kernel's cold-L2 CUDA-event time at the main path's shapes beside its
-yardstick, to compare two checkouts in turns on one card. Phases, each
+yardstick, and the launch floor (``launch_floor_ms``: one and two launches
+of an empty kernel, timed the same way), to compare two checkouts in turns
+on one card. Phases, each
 ending in ``torch.cuda.synchronize()``; any failure ends the run with a
 non-zero exit and no result line:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a)
    and print ptxas's registers and spills of each kernel; every flash
-   kernel must show 0 spill bytes;
+   kernel and ``fused_linear_grads`` must show 0 spill bytes;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
    [16384, 29] (HIGGS), a ragged [1000, 29] and a wide [4096, 2048]:
    integer-valued data with the squared and hinge objectives must match bit
    for bit (every sum is exact), float data with the logistic objective
-   within rtol 1e-5 / atol 1e-6 (another summation order, and ``expf``
-   against torch's sigmoid); two runs must give the same bits;
+   within ``FUSED_TOL``, rtol 1e-5 / atol 1e-6 (another summation order,
+   and ``expf`` against torch's sigmoid); two runs, and a run on a second
+   stream, must give the same bits. A known fault, the plain version
+   without the last tile's rows (a partial row the kernel's cross-CTA sum
+   lost), is read against ``FUSED_TOL`` at [1000, 29] and must fail it;
 4. ``coo_segment_sum`` against its plain version at a Criteo batch (8192
    rows, 327,680 bucketed entries, row ids from ``expand_row_ids`` over
    real offsets with a padded tail) and at the edge cases of
@@ -44,9 +49,15 @@ non-zero exit and no result line:
    39 skewed ids in [1, 2^20], labels from a planted sparse rule), batch
    8192, 2^20 + 1 features; the launch count of ``coo_segment_sum`` must
    equal the step count;
-7. per kernel: CUDA-event times (cold L2) of the kernel, its plain
-   version and the one PyTorch call that computes the same function where
-   there is one, beside the least time the card could take;
+7. one call of ``fused_linear_grads`` must run exactly one kernel on the
+   card and nothing else (no memset), counted from a CUDA graph captured
+   around the call and, where CUPTI traces the card, under
+   torch.profiler too; the launch floor (one and
+   two launches of the empty kernel of ``csrc/launch_floor.cu``); per
+   kernel: CUDA-event times (cold L2) of the kernel, its plain version and
+   the one PyTorch call that computes the same function where there is
+   one, beside the least time the card could take (``fused_linear_grads``'s
+   row carries the floor as ``launch_floor_ms``);
 8. the flash-attention kernels (forward, dQ, dK/dV) against their plain
    version with autograd at the (B, T, H, Hkv, D, causal) of
    ``FLASH_CASES`` (T 4096 at D 128 MHA and GQA, a ragged T = 1000, D 32,
@@ -142,6 +153,9 @@ FIT_LOSS_RTOL = 1e-5
 FIT_PARAM_REL = 1e-5
 # both datasets carry a planted rule: 2 epochs must lower the mean loss
 MIN_LOSS_FALL = 0.01
+# fused_linear_grads on float data against its plain version: another
+# summation order, and expf against torch's sigmoid
+FUSED_TOL = dict(rtol=1e-5, atol=1e-6)
 # flash attention against the plain version (tests/test_sequence_parallel.py's
 # tolerances): f32 sums over the keys in another order, and the online
 # softmax rescales partial sums per tile
@@ -290,6 +304,14 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 30) -> float:
     return statistics.median(times)
 
 
+def launch_floor_ms(kernels, dev, flush: torch.Tensor) -> dict:
+    """``time_ms`` of one and of two launches of an empty kernel
+    (csrc/launch_floor.cu): the least time any kernel takes by that
+    method, what a small kernel's time is read against."""
+    return {"one": time_ms(lambda: kernels.empty_launches(1, dev), flush),
+            "two": time_ms(lambda: kernels.empty_launches(2, dev), flush)}
+
+
 def ptxas_spills(log: str) -> dict:
     """{kernel entry (mangled): spill store + load bytes} from the
     ``-Xptxas -v`` lines of a build log."""
@@ -341,11 +363,16 @@ def fused_case(kernels, dev, rows, features, objective, integer, seed):
     args = (t(x), t(label), t(weight), t(w), t(b))
     got = kernels.fused_linear_grads(*args, objective=objective)
     again = kernels.fused_linear_grads(*args, objective=objective)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = kernels.fused_linear_grads(*args, objective=objective)
     want = kernels.fused_linear_grads_plain(*args, objective=objective)
     torch.cuda.synchronize()
-    require(all(torch.equal(a, c) for a, c in zip(got, again)),
-            "fused_linear_grads %s [%d, %d]: two runs differ in bits",
-            objective, rows, features)
+    require(all(torch.equal(a, c) and torch.equal(a, o)
+                for a, c, o in zip(got, again, other)),
+            "fused_linear_grads %s [%d, %d]: two runs, or a run on a second "
+            "stream, differ in bits", objective, rows, features)
     err = max(float((a - c).abs().max()) for a, c in zip(got, want))
     for a, c in zip(got, want):
         if integer:
@@ -354,11 +381,142 @@ def fused_case(kernels, dev, rows, features, objective, integer, seed):
                     "and plain differ (max abs err %g)",
                     objective, rows, features, err)
         else:
-            require(torch.allclose(a, c, rtol=1e-5, atol=1e-6),
+            require(torch.allclose(a, c, **FUSED_TOL),
                     "fused_linear_grads %s [%d, %d]: kernel and plain "
-                    "differ beyond rtol 1e-5 / atol 1e-6 (max abs err %g)",
-                    objective, rows, features, err)
+                    "differ beyond rtol %g / atol %g (max abs err %g)",
+                    objective, rows, features, FUSED_TOL["rtol"],
+                    FUSED_TOL["atol"], err)
     return err, args
+
+
+def read_lost_tile(kernels, args, objective="logistic") -> float:
+    """Phase 3's known fault: the plain version without the rows of the
+    last tile (a partial row the cross-CTA sum lost), read against
+    FUSED_TOL beside the kernel's result, which must fail it. Returns the
+    largest tolerance ratio over (gw, gb, loss_sum, weight_sum)."""
+    x, label, weight, w, b = args
+    keep = (x.shape[0] - 1) // kernels.FUSED_TILE_ROWS * kernels.FUSED_TILE_ROWS
+    got = kernels.fused_linear_grads(*args, objective=objective)
+    fault = kernels.fused_linear_grads_plain(
+        x[:keep], label[:keep], weight[:keep], w, b, objective)
+    ratio = max(tol_ratio(f, g, FUSED_TOL) for f, g in zip(fault, got))
+    require(ratio > 1.0, "fused_linear_grads %s: the lost-tile fault reads "
+            "%g, inside the limit", list(x.shape), ratio)
+    return ratio
+
+
+def device_ops(fn) -> dict:
+    """{name: count} of the device operations (kernels, memsets, copies)
+    that torch.profiler records for one call of ``fn``, after a warm-up
+    call. Empty where CUPTI, through which the profiler sees the card,
+    traced nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA}
+
+
+#: CUgraphNodeType values (cuda.h) other than CU_GRAPH_NODE_TYPE_KERNEL (0)
+GRAPH_NODE_KINDS = {1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+                    5: "empty", 6: "wait_event", 7: "event_record",
+                    8: "ext_semaphore_signal", 9: "ext_semaphore_wait",
+                    10: "mem_alloc", 11: "mem_free", 12: "batch_mem_op",
+                    13: "conditional"}
+
+
+def graph_ops(fn) -> dict:
+    """{name: count} of the device operations that one call of ``fn``
+    enqueues, read from a CUDA graph captured around it through the
+    driver API: each kernel node by its function's name, any other node
+    by its kind ("memset", "memcpy", ...). A warm-up call on the capturing
+    stream comes first, so that state a wrapper keeps per stream
+    (``fused_linear_grads``'s arrival counter) exists before the capture.
+    Needs no CUPTI, unlike :func:`device_ops`."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(name, *args):
+        rc = getattr(cu, name)(*args)
+        require(rc == 0, "%s returned CUresult %d", name, rc)
+
+    stream = torch.cuda.Stream()
+    handle = ctypes.c_void_p(stream.cuda_stream)
+    graph = ctypes.c_void_p()
+    with torch.cuda.stream(stream):
+        fn()
+        stream.synchronize()
+        call("cuStreamBeginCapture_v2", handle, ctypes.c_int(2))  # relaxed
+        try:
+            fn()
+        finally:
+            call("cuStreamEndCapture", handle, ctypes.byref(graph))
+    ops = {}
+    try:
+        count = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", graph, None, ctypes.byref(count))
+        nodes = (ctypes.c_void_p * count.value)()
+        call("cuGraphGetNodes", graph, nodes, ctypes.byref(count))
+        for node in nodes:
+            node = ctypes.c_void_p(node)
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", node, ctypes.byref(kind))
+            key = GRAPH_NODE_KINDS.get(kind.value, "node %d" % kind.value)
+            if kind.value == 0:
+                key = kernel_node_name(call, node)
+            ops[key] = ops.get(key, 0) + 1
+    finally:
+        call("cuGraphDestroy", graph)
+    return ops
+
+
+def kernel_node_name(call, node) -> str:
+    """The (mangled) function name of a kernel node of a CUDA graph."""
+    import ctypes
+
+    # CUDA_KERNEL_NODE_PARAMS_v2: CUfunction func at byte 0 and, where the
+    # runtime launched a CUkernel instead, CUkernel kern at byte 56
+    params = (ctypes.c_char * 128)()
+    call("cuGraphKernelNodeGetParams_v2", node, params)
+    func = ctypes.c_void_p.from_buffer(params, 0)
+    name = ctypes.c_char_p()
+    if func.value:
+        call("cuFuncGetName", ctypes.byref(name), func)
+    else:
+        call("cuKernelGetName", ctypes.byref(name),
+             ctypes.c_void_p.from_buffer(params, 56))
+    return name.value.decode()
+
+
+def one_call_ops(fn) -> dict:
+    """The device operations of one call of ``fn``, counted twice: from a
+    captured CUDA graph (``graph``, always) and by torch.profiler
+    (``profiler``: the first of up to three tries that traced any device
+    operation, or None where none did)."""
+    traced = None
+    for _ in range(3):
+        traced = device_ops(fn) or None
+        if traced:
+            break
+    return {"graph": graph_ops(fn), "profiler": traced}
+
+
+def require_one_kernel(ops, what, kernel):
+    """Every count of :func:`one_call_ops` (the profiler's where it traced
+    anything) must be exactly one launch of ``kernel``, nothing else."""
+    for source, counted in ops.items():
+        if counted is None:
+            continue
+        require(list(counted.values()) == [1]
+                and kernel in next(iter(counted)),
+                "%s: one call ran %s on the card by the %s's count, not "
+                "one %s", what, counted, source, kernel)
 
 
 def criteo_batch(dev, seed):
@@ -726,8 +884,10 @@ def profile_step(fn, q, k, v) -> dict:
         kernel_ms[e.key[:96]] = kernel_ms.get(e.key[:96], 0.0) + us / 1e3
     busy = sum(kernel_ms.values())
     top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8])
-    return {"step_ms": step_ms, "device_busy_ms": busy,
-            "idle_share": 1.0 - busy / step_ms, "kernel_ms": top}
+    # no kernel traced: CUPTI saw nothing, not a card that idled
+    return {"step_ms": step_ms, "device_busy_ms": busy if top else None,
+            "idle_share": 1.0 - busy / step_ms if top else None,
+            "kernel_ms": top}
 
 
 def attention_inputs(dev, t, hk, seed):
@@ -839,21 +999,13 @@ def drive_attention(kernels, dev, group):
 def sdpa_backend(fn) -> dict:
     """The backend behind ``fn`` (one scaled_dot_product_attention step),
     named from the CUDA kernels one torch.profiler run of it records."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if getattr(e, "device_type", None)
-                    == torch.autograd.DeviceType.CUDA})
+    names = sorted(device_ops(fn))
     lower = " ".join(names).lower()
     backend = ("cudnn" if "cudnn" in lower else
                "flash" if "flash" in lower else
                "efficient" if ("fmha" in lower or "efficient" in lower
-                               or "mem_eff" in lower) else "math")
+                               or "mem_eff" in lower) else
+               "math" if names else "not traced")
     return {"backend": backend, "kernels": names}
 
 
@@ -1196,8 +1348,8 @@ def drive_ingest(kernels, dev, path, tmp):
 
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
-    7, 10 and 11 take them, the forward twice) beside SDPA's forward and
-    ``index_add_``."""
+    7, 10 and 11 take them, the forward twice) beside SDPA's forward,
+    ``index_add_`` and the launch floor."""
     import torch.nn.functional as F
 
     from dmlc_tpu_torch.ops.flash_attention import softmax_delta
@@ -1240,6 +1392,7 @@ def kernel_times(kernels, dev) -> dict:
                 *dense, objective="logistic"), flush),
             "tokenize_boundaries": time_ms(
                 lambda: kernels.tokenize_boundaries(chunk), flush),
+            "launch_floor_ms": launch_floor_ms(kernels, dev, flush),
         }
 
 
@@ -1286,6 +1439,10 @@ def main() -> int:
             "ptxas reported %d flash kernel variants, expected 18", len(flash))
     require(not any(flash.values()), "flash kernels spill: %s",
             {name: n for name, n in flash.items() if n})
+    fused = [n for name, n in spills.items()
+             if "fused_linear_grads_kernel" in name]
+    require(fused == [0], "fused_linear_grads_kernel: ptxas spills %s",
+            fused)
     torch.cuda.synchronize()
 
     # ---- 3. fused_linear_grads vs plain ------------------------------------
@@ -1296,8 +1453,11 @@ def main() -> int:
             fused_case(kernels, dev, rows, features, objective, True, 1)
         err, args = fused_case(kernels, dev, rows, features, "logistic",
                                False, 2)
-        print(json.dumps({"fused_linear_grads": [rows, features],
-                          "logistic_max_abs_err": err}), flush=True)
+        report = {"fused_linear_grads": [rows, features],
+                  "logistic_max_abs_err": err}
+        if (rows, features) == (1000, 29):
+            report["lost_last_tile_tol_ratio"] = read_lost_tile(kernels, args)
+        print(json.dumps(report), flush=True)
         if (rows, features) == (16384, 29):
             fused_err, main_args = err, args
     torch.cuda.synchronize()
@@ -1371,6 +1531,17 @@ def main() -> int:
     flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
     x, label, weight, w, b = main_args
     rows, features = x.shape
+    ops = one_call_ops(lambda: kernels.fused_linear_grads(
+        x, label, weight, w, b, "logistic"))
+    require_one_kernel(ops, "fused_linear_grads",
+                       "fused_linear_grads_kernel")
+    if ops["profiler"] is None:
+        print("torch.profiler traced no device operation (no CUPTI "
+              "activity); the CUDA graph's count stands alone",
+              file=sys.stderr, flush=True)
+    floor = launch_floor_ms(kernels, dev, flush)
+    print(json.dumps({"fused_linear_grads_device_ops": ops,
+                      "launch_floor_ms": floor}), flush=True)
     fused_row = {
         "name": "fused_linear_grads", "route": "cuda",
         "source": "dmlc_tpu_torch/ops/csrc/fused_linear_grads.cu",
@@ -1382,6 +1553,7 @@ def main() -> int:
         "plain_ms": time_ms(lambda: kernels.fused_linear_grads_plain(
             x, label, weight, w, b, "logistic"), flush),
         "library_ms": None,
+        "launch_floor_ms": floor,
     }
     fused_row["bound_ms"], fused_row["bound_by"] = bound(
         4 * (rows * features + 2 * rows + 2 * features + 4),

@@ -11,8 +11,10 @@ core has two layouts:
   ``margin_loss_grad`` → ``spmv_transpose``.
 
 On a CPU tensor each kernel wrapper runs its plain PyTorch version. Every
-value is f32, as in the reference; the sums of the kernels run in a fixed
-order, so a run repeats its bits.
+value is f32, as in the reference. The CUDA kernels add no floats with
+atomics; ``spmv_transpose`` reduces with PyTorch's sort-then-reduce on
+CUDA and, on the CPU, sums each feature's entries in entry order after a
+stable sort (``ops/spmv.py``). So a run repeats its bits on either route.
 """
 
 from __future__ import annotations

@@ -42,13 +42,13 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 
 OBJECTIVE_CODES = {"logistic": 0, "squared": 1, "hinge": 2}
 #: rows per CTA tile; must equal kTileRows in csrc/fused_linear_grads.cu
-FUSED_TILE_ROWS = 64
+FUSED_TILE_ROWS = 128
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _declared = False
 #: guards every wrapper's ``launches`` count (a += from two threads can
-#: lose one)
+#: lose one) and the arrival counters of ``fused_linear_grads``
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -58,7 +58,7 @@ def _lib() -> ctypes.CDLL:
     if not _declared:
         lib.dmlc_fused_linear_grads.argtypes = [
             _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int,
-            _P, _P, _P, _P]
+            _P, _P, _P, _P, _P]
         lib.dmlc_fused_linear_grads.restype = ctypes.c_int
         lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _P, _P,
                                              _P]
@@ -72,6 +72,8 @@ def _lib() -> ctypes.CDLL:
         lib.dmlc_flash_attention_bwd_dkv.restype = ctypes.c_int
         lib.dmlc_tokenize_boundaries.argtypes = [_P, _I64, _P, _P, _P]
         lib.dmlc_tokenize_boundaries.restype = ctypes.c_int
+        lib.dmlc_empty_launches.argtypes = [ctypes.c_int, _P]
+        lib.dmlc_empty_launches.restype = ctypes.c_int
         _declared = True
     return lib
 
@@ -111,14 +113,32 @@ def fused_linear_grads_plain(x, label, weight, w, b, objective="logistic"):
     return x.T @ wg, torch.sum(wg), torch.sum(weight * loss), torch.sum(weight)
 
 
+#: (device index, stream handle) -> the int32 arrival counter of
+#: csrc/fused_linear_grads.cu on that stream, zeroed once; each call leaves
+#: it at 0, and calls on one stream run one after another
+_ARRIVAL_COUNTERS = {}
+
+
+def _arrival_counter(dev, stream):
+    key = (dev.index, stream.cuda_stream)
+    with _LAUNCH_LOCK:
+        counter = _ARRIVAL_COUNTERS.get(key)
+        if counter is None:
+            # zeroed on the current stream, ahead of the launch that reads it
+            counter = torch.zeros(1, dtype=torch.int32, device=dev)
+            _ARRIVAL_COUNTERS[key] = counter
+    return counter
+
+
 def fused_linear_grads(x, label, weight, w, b, objective="logistic"):
     """(gw [F], gb, loss_sum, weight_sum) for a dense batch in one kernel.
 
     x [B, F], label and weight [B], w [F] and b (0-d), all f32 on one
     device; the same contract as the dense ``_local_grads`` of
     models/linear.py. Padded rows carry weight 0. On a CUDA tensor this
-    launches csrc/fused_linear_grads.cu (two kernels: per-tile partials,
-    then their sum in tile order); on a CPU tensor it runs
+    launches csrc/fused_linear_grads.cu once (per-tile partial rows; the
+    CTA that arrives last sums them in tile order, counted by an int32 on
+    the stream that is zeroed once); on a CPU tensor it runs
     :func:`fused_linear_grads_plain`.
     """
     check(objective in OBJECTIVE_CODES, "unknown objective %r", objective)
@@ -140,12 +160,14 @@ def fused_linear_grads(x, label, weight, w, b, objective="logistic"):
     gw = torch.empty(features, dtype=torch.float32, device=dev)
     scalars = torch.empty(3, dtype=torch.float32, device=dev)
     lib = _lib()
+    stream = torch.cuda.current_stream(dev)
+    counter = _arrival_counter(dev, stream)
     with torch.cuda.device(dev):
         rc = lib.dmlc_fused_linear_grads(
             x.data_ptr(), label.data_ptr(), weight.data_ptr(), w.data_ptr(),
             b.data_ptr(), rows, features, OBJECTIVE_CODES[objective],
-            FUSED_TILE_ROWS, partials.data_ptr(), gw.data_ptr(),
-            scalars.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            FUSED_TILE_ROWS, partials.data_ptr(), counter.data_ptr(),
+            gw.data_ptr(), scalars.data_ptr(), stream.cuda_stream)
     _launch_check(rc, "fused_linear_grads")
     count_launch(fused_linear_grads)
     return gw, scalars[0], scalars[1], scalars[2]
@@ -409,6 +431,25 @@ def tokenize_boundaries(a):
 
 
 tokenize_boundaries.launches = 0
+
+# ---------------------------------------------------------------------------
+# the launch floor
+# ---------------------------------------------------------------------------
+
+
+def empty_launches(n: int, device) -> None:
+    """Launch the empty kernel of csrc/launch_floor.cu ``n`` times on the
+    current stream of the CUDA ``device``: a measuring aid for the fixed
+    cost of a launch, not a port, so it counts nothing and is not in
+    :data:`KERNELS`."""
+    device = torch.device(device)
+    check(device.type == "cuda", "empty_launches runs on a CUDA device, "
+          "not %s", device)
+    with torch.cuda.device(device):
+        rc = _lib().dmlc_empty_launches(
+            n, torch.cuda.current_stream(device).cuda_stream)
+    _launch_check(rc, "empty_launches")
+
 
 #: every kernel wrapper of the package, by name
 KERNELS = {

@@ -281,8 +281,9 @@ def make_flash_local(causal: bool = False):
     ``dmlc_tpu/ops/sequence_parallel.py``. The forward and backward never
     hold the T×T scores; GQA K/V heads are read in place rather than
     repeated to H. The TPU version's ``block_sizes`` has no counterpart:
-    the CUDA tile (64 queries × 64 keys) is fixed when the kernels are
-    compiled. On CPU tensors it runs the kernels' plain version."""
+    the CUDA tiles are fixed when the kernels are compiled, 128 query rows
+    × 32 keys in the forward and 64 × 64 in the backward. On CPU tensors
+    it runs the kernels' plain version."""
 
     def kernel(q, k, v):
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),

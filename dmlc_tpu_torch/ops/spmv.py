@@ -8,11 +8,15 @@ reduce on the CUDA kernel ``coo_segment_sum``); the gradient
 (:func:`spmv_transpose`) is a segment sum keyed by feature id. Padded
 entries (value 0 at feature 0) are arithmetic no-ops in both directions.
 
-Determinism: nothing here adds floats with atomics. ``spmv_transpose`` uses
-``index_put_`` with ``accumulate=True``, which on CUDA sorts the entries by
-feature id and reduces each run of one id in a fixed order (PyTorch's
-``index_put_with_sort`` path), and on the CPU adds serially;
-chip_smoke.py checks that it gives the same bits run after run.
+Determinism: nothing here adds floats with atomics, and ``spmv_transpose``
+repeats its bits on both routes. On CUDA it uses ``index_put_`` with
+``accumulate=True``, which sorts the entries by feature id and reduces each
+run of one id in a fixed order (PyTorch's ``index_put_with_sort`` path;
+chip_smoke.py checks the same bits run after run). On the CPU, where
+``index_put_`` adds over threads in an order that changes from run to run,
+it sorts the entries by feature id (stably) and sums each feature's run
+in entry order from 0, the order of the reference's CPU scatter
+(``jax.ops.segment_sum``).
 """
 
 from __future__ import annotations
@@ -62,8 +66,18 @@ def spmv_kernel(values, indices, row_ids, weight_vec, num_rows: int):
 def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):
     """g[f] = Σ_{e: indices[e]==f} values[e] * row_grads[row_ids[e]]: the
     gradient of :func:`spmv` with respect to ``weight_vec``. Returns
-    [num_features]."""
+    [num_features], the same bits on every run (module docstring)."""
     contrib = values * row_grads.index_select(0, row_ids)
     out = torch.zeros(num_features, dtype=contrib.dtype,
                       device=contrib.device)
-    return out.index_put_((indices.long(),), contrib, accumulate=True)
+    if contrib.device.type != "cpu":
+        return out.index_put_((indices.long(),), contrib, accumulate=True)
+    if contrib.numel() == 0:
+        return out
+    # the CPU route: each feature's run in entry order, summed from 0 one
+    # run at a time (segment_reduce's CPU loop), whatever the thread count
+    feature, order = torch.sort(indices, stable=True)
+    ids, counts = torch.unique_consecutive(feature, return_counts=True)
+    out[ids.long()] = torch.segment_reduce(contrib[order], "sum",
+                                           lengths=counts)
+    return out

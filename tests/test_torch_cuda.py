@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from chip_smoke import (FLASH_CASES, TF32_FAULT_MIN_T, TOKEN_SIZES,
-                         flash_case, hold_seg_sum, seg_sum_edge_cases,
-                         token_chunk)
+                         flash_case, hold_seg_sum, one_call_ops,
+                         read_lost_tile, require_one_kernel,
+                         seg_sum_edge_cases, token_chunk)
 from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -27,8 +28,9 @@ from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
 pytestmark = pytest.mark.cuda
 
 OBJECTIVES = ("logistic", "squared", "hinge")
-# ragged rows and features, one row, many 64-row tiles, HIGGS's batch, and
-# a feature width no tile's partial fits in registers
+# ragged rows and features, one row, many 128-row tiles, HIGGS's batch,
+# and a feature width read in 64 chunks of 32 (only the first stays in
+# registers)
 SHAPES = ((700, 28), (1, 5), (2048, 16), (300, 64), (16384, 29),
           (4096, 2048))
 
@@ -77,6 +79,49 @@ def test_fused_linear_grads_kernel_matches_plain(cuda, objective, rows,
         else:
             # another summation order, and expf against torch's sigmoid
             torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows,features", ((16384, 29), (1000, 29),
+                                           (4096, 2048)))
+@pytest.mark.parametrize("objective", ("logistic", "squared"))
+def test_fused_linear_grads_on_two_streams(cuda, objective, rows, features):
+    """HIGGS's batch, a ragged last tile and a wide F: two calls back to
+    back with no sync between them on each of two streams at once (each
+    stream has its own arrival counter, which every call leaves at 0) give
+    the same bits, one counted launch a call, and hold against the plain
+    version as above."""
+    integer = objective != "logistic"
+    args = _dense(cuda, rows, features, integer)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before = kernels.fused_linear_grads.launches
+    got = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            for _ in range(2):
+                got.append(kernels.fused_linear_grads(*args,
+                                                      objective=objective))
+    torch.cuda.synchronize()
+    assert kernels.fused_linear_grads.launches == before + 4
+    for other in got[1:]:
+        assert all(torch.equal(a, c) for a, c in zip(got[0], other))
+    want = kernels.fused_linear_grads_plain(*args, objective=objective)
+    for g, wnt in zip(got[0], want):
+        if integer:
+            assert torch.equal(g, wnt)
+        else:
+            torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_linear_grads_is_one_kernel_and_sees_a_lost_tile(cuda):
+    """One call runs exactly one kernel on the card and no memset (by a
+    captured CUDA graph and, where CUPTI traces, torch.profiler), and
+    chip_smoke.py's lost-tile fault (the last tile's rows left out) fails
+    the limit the kernel is held to."""
+    args = _dense(cuda, 1000, 29, False)
+    ops = one_call_ops(lambda: kernels.fused_linear_grads(*args))
+    require_one_kernel(ops, "fused_linear_grads", "fused_linear_grads_kernel")
+    assert read_lost_tile(kernels, args) > 1.0
 
 
 SEG_EDGE_CASES = {name: (ids, rows) for name, ids, rows

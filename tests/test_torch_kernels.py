@@ -8,7 +8,9 @@ the plain versions on the card, in tests/test_torch_cuda.py.
 """
 
 import concurrent.futures
+import re
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +18,13 @@ import pytest
 import torch
 
 from dmlc_tpu.models.linear import _build_local_grads as jax_build_local_grads
+from chip_smoke import read_lost_tile
 from dmlc_tpu.ops import pallas_kernels as jax_kernels
 from dmlc_tpu_torch.ops import kernels
 
 OBJECTIVES = ("logistic", "squared", "hinge")
 # (rows, features): ragged in both, a single row, and a batch spanning many
-# tiles of both the JAX kernel (tile_b=256) and the CUDA kernel (64 rows)
+# tiles of both the JAX kernel (tile_b=256) and the CUDA kernel (128 rows)
 SHAPES = ((700, 28), (1, 5), (2048, 16), (300, 64))
 
 
@@ -157,6 +160,34 @@ def test_launch_counts_lose_nothing_under_threads():
     kernels.count_launch(kernels.tokenize_boundaries)
     kernels.reset_launch_counts()
     assert kernels.tokenize_boundaries.launches == 0
+
+
+def test_fused_tile_rows_matches_the_kernel_source():
+    """FUSED_TILE_ROWS sizes the partial rows that the wrapper allocates
+    for csrc/fused_linear_grads.cu, whose tile is kWarps x kRowsPerWarp
+    rows (the kernel refuses any other tile_rows)."""
+    src = (Path(kernels.__file__).parent / "csrc"
+           / "fused_linear_grads.cu").read_text()
+    consts = {m.group(1): int(m.group(2)) for m in
+              re.finditer(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kWarps"] * consts["kRowsPerWarp"] == kernels.FUSED_TILE_ROWS
+
+
+@pytest.mark.parametrize("rows", [1000, 129])
+def test_lost_tile_fault_fails_the_fused_limit(rows):
+    """chip_smoke.py's phase-3 fault on the plain route: the sums without
+    the last tile's rows (a lost partial row) read outside FUSED_TOL."""
+    args = [torch.from_numpy(np.asarray(a))
+            for a in _dense(3, rows, 29, False)]
+    assert read_lost_tile(kernels, args) > 1.0
+
+
+def test_empty_launches_needs_a_cuda_device():
+    """The launch floor's empty kernel is a measuring aid: it launches only
+    on a CUDA device and is no entry of KERNELS."""
+    with pytest.raises(Exception, match="CUDA"):
+        kernels.empty_launches(1, "cpu")
+    assert "empty_launches" not in kernels.KERNELS
 
 
 def test_tokenize_boundaries_takes_uint8_vectors_only():

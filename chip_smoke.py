@@ -107,7 +107,28 @@ non-zero exit and no result line:
    ``LibSVMParser.parse_chunk`` (counted here); then the same through a
    ``#cachefile`` (``DiskRowIter``), cold (parses, launches) and warm
    (pages only, no launch). MB/s of each route, and the seconds
-   ``kernel_token_spans`` takes over all the file's chunks.
+   ``kernel_token_spans`` takes over all the file's chunks; then the MB/s
+   of ``create_parser``'s ``PipelinedParser`` (chunks parsed whole on its
+   worker threads) beside a ``ThreadedParser`` built directly over the
+   same ``LibSVMParser`` (each chunk split over its pool): the same rows,
+   one tokenizer launch a chunk part;
+13. the distributed fit, over phases 5-6's files: world 1 over NCCL
+   (``parallel.distributed.initialize``, ``LinearLearner(group=WORLD)``,
+   the data-parallel step's ``bucketed_all_reduce``) must give phases
+   5-6's bits, with one launch a step and a tokenizer launch a chunk part,
+   and one step runs under torch.profiler (``step_device_ops``: what the
+   NCCL all_reduce puts on the card); world 2 as two rank processes
+   (``--fit-rank``) on the one card over gloo (NCCL refuses two ranks on
+   one GPU), each reading its own byte range with 3/4 of phases 5-6's
+   batch (``DIST_BATCH``): ``sync="spmd"`` and ``sync="host"`` (the port's
+   ``RabitTracker`` and socket engine: the dense bucket takes the tree, the
+   csr bucket the ring) on the card and ``sync="spmd"`` on the CPU. Both
+   ranks must end with the same bits, the two card flavors with the same
+   bits, within ``FIT_PARAM_REL`` of the CPU's; each rank launches its
+   step's kernel once a step, as many steps as the other, and the
+   tokenizer once a chunk part. World 2 over NCCL runs where a second card
+   exists (else the report says it was skipped). Rows/s of each world and
+   flavor; a rank that fails or hangs (``RANK_TIMEOUT_S``) fails the run.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
@@ -184,6 +205,17 @@ TOKEN_ALPHABETS = {"mixed": b"0123456789.:-+e \t\r\nqid",
 # the ingest path's file: Criteo's widths (write_criteo), ~120 MB, ~15
 # chunks: one partition of a many-worker Criteo job
 INGEST_ROWS = 262_144
+# phase 13 fits phases 5-6's files. At world 2 each rank's batch is 3/4 of
+# theirs: each rank's half of a file then holds ~10.67 (dense) and ~5.33
+# (csr) batches, so byte-range parts that differ by a few rows take the
+# same 10 and 5 full steps an epoch (drop_remainder). A rank with a step
+# more than the other would wait for ever in its extra allreduce.
+DIST_BATCH = {"dense": HIGGS_BATCH * 3 // 4, "csr": CRITEO_BATCH * 3 // 4}
+DIST_NF = {"dense": HIGGS_FEATURES + 1, "csr": CRITEO_DIM + 1}
+DIST_ROWS = {"dense": HIGGS_ROWS, "csr": CRITEO_ROWS}
+DIST_KERNEL = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
+# a world whose ranks have not all exited by then fails the run
+RANK_TIMEOUT_S = 300
 
 
 class SmokeFailure(RuntimeError):
@@ -583,10 +615,10 @@ def hold_seg_sum(kernels, dev, name, row_ids, num_rows):
 
 
 def run_fit(path, layout, batch_size, num_features, device,
-            learning_rate=0.1):
+            learning_rate=0.1, group=None):
     from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
 
-    learner = LinearLearner(device=device, objective="logistic",
+    learner = LinearLearner(device=device, group=group, objective="logistic",
                             learning_rate=learning_rate)
     t0 = time.perf_counter()
     history = learner.fit_uri(path, batch_size=batch_size, epochs=EPOCHS,
@@ -678,7 +710,7 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
         "param_rel_err_vs_cpu": rel_err,
         "halved_grad_param_rel_err": halved_err,
         "cpu_seconds": cpu_seconds,
-    }
+    }, params
 
 
 def tol_ratio(got, want, tol) -> float:
@@ -1322,6 +1354,45 @@ def drive_ingest(kernels, dev, path, tmp):
         result["disk_" + state] = {"seconds": dsec,
                                    "mb_per_s": nbytes / 1e6 / dsec,
                                    "launches": dlaunches}
+    # create_parser's PipelinedParser (chunks parsed whole on its worker
+    # threads) beside a ThreadedParser built directly over the same
+    # LibSVMParser (each chunk split over its pool): the same rows, and one
+    # tokenizer launch a non-empty chunk part either way
+    from dmlc_tpu_torch.data import (LibSVMParser, PipelinedParser,
+                                     RowBlockContainer, ThreadedParser,
+                                     create_parser)
+    from dmlc_tpu_torch.data.parsers import DEFAULT_NTHREAD
+    from dmlc_tpu_torch.io import create_input_split
+
+    makers = {
+        "pipelined": lambda: create_parser(path, device=dev),
+        "threaded": lambda: ThreadedParser(LibSVMParser(
+            create_input_split(path, 0, 1), DEFAULT_NTHREAD, dev)),
+    }
+    result["parsers"] = {}
+    for name, make in makers.items():
+        kernels.reset_launch_counts()
+        with count_parts() as parts:
+            t0 = time.perf_counter()
+            parser = make()
+            cont = RowBlockContainer()
+            try:
+                for b in parser:
+                    cont.push_block(b)
+                whole = cont.to_block()
+            finally:
+                parser.close()
+            seconds = time.perf_counter() - t0
+        require(isinstance(parser, PipelinedParser) == (name == "pipelined"),
+                "create_parser returned %s", type(parser).__name__)
+        same_blocks("ingest through the %s parser" % name, whole, cpu)
+        launches = kernels.tokenize_boundaries.launches
+        require(launches == len(parts) > 0, "%s parser: %d tokenizer "
+                "launches for %d chunk parts", name, launches, len(parts))
+        result["parsers"][name] = {
+            "seconds": seconds, "mb_per_s": nbytes / 1e6 / seconds,
+            "launches": launches, "nthread": DEFAULT_NTHREAD}
+        del whole, cont
     del card, cpu, block
     # the seconds kernel_token_spans takes over every chunk of the file
     from dmlc_tpu_torch.data import vparse
@@ -1344,6 +1415,346 @@ def drive_ingest(kernels, dev, path, tmp):
     result["kernel_token_spans"] = {"chunks": chunks,
                                     "seconds": spans_seconds}
     return result
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the distributed fit
+# ---------------------------------------------------------------------------
+
+
+def fit_rank(rank: int, spec_path: str) -> int:
+    """One rank of phase 13, run as ``chip_smoke.py --fit-rank RANK SPEC``
+    by :func:`run_ranks`: join the process group the spec names, then for
+    each flavor of ``spec["flavors"]`` ("spmd/card", "host/card",
+    "spmd/cpu") fit the dense and the csr file on this rank's part, with
+    the launch counts set to 0 just before each fit and read just after.
+    Writes ``rank<r>.json`` (times, launches, losses) and ``rank<r>.npz``
+    (params) beside the spec."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch import collective
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+    from dmlc_tpu_torch.ops import kernels
+    from dmlc_tpu_torch.parallel import distributed
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    world = spec["world"]
+    dev = distributed.initialize(spec["init"], world, rank,
+                                 backend=spec["backend"],
+                                 device=spec["devices"][rank])
+    report = {"device": str(dev), "backend": dist.get_backend()}
+    arrays = {}
+    try:
+        for flavor in spec["flavors"]:
+            sync, where = flavor.split("/")
+            collective.finalize()
+            if sync == "host":
+                collective.init("socket", tracker_uri="127.0.0.1",
+                                tracker_port=spec["tracker_port"],
+                                rank=rank, world_size=world)
+            else:
+                collective.init()
+            kind = "socket" if sync == "host" else "device"
+            require(collective.engine_kind() == kind
+                    and collective.rank() == rank
+                    and collective.world_size() == world,
+                    "rank %d: engine %s, rank %d of %d", rank,
+                    collective.engine_kind(), collective.rank(),
+                    collective.world_size())
+            device = dev if where == "card" else torch.device("cpu")
+            for layout in ("dense", "csr"):
+                kernels.reset_launch_counts()
+                with count_parts() as parts:
+                    t0 = time.perf_counter()
+                    learner = LinearLearner(
+                        device=device, sync=sync, objective="logistic",
+                        group=dist.group.WORLD if sync == "spmd" else None)
+                    history = learner.fit_uri(
+                        spec["files"][layout],
+                        batch_size=DIST_BATCH[layout], epochs=EPOCHS,
+                        layout=layout, num_features=DIST_NF[layout],
+                        drop_remainder=True)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    seconds = time.perf_counter() - t0
+                key = f"{flavor}/{layout}"
+                report[key] = {
+                    "seconds": seconds, "history": history,
+                    "chunk_parts": len(parts),
+                    "launches": {k: fn.launches
+                                 for k, fn in kernels.KERNELS.items()}}
+                for k, v in params_to_numpy(learner.params).items():
+                    arrays[f"{key}/{k}"] = v
+    finally:
+        collective.finalize()
+        distributed.shutdown()
+    out = os.path.dirname(spec_path)
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def run_ranks(spec: dict, tmp: str):
+    """Start one ``--fit-rank`` process a rank of ``spec`` and wait for all
+    of them. A rank that exits non-zero, or a world that outlasts
+    ``RANK_TIMEOUT_S`` (a rank waiting for ever in a collective), fails
+    the run at once; every rank process is killed on the way out."""
+    spec_path = os.path.join(tmp, "spec.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+            for r in range(spec["world"])]
+    procs = []
+
+    def tail(r):
+        with open(os.path.join(tmp, f"rank{r}.log")) as fh:
+            return fh.read()[-6000:]
+
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fit-rank", str(r),
+             spec_path], stdout=logs[r], stderr=subprocess.STDOUT)
+            for r in range(spec["world"])]
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            for r, p in enumerate(procs):
+                require(p.returncode in (None, 0), "%s: rank %d exited "
+                        "with %s:\n%s", spec["name"], r, p.returncode,
+                        tail(r))
+            require(time.monotonic() < deadline, "%s: the ranks did not "
+                    "finish in %d s", spec["name"], RANK_TIMEOUT_S)
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for fh in logs:
+            fh.close()
+    for r, p in enumerate(procs):
+        require(p.returncode == 0, "%s: rank %d exited with %s:\n%s",
+                spec["name"], r, p.returncode, tail(r))
+    reports, arrays = [], []
+    for r in range(spec["world"]):
+        with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+            reports.append(json.load(fh))
+        arrays.append(dict(np.load(os.path.join(tmp, f"rank{r}.npz"))))
+    return reports, arrays
+
+
+def hold_world(spec, reports, arrays) -> dict:
+    """Phase 13's checks of one world: every rank ends each fit with rank
+    0's bits; on the card each rank launched its step's kernel once a step,
+    the same number of steps as the others, and the tokenizer once a chunk
+    part; the CPU flavor launched nothing; the loss fell. Returns the
+    report: per flavor and layout, each rank's seconds and launches and
+    the world's rows/s (the rows all ranks stepped over the slowest rank's
+    seconds)."""
+    name = spec["name"]
+    fits = {}
+    for flavor in spec["flavors"]:
+        fits[flavor] = {}
+        for layout in ("dense", "csr"):
+            key = f"{flavor}/{layout}"
+            per_rank = [rep[key] for rep in reports]
+            for r in range(1, len(reports)):
+                for k in ("w", "b"):
+                    require(arrays[r][f"{key}/{k}"].tobytes()
+                            == arrays[0][f"{key}/{k}"].tobytes(),
+                            "%s %s: rank %d's %s differs from rank 0's "
+                            "bits", name, key, r, k)
+            history = per_rank[0]["history"]
+            require(np.all(np.isfinite(history))
+                    and history[-1] < history[0] - MIN_LOSS_FALL,
+                    "%s %s: loss history %s", name, key, history)
+            steps = [rep["launches"][DIST_KERNEL[layout]]
+                     for rep in per_rank]
+            if flavor.endswith("/card"):
+                require(steps[0] > 0 and len(set(steps)) == 1,
+                        "%s %s: %s launches of %s by rank", name, key,
+                        steps, DIST_KERNEL[layout])
+                for r, rep in enumerate(per_rank):
+                    require(rep["launches"]["tokenize_boundaries"]
+                            == rep["chunk_parts"] > 0,
+                            "%s %s: rank %d launched the tokenizer %d "
+                            "times for %d chunk parts", name, key, r,
+                            rep["launches"]["tokenize_boundaries"],
+                            rep["chunk_parts"])
+            else:
+                require(not any(sum(rep["launches"].values())
+                                for rep in per_rank),
+                        "%s %s: the CPU route launched a kernel", name, key)
+            fits[flavor][layout] = {
+                "seconds": [rep["seconds"] for rep in per_rank],
+                "launches": [{k: rep["launches"][k] for k in (
+                    "fused_linear_grads", "coo_segment_sum",
+                    "tokenize_boundaries")} for rep in per_rank],
+                "chunk_parts": [rep["chunk_parts"] for rep in per_rank],
+                "loss_history": history,
+            }
+    # the rows every rank stepped over (drop_remainder: full batches only),
+    # counted from the card flavor's launches
+    for layout in ("dense", "csr"):
+        card = next(f for f in spec["flavors"] if f.endswith("/card"))
+        rows = sum(r[DIST_KERNEL[layout]]
+                   for r in fits[card][layout]["launches"]) \
+            * DIST_BATCH[layout]
+        for flavor in spec["flavors"]:
+            fit = fits[flavor][layout]
+            fit["rows"] = rows
+            fit["rows_per_s"] = rows / max(fit["seconds"])
+    return {"backend": reports[0]["backend"],
+            "devices": [rep["device"] for rep in reports], "fits": fits}
+
+
+def drive_distributed(kernels, dev, files, single) -> dict:
+    """Phase 13: the fits of phases 5-6 through the collective layer.
+    World 1 over NCCL must give phase 5-6's bits; world 2 runs two rank
+    processes on the card over gloo (NCCL refuses two ranks on one GPU),
+    data-parallel and hostsync (the port's tracker and socket engine),
+    and on the CPU; world 2 over NCCL runs where a second card exists."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch import collective
+    from dmlc_tpu_torch.data import create_parser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import (init_linear_params,
+                                       make_linear_train_step, step_batch)
+    from dmlc_tpu_torch.parallel import distributed
+    from dmlc_tpu_torch.tracker import RabitTracker
+
+    out = {}
+    # world 1 over NCCL: phases 5-6's fits, with the data-parallel step's
+    # all_reduce over one card
+    fits = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(f"file://{tmp}/pg", 1, 0, device=dev)
+        try:
+            require(dist.get_backend() == "nccl", "world 1 runs over %s",
+                    dist.get_backend())
+            # NCCL builds its communicator at the first collective: timed
+            # alone, so that the fits read the steps
+            t0 = time.perf_counter()
+            dist.all_reduce(torch.zeros(1, device=dev))
+            torch.cuda.synchronize()
+            first_all_reduce_s = time.perf_counter() - t0
+            for layout, batch in (("dense", HIGGS_BATCH),
+                                  ("csr", CRITEO_BATCH)):
+                kernels.reset_launch_counts()
+                with count_parts() as parts:
+                    history, params, seconds = run_fit(
+                        files[layout], layout, batch, DIST_NF[layout], dev,
+                        group=dist.group.WORLD)
+                launches = {k: fn.launches
+                            for k, fn in kernels.KERNELS.items()}
+                steps = EPOCHS * (-(-DIST_ROWS[layout] // batch))
+                require(launches[DIST_KERNEL[layout]] == steps,
+                        "world 1 %s: %s launched %d times for %d steps",
+                        layout, DIST_KERNEL[layout],
+                        launches[DIST_KERNEL[layout]], steps)
+                require(launches["tokenize_boundaries"] == len(parts) > 0,
+                        "world 1 %s: %d tokenizer launches for %d chunk "
+                        "parts", layout, launches["tokenize_boundaries"],
+                        len(parts))
+                for k in ("w", "b"):
+                    require(params[k].tobytes() == single[layout][k].tobytes(),
+                            "world 1 over NCCL, %s: %s differs from the "
+                            "single-device fit's bits", layout, k)
+                fits[layout] = {
+                    "seconds": seconds, "steps": steps,
+                    "rows_per_s": EPOCHS * DIST_ROWS[layout] / seconds,
+                    "launches": launches, "chunk_parts": len(parts),
+                    "loss_history": history,
+                    "bits_equal_single_device": True}
+            # what one data-parallel step runs on the card, the NCCL
+            # all_reduce included
+            feed = DeviceFeed(create_parser(files["dense"], device=dev),
+                              BatchSpec(batch_size=HIGGS_BATCH,
+                                        num_features=DIST_NF["dense"]),
+                              device=dev)
+            try:
+                batch = step_batch(next(iter(feed)), "dense")
+            finally:
+                feed.close()
+            step = make_linear_train_step(
+                dist.group.WORLD, layout="dense",
+                num_features=DIST_NF["dense"])
+            params = init_linear_params(DIST_NF["dense"], dev)
+            velocity = {k: torch.zeros_like(v) for k, v in params.items()}
+            ops = device_ops(lambda: step(params, velocity, batch))
+            if not ops:
+                print("torch.profiler traced no device operation of the "
+                      "world-1 NCCL step", file=sys.stderr, flush=True)
+            # and the step's all_reduce alone, on its 32-float bucket
+            bucket = torch.zeros(DIST_NF["dense"] + 3, device=dev)
+            reduce_ops = device_ops(lambda: dist.all_reduce(bucket))
+        finally:
+            collective.finalize()
+            distributed.shutdown()
+    out["world1_nccl"] = {"backend": "nccl", "devices": [str(dev)],
+                          "fits": {"spmd/card": fits},
+                          "first_all_reduce_seconds": first_all_reduce_s,
+                          "step_device_ops": ops or "not traced",
+                          "all_reduce_device_ops": reduce_ops or "none"}
+    print(json.dumps({"distributed_world1_nccl": out["world1_nccl"]}),
+          flush=True)
+
+    # world 2 on the one card over gloo: data-parallel, hostsync, and the
+    # data-parallel fit on the CPU as the reference
+    tracker = RabitTracker("127.0.0.1", 2, port=9091, port_end=9999)
+    tracker.start()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = {"name": "world2_gloo", "world": 2,
+                    "init": f"file://{tmp}/pg", "backend": "gloo",
+                    "devices": [str(dev)] * 2, "files": files,
+                    "flavors": ["spmd/card", "host/card", "spmd/cpu"],
+                    "tracker_port": tracker.port}
+            reports, arrays = run_ranks(spec, tmp)
+        tracker.thread.join(30)
+        require(not tracker.alive(), "world2_gloo: the tracker still waits "
+                "for shutdowns")
+    finally:
+        tracker.close()
+    world2 = hold_world(spec, reports, arrays)
+    for layout in ("dense", "csr"):
+        spmd = {k: arrays[0][f"spmd/card/{layout}/{k}"] for k in ("w", "b")}
+        for k in ("w", "b"):
+            require(spmd[k].tobytes()
+                    == arrays[0][f"host/card/{layout}/{k}"].tobytes(),
+                    "world 2 %s: the spmd and host flavors differ in %s",
+                    layout, k)
+        cpu = {k: arrays[0][f"spmd/cpu/{layout}/{k}"] for k in ("w", "b")}
+        rel = param_rel_err(spmd, cpu)
+        require(rel <= FIT_PARAM_REL, "world 2 %s: params differ from the "
+                "CPU's by %g relative (limit %g)", layout, rel,
+                FIT_PARAM_REL)
+        world2["fits"]["spmd/card"][layout]["param_rel_err_vs_cpu"] = rel
+        world2["fits"]["host/card"][layout]["bits_equal_spmd"] = True
+    out["world2_gloo"] = world2
+    print(json.dumps({"distributed_world2_gloo": world2}), flush=True)
+
+    # world 2 over NCCL needs a card a rank
+    if torch.cuda.device_count() < 2:
+        out["world2_nccl"] = ("skipped: %d card (NCCL refuses two ranks on "
+                              "one GPU)" % torch.cuda.device_count())
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            spec = {"name": "world2_nccl", "world": 2,
+                    "init": f"file://{tmp}/pg", "backend": "nccl",
+                    "devices": ["cuda:0", "cuda:1"], "files": files,
+                    "flavors": ["spmd/card"], "tracker_port": 0}
+            reports, nccl_arrays = run_ranks(spec, tmp)
+        out["world2_nccl"] = hold_world(spec, reports, nccl_arrays)
+        for layout in ("dense", "csr"):
+            for k in ("w", "b"):
+                key = f"spmd/card/{layout}/{k}"
+                require(nccl_arrays[0][key].tobytes()
+                        == arrays[0][key].tobytes(), "world 2 %s: NCCL and "
+                        "gloo differ in %s", layout, k)
+    print(json.dumps({"distributed_world2_nccl": out["world2_nccl"]}),
+          flush=True)
+    return out
 
 
 def kernel_times(kernels, dev) -> dict:
@@ -1408,8 +1819,18 @@ def main() -> int:
         print("card:", card_line())
         print(json.dumps({"times": kernel_times(kernels, dev)}))
         return 0
+    if sys.argv[1:2] == ["--fit-rank"] and len(sys.argv) == 4:
+        return fit_rank(int(sys.argv[2]), sys.argv[3])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
+    # phases 5-6 write the fit files here, and phase 13 reads them again
+    with tempfile.TemporaryDirectory() as fit_dir:
+        return smoke(fit_dir)
+
+
+def smoke(fit_dir: str) -> int:
+    """Phases 1-13 (the module docstring), with the fit files in
+    ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
     from dmlc_tpu_torch.utils.device import resolve_device
@@ -1510,22 +1931,21 @@ def main() -> int:
                       "spmv_transpose_same_bits_twice": True}), flush=True)
 
     # ---- 5./6. the main path, dense and csr --------------------------------
-    paths = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        higgs = os.path.join(tmp, "higgs.svm")
-        write_higgs(higgs, HIGGS_ROWS, seed=11)
-        paths["dense"] = drive_path(
-            kernels, "dense", "fused_linear_grads", higgs, "dense",
-            HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS)
-        torch.cuda.synchronize()
-        print(json.dumps({"dense": paths["dense"]}), flush=True)
-        criteo = os.path.join(tmp, "criteo.svm")
-        write_criteo(criteo, CRITEO_ROWS, seed=12)
-        paths["csr"] = drive_path(
-            kernels, "csr", "coo_segment_sum", criteo, "csr",
-            CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)
-        torch.cuda.synchronize()
-        print(json.dumps({"csr": paths["csr"]}), flush=True)
+    paths, fit_params = {}, {}
+    fit_files = {"dense": os.path.join(fit_dir, "higgs.svm"),
+                 "csr": os.path.join(fit_dir, "criteo.svm")}
+    write_higgs(fit_files["dense"], HIGGS_ROWS, seed=11)
+    paths["dense"], fit_params["dense"] = drive_path(
+        kernels, "dense", "fused_linear_grads", fit_files["dense"], "dense",
+        HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS)
+    torch.cuda.synchronize()
+    print(json.dumps({"dense": paths["dense"]}), flush=True)
+    write_criteo(fit_files["csr"], CRITEO_ROWS, seed=12)
+    paths["csr"], fit_params["csr"] = drive_path(
+        kernels, "csr", "coo_segment_sum", fit_files["csr"], "csr",
+        CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)
+    torch.cuda.synchronize()
+    print(json.dumps({"csr": paths["csr"]}), flush=True)
 
     # ---- 7. timings ----------------------------------------------------------
     flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
@@ -1618,6 +2038,11 @@ def main() -> int:
     print(json.dumps({"ingest": ingest}), flush=True)
     token_row["launches"] = ingest["launches"]
 
+    # ---- 13. the distributed fit -------------------------------------------
+    distributed = drive_distributed(kernels, dev, fit_files, fit_params)
+    torch.cuda.synchronize()
+    print(json.dumps({"distributed": distributed}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -1633,7 +2058,15 @@ def main() -> int:
         "disk_cold": ingest["disk_cold"]["mb_per_s"],
         "disk_warm": ingest["disk_warm"]["mb_per_s"],
         "kernel_token_spans_seconds":
-            ingest["kernel_token_spans"]["seconds"]}}))
+            ingest["kernel_token_spans"]["seconds"],
+        "pipelined_parser": ingest["parsers"]["pipelined"]["mb_per_s"],
+        "threaded_parser": ingest["parsers"]["threaded"]["mb_per_s"]}}))
+    print(json.dumps({"distributed_rows_per_s": {"card": card, **{
+        world: {flavor: {layout: fit["rows_per_s"]
+                         for layout, fit in layouts.items()}
+                for flavor, layouts in report["fits"].items()}
+        for world, report in distributed.items()
+        if isinstance(report, dict)}}}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
                       + [token_row]}))

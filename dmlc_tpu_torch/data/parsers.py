@@ -16,7 +16,8 @@ the port of ``dmlc_tpu/data/parsers.py``'s Python stack.
   (parser.h:70-126).
 - ``PARSER_REGISTRY`` / ``register_parser`` and ``create_parser(uri, part,
   nparts, format)``, resolving "auto" through the ``format=`` uri arg
-  (src/data.cc:62-85).
+  (src/data.cc:62-85); with ``threaded=True`` a ``Parser`` comes wrapped in
+  the cross-chunk ``data/pipeline.PipelinedParser``.
 
 Every parser takes ``device`` (None means cuda, see utils/device.py). The
 JAX package's native C++ core, audit hooks, shards and RecordIO are not
@@ -302,10 +303,11 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
 
     "auto" resolves through the ``format=`` uri arg, defaulting to libsvm.
     ``nthread=None`` means :data:`DEFAULT_NTHREAD`. ``threaded=True`` wraps
-    the parser in a :class:`ThreadedParser` (the JAX package returns its
-    cross-chunk ``PipelinedParser`` there, which is not ported yet: both
-    deliver the same blocks in the same order). ``device`` (None means
-    cuda) is where the parser's kernels run. A ``#cachefile`` uri raises:
+    a :class:`Parser` in a ``PipelinedParser`` over ``nthread`` workers
+    (each chunk parsed whole by one worker, blocks delivered in chunk
+    order), and any other registered parser in a :class:`ThreadedParser`,
+    as the JAX package does. ``device`` (None means cuda) is where the
+    parser's kernels run. A ``#cachefile`` uri raises:
     ``data.row_iter.create_row_block_iter`` serves cache files.
     """
     device = resolve_device(device)
@@ -320,4 +322,11 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
             f"{PARSER_REGISTRY.list_all_names()}")
     source = create_input_split(uri, part_index, num_parts, "text")
     base = entry(source, args, nthread, device)
-    return ThreadedParser(base) if threaded else base
+    if not threaded:
+        return base
+    if isinstance(base, Parser):
+        # deferred: data/pipeline.py imports this module
+        from dmlc_tpu_torch.data.pipeline import PipelinedParser
+
+        return PipelinedParser(base, nthread=nthread)
+    return ThreadedParser(base)

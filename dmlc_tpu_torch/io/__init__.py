@@ -1,5 +1,5 @@
-"""I/O layer: streams, the serializer, local files, URI parsing and the
-text InputSplit over local files."""
+"""I/O layer: streams, the serializer, local files, URI parsing, the
+text InputSplit over local files and the ordered thread-pool window."""
 
 from dmlc_tpu_torch.io.filesystem import create_stream
 from dmlc_tpu_torch.io.input_split import (
@@ -8,6 +8,7 @@ from dmlc_tpu_torch.io.input_split import (
     create_input_split,
     list_split_files,
 )
+from dmlc_tpu_torch.io.readahead import OrderedWindow, fetch_ordered
 from dmlc_tpu_torch.io.serializer import load_obj, save_obj
 from dmlc_tpu_torch.io.stream import (
     FileObjStream,
@@ -20,5 +21,6 @@ from dmlc_tpu_torch.io.uri_spec import URISpec
 __all__ = [
     "Stream", "SeekStream", "FileObjStream", "MemoryStream", "save_obj",
     "load_obj", "create_stream", "InputSplitBase", "LineSplitter",
-    "URISpec", "create_input_split", "list_split_files",
+    "URISpec", "create_input_split", "list_split_files", "OrderedWindow",
+    "fetch_ordered",
 ]

@@ -1,8 +1,20 @@
-"""The linear learner with allreduce-SGD's single-device step, in PyTorch.
+"""The allreduce-SGD linear learner, in PyTorch.
 
-The port of ``dmlc_tpu/models/linear.py``: ``libsvm file → InputSplit →
-parser → fixed-shape device batch → local gradients → SGD``. The gradient
-core has two layouts:
+The port of ``dmlc_tpu/models/linear.py``: ``libsvm file → InputSplit
+part → parser → fixed-shape device batch → local gradients → allreduce →
+SGD``. Three step flavors share one gradient core and one update:
+
+- single-device (``make_linear_train_step(None)``);
+- data-parallel (``make_linear_train_step(group)``): each rank's local
+  gradients and its loss and weight sums cross the process group in ONE
+  ``bucketed_all_reduce`` of the layout ``bucketed_psum`` traces in the
+  reference, ``[gw, gb, loss_sum, wsum]``; no DDP wrapper;
+- hostsync (``make_hostsync_train_step``): the same bucket copied to the
+  host, reduced by ``collective.allreduce`` (the socket engine's tree or
+  ring across processes), copied back.
+
+At world 2 every flavor adds each element once, so they give the same
+bits. The gradient core has two layouts:
 
 - dense (small feature spaces, HIGGS's 28): the whole step is one CUDA
   kernel, ``fused_linear_grads``;
@@ -24,6 +36,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dmlc_tpu_torch import collective
+from dmlc_tpu_torch.collective.device import bucketed_all_reduce
+from dmlc_tpu_torch.io.filesystem import create_stream
+from dmlc_tpu_torch.io.serializer import load_obj, save_obj
 from dmlc_tpu_torch.ops.kernels import fused_linear_grads
 from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
 from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_kernel, \
@@ -92,6 +108,10 @@ def _build_local_grads(objective: str, layout: str, num_features: int):
     """The gradient core: f(params, batch) -> (gw, gb, loss_sum,
     weight_sum). One definition for every step flavor, as in the
     reference."""
+    check(layout in ("dense", "csr"), "layout must be dense or csr")
+    check(objective in OBJECTIVES, "unknown objective %r", objective)
+    if layout == "csr":
+        check(num_features > 0, "csr layout requires num_features")
 
     def _local_grads(params, batch):
         label = batch["label"]
@@ -152,7 +172,7 @@ def _build_apply(learning_rate: float, l2: float, momentum: float,
 
 
 def make_linear_train_step(
-    mesh=None,
+    group=None,
     objective: str = "logistic",
     learning_rate: float = 0.1,
     l2: float = 0.0,
@@ -161,31 +181,68 @@ def make_linear_train_step(
     num_features: int = 0,
     donate_batch: bool = False,
 ):
-    """Build the single-device SGD step.
+    """Build the SGD step.
 
     Returns step(params, velocity, batch) -> (params, velocity, metrics)
     where metrics = {"loss_sum": Σ w·loss, "weight_sum": Σ w} (0-d
     tensors; the host divides). The batch's device picks the kernels' route.
 
+    ``group`` None gives the single-device step. A ``torch.distributed``
+    process group (``dist.group.WORLD`` or a sub-group) gives the
+    data-parallel step: each rank steps on its own batch, and its local
+    gradients, loss sum and weight sum cross the group in ONE
+    ``bucketed_all_reduce`` before the update, so every rank applies the
+    same summed gradient; the metrics are the group's sums.
+
     ``donate_batch=True`` is the counterpart of the reference's donation:
     params and velocity are updated in place, for callers that own them and
     rebind them every step (LinearLearner). The default leaves every input
     untouched and returns new tensors. The batch is never written.
-
-    ``mesh`` must be None: the mesh step is not ported yet.
     """
-    check(mesh is None, "mesh steps are not ported yet: pass mesh=None")
-    check(layout in ("dense", "csr"), "layout must be dense or csr")
-    check(objective in OBJECTIVES, "unknown objective %r", objective)
-    if layout == "csr":
-        check(num_features > 0, "csr layout requires num_features")
     _local_grads = _build_local_grads(objective, layout, num_features)
     _apply = _build_apply(learning_rate, l2, momentum, donate_batch)
 
     def step(params, velocity, batch):
-        gw, gb, loss_sum, wsum = _local_grads(params, batch)
+        grads = _local_grads(params, batch)
+        if group is not None:
+            grads = bucketed_all_reduce(grads, group)
+        gw, gb, loss_sum, wsum = grads
         params, velocity = _apply(params, velocity, gw, gb, wsum)
         return params, velocity, {"loss_sum": loss_sum, "weight_sum": wsum}
+
+    return step
+
+
+def make_hostsync_train_step(
+    objective: str = "logistic",
+    learning_rate: float = 0.1,
+    l2: float = 0.0,
+    momentum: float = 0.0,
+    layout: str = "dense",
+    num_features: int = 0,
+):
+    """The host-round-trip twin of the data-parallel step: local gradients
+    on the device, ONE ``collective.allreduce`` over the process's engine
+    (the socket engine's tree or ring across processes), the update on the
+    device. The rabit loop behind the step(params, velocity, batch)
+    signature, and the flavor that works across socket-engine processes.
+
+    The reduced buffer is one flat f32 ``[gw, gb, loss_sum, wsum]``, the
+    bucket the data-parallel step reduces on the device, so at world 2 the
+    two flavors give the same bits. Inputs are left untouched."""
+    _local_grads = _build_local_grads(objective, layout, num_features)
+    _apply = _build_apply(learning_rate, l2, momentum, False)
+
+    def step(params, velocity, batch):
+        gw, gb, loss_sum, wsum = _local_grads(params, batch)
+        bucket = torch.cat([gw.reshape(-1), torch.stack([gb, loss_sum, wsum])])
+        reduced = torch.from_numpy(
+            collective.allreduce(bucket.cpu().numpy())).to(gw.device)
+        n = gw.numel()
+        params, velocity = _apply(params, velocity, reduced[:n].view(
+            gw.shape), reduced[n], reduced[n + 2])
+        return params, velocity, {"loss_sum": reduced[n + 1],
+                                  "weight_sum": reduced[n + 2]}
 
     return step
 
@@ -219,17 +276,38 @@ class EpochMetrics:
 
 
 class LinearLearner:
-    """Convenience trainer: uri → fitted params (the rabit-SGD loop) on one
-    device.
+    """Convenience trainer: uri → fitted params (the rabit-SGD loop).
 
     ``device=None`` means cuda, and raises without a CUDA device; pass
     ``device="cpu"`` to run the plain PyTorch path. ``params`` takes initial
     ``{"w", "b"}`` numpy arrays (see :func:`params_from_numpy`); the
-    learner trains its own copies in place.
+    learner trains its own copies.
+
+    ``sync`` picks the gradient reduction:
+
+    - ``"spmd"`` (default): :func:`make_linear_train_step` over ``group``
+      (None: one device, no reduction; a process group: the
+      data-parallel step, one ``bucketed_all_reduce`` a step on the
+      device);
+    - ``"host"``: :func:`make_hostsync_train_step`, one
+      ``collective.allreduce`` a step through the process's collective
+      engine (the socket engine across processes); ``group`` must be None.
+
+    Every rank must take the same number of steps: a rank with a batch
+    more than the others waits for ever in its extra collective, as in the
+    reference. ``fit_uri``'s ``drop_remainder`` and parts of equal size
+    keep the counts equal.
     """
 
-    def __init__(self, device=None, params: Optional[Dict] = None, **hyper):
+    def __init__(self, device=None, group=None, sync: str = "spmd",
+                 params: Optional[Dict] = None, **hyper):
+        check(sync in ("spmd", "host"), "sync must be spmd or host")
+        check(group is None or sync == "spmd",
+              "sync='host' reduces through the collective engine: pass "
+              "group only with sync='spmd'")
         self.device = resolve_device(device)
+        self.group = group
+        self.sync = sync
         self.param = LinearModelParam()
         self.param.init(hyper)
         self.params = (None if params is None
@@ -250,16 +328,20 @@ class LinearLearner:
             self._layout = layout
             self._nf = (self.param.num_features or num_features
                         or int(self.params["w"].shape[0]))
-            self._step = make_linear_train_step(
-                None,
+            hyper = dict(
                 objective=self.param.objective,
                 learning_rate=self.param.learning_rate,
                 l2=self.param.l2,
                 momentum=self.param.momentum,
                 layout=self._layout,
                 num_features=self._nf,
-                donate_batch=True,  # the learner owns params and velocity
             )
+            if self.sync == "host":
+                self._step = make_hostsync_train_step(**hyper)
+            else:
+                # the learner owns params and velocity: update in place
+                self._step = make_linear_train_step(
+                    self.group, donate_batch=True, **hyper)
 
     def fit_uri(
         self,
@@ -268,18 +350,25 @@ class LinearLearner:
         epochs: int = 1,
         layout: str = "dense",
         num_features: int = 0,
-        part_index: int = 0,
-        num_parts: int = 1,
+        part_index: Optional[int] = None,
+        num_parts: Optional[int] = None,
         drop_remainder: bool = False,
     ):
         """One call from data uri to fitted params: InputSplit part →
         parser (tokenizing on the learner's device) → DeviceFeed →
-        fit_feed. Returns the per-epoch mean losses."""
+        fit_feed. The part defaults to this process's collective rank and
+        world size (``InputSplit::Create(uri, rank, world)``), so the same
+        line reads the whole file in one process and its own byte range in
+        each rank of a job. Returns the per-epoch mean losses."""
         from dmlc_tpu_torch.data.parsers import create_parser
         from dmlc_tpu_torch.device.feed import BatchSpec, DeviceFeed
 
         nf = num_features or self.param.num_features
         check(nf > 0, "fit_uri requires num_features")
+        if part_index is None:
+            part_index = collective.rank()
+        if num_parts is None:
+            num_parts = collective.world_size()
         feed = DeviceFeed(
             create_parser(uri, part_index, num_parts, device=self.device),
             BatchSpec(batch_size=batch_size, layout=layout, num_features=nf,
@@ -315,3 +404,25 @@ class LinearLearner:
         xt = torch.as_tensor(np.asarray(x, dtype=np.float32),
                              device=self.device)
         return linear_predict_dense(self.params, xt).cpu().numpy()
+
+    # ---- checkpointing through the Stream surface -------------------------
+    def save(self, uri: str) -> None:
+        """Write the param dict and ``w``, ``b`` to ``uri`` with the
+        serializer: the JAX package's bytes, so either package loads the
+        other's model."""
+        check(self.params is not None, "model not fitted")
+        arrays = params_to_numpy(self.params)
+        with create_stream(uri, "w") as out:
+            save_obj(out, {"param": self.param.to_dict(),
+                           "w": arrays["w"], "b": arrays["b"]})
+
+    def load(self, uri: str) -> None:
+        """Read a model written by :meth:`save` (or by the JAX package's
+        ``LinearLearner.save``) onto the learner's device. Training goes
+        on from it with zero velocity and a fresh step."""
+        with create_stream(uri, "r") as stream:
+            payload = load_obj(stream)
+        self.param.init(payload["param"], allow_unknown=True)
+        self.params = params_from_numpy(payload, self.device)
+        self.velocity = None
+        self._step = None

@@ -19,7 +19,7 @@ from chip_smoke import (FLASH_CASES, TF32_FAULT_MIN_T, TOKEN_SIZES,
                          flash_case, hold_seg_sum, one_call_ops,
                          read_lost_tile, require_one_kernel,
                          seg_sum_edge_cases, token_chunk)
-from dmlc_tpu_torch.data import create_row_block_iter
+from dmlc_tpu_torch.data import create_parser, create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
 from dmlc_tpu_torch.ops import kernels
@@ -332,8 +332,10 @@ def test_tokenize_boundaries_unaligned_starts(cuda, offset):
 
 def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
     """create_row_block_iter on the card and on the CPU: the same
-    RowBlock, bit for bit, with one kernel launch a non-empty chunk part
-    (nthread=2 splits a chunk of 4096 bytes or more in two)."""
+    RowBlock, bit for bit, with one kernel launch a non-empty chunk part.
+    create_parser's PipelinedParser parses each chunk whole on one of its
+    workers; the unthreaded parser's nthread=2 pool splits a chunk of 4096
+    bytes or more in two."""
     path = _write_svm(tmp_path / "t.svm", 3000)
     kernels.reset_launch_counts()
     got = next(iter(create_row_block_iter(path, nthread=1)))
@@ -345,5 +347,13 @@ def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
         assert g.dtype == w.dtype and np.array_equal(g, w), name
     kernels.reset_launch_counts()
     again = next(iter(create_row_block_iter(path)))
-    assert kernels.tokenize_boundaries.launches == 2
+    assert kernels.tokenize_boundaries.launches == 1
     assert np.array_equal(again.index, want.index)
+    kernels.reset_launch_counts()
+    parser = create_parser(path, nthread=2, threaded=False)
+    try:
+        split = parser.next_block()
+    finally:
+        parser.close()
+    assert kernels.tokenize_boundaries.launches == 2
+    assert np.array_equal(split.index, want.index)

@@ -19,13 +19,36 @@ import torch
 import dmlc_tpu_torch
 import dmlc_tpu_torch.data.row_iter
 from dmlc_tpu_torch.data import create_row_block_iter
+from dmlc_tpu_torch import collective
+from dmlc_tpu_torch.data import PipelinedParser, create_parser
+from dmlc_tpu_torch.io import fetch_ordered
 from dmlc_tpu_torch.models import LinearLearner
 from dmlc_tpu_torch.ops import sequence_parallel as sp
+from dmlc_tpu_torch.parallel import distributed
+from dmlc_tpu_torch.tracker import RabitTracker
 
+# a world of one on the port's tracker and socket engine: the hostsync fit
+tracker = RabitTracker("127.0.0.1", 1, port=21400, port_end=21500)
+tracker.start()
+collective.init("socket", tracker_uri="127.0.0.1", tracker_port=tracker.port)
+assert collective.engine_kind() == "socket" and collective.world_size() == 1
 for layout in ("dense", "csr"):
-    history = LinearLearner(device="cpu", momentum=0.5).fit_uri(
-        sys.argv[1], batch_size=4, epochs=2, layout=layout, num_features=8)
-    assert len(history) == 2, history
+    for sync in ("spmd", "host"):
+        learner = LinearLearner(device="cpu", sync=sync, momentum=0.5)
+        history = learner.fit_uri(sys.argv[1], batch_size=4, epochs=2,
+                                  layout=layout, num_features=8)
+        assert len(history) == 2, history
+learner.save(sys.argv[1] + ".model")
+LinearLearner(device="cpu").load(sys.argv[1] + ".model")
+collective.finalize()
+tracker.thread.join(10)
+tracker.close()
+assert not tracker.alive()
+assert distributed.process_count() == 1
+parser = create_parser(sys.argv[1], nthread=2, device="cpu")
+assert isinstance(parser, PipelinedParser) and sum(len(b) for b in parser) == 11
+parser.close()
+assert list(fetch_ordered(abs, [-1, -2])) == [1, 2]
 it = create_row_block_iter(sys.argv[1] + "#" + sys.argv[1] + ".cache",
                            device="cpu")
 assert sum(len(b) for b in it) == 11 and it.num_col() == 8

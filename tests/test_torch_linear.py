@@ -173,3 +173,36 @@ def test_fit_from_zero_init_counts_no_launch_on_cpu(tmp_path):
     assert len(history) == 1 and np.isfinite(history[0])
     assert learner.params["w"].shape == (9,)
     assert kernels.fused_linear_grads.launches == 0
+
+
+@pytest.mark.parametrize("saver", ["port", "reference"])
+def test_save_load_across_packages(tmp_path, saver):
+    """A model saved by either package loads in the other: the same bits
+    in w and b, the same param dict; the two packages write the same
+    bytes for the same model."""
+    hyper = dict(objective="hinge", learning_rate=0.25, l2=0.125,
+                 momentum=0.5, num_features=9)
+    params, _ = _init(9, 11, integer=False)
+    port = LinearLearner(device="cpu", params=params, **hyper)
+    ref = RefLinearLearner(None, **hyper)
+    ref.params = {k: jnp.asarray(a) for k, a in params.items()}
+    port.save(str(tmp_path / "port.model"))
+    ref.save(str(tmp_path / "ref.model"))
+    assert (tmp_path / "port.model").read_bytes() == \
+        (tmp_path / "ref.model").read_bytes()
+    uri = str(tmp_path / ("port.model" if saver == "port" else "ref.model"))
+    loaded = LinearLearner(device="cpu")
+    loaded.load(uri)
+    ref_loaded = RefLinearLearner(None)
+    ref_loaded.load(uri)
+    assert loaded.param.to_dict() == ref_loaded.param.to_dict() == \
+        port.param.to_dict()
+    got = params_to_numpy(loaded.params)
+    for k in ("w", "b"):
+        want = np.asarray(ref_loaded.params[k])
+        assert got[k].dtype == want.dtype and got[k].shape == want.shape
+        assert got[k].tobytes() == want.tobytes() == \
+            np.asarray(params[k], np.float32).tobytes()
+    # training goes on from the loaded model, as from the saved one
+    x = np.random.RandomState(12).randn(4, 9).astype(np.float32)
+    assert np.array_equal(loaded.predict(x), port.predict(x))

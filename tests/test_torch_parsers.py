@@ -19,12 +19,14 @@ from dmlc_tpu.data.row_block import RowBlockContainer as RefContainer
 from dmlc_tpu.io import serializer as ref_serializer
 from dmlc_tpu.io.stream import MemoryStream as RefMemoryStream
 from dmlc_tpu.ops import pallas_kernels as jax_kernels
-from dmlc_tpu_torch.data import (PARSER_REGISTRY, DiskRowIter, Parser,
-                                 RowBlock, RowBlockContainer, ThreadedParser,
+from dmlc_tpu_torch.data import (PARSER_REGISTRY, DiskRowIter, LibSVMParser,
+                                 Parser, PipelinedParser, RowBlock,
+                                 RowBlockContainer, ThreadedParser,
                                  create_parser, create_row_block_iter,
                                  register_parser, vparse)
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
-from dmlc_tpu_torch.io import MemoryStream, create_stream, load_obj, save_obj
+from dmlc_tpu_torch.io import (MemoryStream, create_input_split,
+                               create_stream, load_obj, save_obj)
 from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
 from dmlc_tpu_torch.ops import kernels
 from dmlc_tpu_torch.utils import DMLCError
@@ -238,16 +240,22 @@ def test_csv_vector_table_matches_scalar_oracle_and_reference(name):
 
 
 def test_threaded_parser_repeats_epochs(tmp_path):
+    """A directly built ThreadedParser, and the PipelinedParser that
+    create_parser returns for a Parser when threaded: a second epoch after
+    before_first gives the first's rows again."""
     uri = _write(tmp_path, "libsvm_weights")
-    parser = create_parser(uri, device="cpu")
-    assert isinstance(parser, ThreadedParser)
-    assert parser.device == torch.device("cpu")
-    first = _concat(list(parser))
-    parser.before_first()
-    second = _concat(list(parser))
-    parser.close()
-    assert_blocks_equal(first, second)
-    assert parser.bytes_read == 2 * len(open(uri, "rb").read())
+    threaded = ThreadedParser(LibSVMParser(create_input_split(uri, 0, 1),
+                                           device="cpu"))
+    pipelined = create_parser(uri, device="cpu")
+    assert isinstance(pipelined, PipelinedParser)
+    for parser in (threaded, pipelined):
+        assert parser.device == torch.device("cpu")
+        first = _concat(list(parser))
+        parser.before_first()
+        second = _concat(list(parser))
+        parser.close()
+        assert_blocks_equal(first, second)
+        assert parser.bytes_read == 2 * len(open(uri, "rb").read())
 
 
 def test_unknown_format_and_cache_file_raise(tmp_path):
@@ -500,8 +508,8 @@ def test_container_page_bytes_match_reference():
 
 @pytest.mark.parametrize("layout", ["dense", "csr"])
 def test_fit_uri_bits_do_not_depend_on_the_parser_threads(tmp_path, layout):
-    """fit_uri now reads through create_parser's ThreadedParser with a
-    2-thread chunk pool; its fit must equal, bit for bit, a fit over one
+    """fit_uri reads through create_parser's PipelinedParser over 2
+    worker threads; its fit must equal, bit for bit, a fit over one
     unthreaded single-thread parser with 700-byte chunks: the rows and
     their order are the same, so every batch is."""
     uri = _write(tmp_path, "libsvm_weights")

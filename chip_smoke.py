@@ -130,6 +130,29 @@ non-zero exit and no result line:
    exists (else the report says it was skipped). Rows/s of each world and
    flavor; a rank that fails or hangs (``RANK_TIMEOUT_S``) fails the run.
 
+14. GBDT on the card (``GBDTLearner``, ``GBDT_HYPER``: GBDTParam's
+   defaults at HIGGS's 28 features, logistic, 20 trees of depth 6, 256
+   bins): one squared-loss tree on integer labels equals the CPU route bit
+   for bit (edges, features, bins, leaves); ``fit`` on 1,048,576 seeded
+   rows twice gives the same bits (seconds a fit, ms a tree, rows·trees/s,
+   peak device bytes); one level's histogram at depth 5 timed (CUDA
+   events, cold L2) beside its byte bound, and one tree under
+   torch.profiler (device ops, idle share); the card against the CPU route
+   at 65,536 rows: loss history within rtol ``GBDT_LOSS_RTOL``,
+   probabilities within a mean absolute ``GBDT_PRED_MEAN_ATOL``, the trees
+   of equal structure counted; ``fit_uri`` over phase 5's HIGGS file with
+   one tokenizer launch a chunk part (both passes); then world 2 on the one
+   card over gloo (``--group-rank``), each rank fitting half of the rows
+   with world 1's edges: the ranks bit-identical, their margins within
+   ``GBDT_PRED_MEAN_ATOL`` (mean) of world 1's;
+15. the rest of the data-parallel path: in the same world-2 processes the
+   feature-sharded step at dp × mp = 1 × 2 and 2 × 1 (3 steps on a HIGGS
+   batch) within ``MP_TOL`` of the data-parallel step on the same rows;
+   the sharded SpMV of a Criteo batch in 4 sections, each through
+   ``coo_segment_sum`` (4 launches), bit for bit against ``spmv``; and
+   ``run_parity(world=2)`` (socket-engine ranks on the CPU, the single
+   process on the card), which must pass its rtol criterion.
+
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The last lines are the ``{"kernels": [...]}`` line, the card line
@@ -216,6 +239,29 @@ DIST_ROWS = {"dense": HIGGS_ROWS, "csr": CRITEO_ROWS}
 DIST_KERNEL = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
 # a world whose ranks have not all exited by then fails the run
 RANK_TIMEOUT_S = 300
+
+
+# phase 14: GBDTParam's defaults at HIGGS's width (28 features), the rows
+# of a HIGGS-sized training set, the card against the CPU route at a size
+# the CPU fits in seconds, and one level's histogram timed at depth 5
+GBDT_HYPER = dict(objective="logistic", num_trees=20, max_depth=6,
+                  num_bins=256, learning_rate=0.3)
+GBDT_ROWS, GBDT_CPU_ROWS, GBDT_HIST_DEPTH = 1 << 20, 1 << 16, 5
+# card vs CPU route at GBDT_CPU_ROWS, and world 2 vs world 1: torch's
+# sigmoid on the card rounds differently from the host's by an ulp, and
+# world 2 adds two half-sums where world 1 sums the rows serially, so a
+# near-tie split can go the other way in a late tree. The loss history is
+# held to rtol 1e-4; the predictions by their mean absolute difference,
+# 1e-4 (a probability, a margin), with the largest difference and the
+# trees of equal structure printed.
+GBDT_LOSS_RTOL = 1e-4
+GBDT_PRED_MEAN_ATOL = 1e-4
+# phase 15: the feature-sharded step against the data-parallel step on a
+# HIGGS batch (3 steps): another summation order of the partial margins
+# and of gw, and lr·gw/wsum rounded where the other divides first
+MP_STEPS = 3
+MP_TOL = dict(rtol=1e-5, atol=1e-6)
+SHARDED_SPMV_SECTIONS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -897,29 +943,15 @@ def attention_steps(fn, q, k, v, steps):
 
 
 def profile_step(fn, q, k, v) -> dict:
-    """One step of ``attention_steps`` under torch.profiler: the device
-    milliseconds of each CUDA kernel (by name, summed), their total, the
-    step's host milliseconds (profiler on) and the device's idle share of
-    them."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_ms = attention_steps(fn, q, k, v, 1)[2][0]
-    kernel_ms = {}
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        kernel_ms[e.key[:96]] = kernel_ms.get(e.key[:96], 0.0) + us / 1e3
-    busy = sum(kernel_ms.values())
-    top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8])
-    # no kernel traced: CUPTI saw nothing, not a card that idled
-    return {"step_ms": step_ms, "device_busy_ms": busy if top else None,
-            "idle_share": 1.0 - busy / step_ms if top else None,
-            "kernel_ms": top}
+    """One step of ``attention_steps`` under torch.profiler
+    (:func:`profile_call`): each CUDA kernel's device milliseconds, their
+    total, the step's host milliseconds (profiler on) and the device's idle
+    share of them."""
+    report = profile_call(lambda: attention_steps(fn, q, k, v, 1)[2][0])
+    return {"step_ms": report["wall_ms"],
+            "device_busy_ms": report["device_busy_ms"],
+            "idle_share": report["idle_share"],
+            "kernel_ms": report["kernel_ms"]}
 
 
 def attention_inputs(dev, t, hk, seed):
@@ -1495,9 +1527,9 @@ def fit_rank(rank: int, spec_path: str) -> int:
     return 0
 
 
-def run_ranks(spec: dict, tmp: str):
-    """Start one ``--fit-rank`` process a rank of ``spec`` and wait for all
-    of them. A rank that exits non-zero, or a world that outlasts
+def run_ranks(spec: dict, tmp: str, entry: str = "--fit-rank"):
+    """Start one ``entry`` process (``--fit-rank`` or ``--group-rank``) a
+    rank of ``spec`` and wait for all of them. A rank that exits non-zero, or a world that outlasts
     ``RANK_TIMEOUT_S`` (a rank waiting for ever in a collective), fails
     the run at once; every rank process is killed on the way out."""
     spec_path = os.path.join(tmp, "spec.json")
@@ -1513,7 +1545,7 @@ def run_ranks(spec: dict, tmp: str):
 
     try:
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--fit-rank", str(r),
+            [sys.executable, os.path.abspath(__file__), entry, str(r),
              spec_path], stdout=logs[r], stderr=subprocess.STDOUT)
             for r in range(spec["world"])]
         deadline = time.monotonic() + RANK_TIMEOUT_S
@@ -1757,6 +1789,366 @@ def drive_distributed(kernels, dev, files, single) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 14-15: GBDT on the card, the rest of the data-parallel path
+# ---------------------------------------------------------------------------
+
+
+def gbdt_data(rows: int, seed: int):
+    """HIGGS-shaped rows in memory by ``write_higgs``'s rule: 28 standard
+    normal features, labels 0/1 from a noisy linear rule."""
+    rng = np.random.RandomState(seed)
+    true_w = rng.randn(HIGGS_FEATURES)
+    x = rng.randn(rows, HIGGS_FEATURES).astype(np.float32)
+    y = (x @ true_w + rng.randn(rows) > 0).astype(np.float32)
+    return x, y
+
+
+def gbdt_fit(x, y, device, group=None, edges=None, **hyper):
+    """(learner, history, seconds) of one ``GBDTLearner.fit``."""
+    from dmlc_tpu_torch.models import GBDTLearner
+
+    learner = GBDTLearner(device=device, group=group,
+                          **dict(GBDT_HYPER, **hyper))
+    t0 = time.perf_counter()
+    history = learner.fit(x, y, edges=edges)
+    if learner.device.type == "cuda":
+        torch.cuda.synchronize()
+    return learner, history, time.perf_counter() - t0
+
+
+def tree_bits(learner) -> dict:
+    return {k: v.cpu().numpy() for k, v in learner.trees.items()}
+
+
+def same_structure(a: dict, b: dict) -> int:
+    """The number of trees whose features and bins agree."""
+    return int(sum(np.array_equal(a["feature"][t], b["feature"][t])
+                   and np.array_equal(a["bin"][t], b["bin"][t])
+                   for t in range(a["feature"].shape[0])))
+
+
+def hold_close(where, got, want, mean_atol) -> dict:
+    """Mean and largest absolute difference; the mean within the limit."""
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    report = {"mean_abs_diff": float(diff.mean()),
+              "max_abs_diff": float(diff.max())}
+    require(np.all(np.isfinite(got)) and report["mean_abs_diff"] <= mean_atol,
+            "%s: %s (limit %g)", where, report, mean_atol)
+    return report
+
+
+def profile_call(run) -> dict:
+    """One ``run()`` (which returns its host milliseconds) under
+    torch.profiler: each CUDA kernel's device milliseconds (by name,
+    summed; the 8 largest), their total and the device's idle share of the
+    host time. No kernel traced means CUPTI saw nothing: busy and idle are
+    then None, not a card that idled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = run()
+    kernel_ms = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        kernel_ms[e.key[:96]] = kernel_ms.get(e.key[:96], 0.0) + us / 1e3
+    busy = sum(kernel_ms.values())
+    top = dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_ms": wall_ms, "device_busy_ms": busy if top else None,
+            "idle_share": 1.0 - busy / wall_ms if top else None,
+            "kernel_count": len(kernel_ms), "kernel_ms": top}
+
+
+def group_rank(rank: int, spec_path: str) -> int:
+    """One rank of phases 14-15's world 2, run as ``chip_smoke.py
+    --group-rank RANK SPEC`` by :func:`run_ranks` (gloo on the one card):
+    the GBDT fit of this rank's half of phase 14's rows with the shared
+    edges, then the feature-sharded step at dp × mp = 1 × 2 and 2 × 1 beside
+    the data-parallel step on the same rows. Writes ``rank<r>.json`` and
+    ``rank<r>.npz`` beside the spec."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch.models import (feature_shard, init_linear_params,
+                                       make_feature_sharded_train_step,
+                                       make_linear_train_step)
+    from dmlc_tpu_torch.parallel import distributed
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    out = os.path.dirname(spec_path)
+    world = spec["world"]
+    dev = distributed.initialize(spec["init"], world, rank,
+                                 backend=spec["backend"],
+                                 device=spec["devices"][rank])
+    arrays = {}
+    try:
+        x, y = gbdt_data(GBDT_ROWS, spec["seed"])
+        half = slice(rank * GBDT_ROWS // world,
+                     (rank + 1) * GBDT_ROWS // world)
+        edges = np.load(os.path.join(out, "edges.npy"))
+        learner, history, seconds = gbdt_fit(
+            x[half], y[half], dev, group=dist.group.WORLD, edges=edges)
+        for k, v in tree_bits(learner).items():
+            arrays[f"gbdt/{k}"] = v
+        arrays["gbdt/margin"] = learner.predict_margin(x[:GBDT_CPU_ROWS])
+        report = {"gbdt": {"seconds": seconds, "history": history,
+                           "rows": half.stop - half.start}}
+        # the feature-sharded step: 1 × 2 (each rank all rows, half of w)
+        # and 2 × 1 (half the rows, all of w), each beside the
+        # data-parallel step on the same rows
+        nf = HIGGS_FEATURES
+        xs = torch.tensor(x[:HIGGS_BATCH], device=dev)
+        ys = torch.tensor(y[:HIGGS_BATCH], device=dev)
+        ws = torch.ones(HIGGS_BATCH, device=dev)
+        for dp, mp in ((1, 2), (2, 1)):
+            rows = slice(rank * HIGGS_BATCH // dp if dp > 1 else 0,
+                         (rank + 1) * HIGGS_BATCH // dp if dp > 1
+                         else HIGGS_BATCH)
+            j = rank if mp > 1 else 0
+            step = make_feature_sharded_train_step(
+                dist.group.WORLD if dp > 1 else None,
+                dist.group.WORLD if mp > 1 else None, learning_rate=0.5)
+            dp_step = make_linear_train_step(
+                dist.group.WORLD if dp > 1 else None, learning_rate=0.5,
+                num_features=nf)
+            params = init_linear_params(nf, dev)
+            velocity = {k: torch.zeros_like(v) for k, v in params.items()}
+            ref = {k: v.clone() for k, v in params.items()}
+            shard = {"w": feature_shard(params["w"], j, mp),
+                     "b": params["b"]}
+            x_rows = feature_shard(xs[rows], j, mp).contiguous()
+            for _ in range(MP_STEPS):
+                shard, metrics = step(shard, x_rows, ys[rows], ws[rows])
+                ref, velocity, _ = dp_step(ref, velocity, {
+                    "x": xs[rows], "label": ys[rows], "weight": ws[rows]})
+            key = f"mp/{dp}x{mp}"
+            arrays[f"{key}/w"] = shard["w"].cpu().numpy()
+            arrays[f"{key}/b"] = shard["b"].cpu().numpy()
+            arrays[f"{key}/dp_w"] = feature_shard(ref["w"], j, mp).cpu() \
+                .numpy()
+            arrays[f"{key}/dp_b"] = ref["b"].cpu().numpy()
+            arrays[f"{key}/loss_sum"] = metrics["loss_sum"].cpu().numpy()
+    finally:
+        distributed.shutdown()
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def drive_gbdt(kernels, dev, higgs_file) -> dict:
+    """Phase 14: GBDT on the card (the module docstring)."""
+    from dmlc_tpu_torch.models import gbdt
+
+    out = {"hyper": GBDT_HYPER, "rows": GBDT_ROWS}
+    x, y = gbdt_data(GBDT_ROWS, seed=14)
+    # one squared-loss tree on integer labels: the card's bits are the CPU
+    # route's (integer (g, h): every sum exact)
+    xs = x[:GBDT_CPU_ROWS]
+    yi = np.random.RandomState(15).randint(-3, 4, GBDT_CPU_ROWS).astype(
+        np.float32)
+    one = dict(objective="squared", num_trees=1)
+    card, _, _ = gbdt_fit(xs, yi, dev, **one)
+    cpu, _, _ = gbdt_fit(xs, yi, "cpu", **one)
+    require(card.edges.tobytes() == cpu.edges.tobytes(),
+            "GBDT edges: the card's quantiles differ from numpy's")
+    a, b = tree_bits(card), tree_bits(cpu)
+    for k in ("feature", "bin", "leaf"):
+        require(a[k].tobytes() == b[k].tobytes(),
+                "GBDT squared tree on integer labels: card and CPU differ "
+                "in %s", k)
+    out["squared_tree_bits_equal_cpu"] = True
+
+    # (a) the fit at full rows, twice: the same bits
+    torch.cuda.reset_peak_memory_stats(dev)
+    first, history, seconds = gbdt_fit(x, y, dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    again, history2, seconds2 = gbdt_fit(x, y, dev)
+    a, b = tree_bits(first), tree_bits(again)
+    for k in a:
+        require(a[k].tobytes() == b[k].tobytes(),
+                "GBDT fit twice on the card: %s differs", k)
+    require(history == history2, "GBDT fit twice: loss histories differ")
+    require(np.all(np.isfinite(history)) and history[-1] < history[0]
+            - MIN_LOSS_FALL, "GBDT fit: loss history %s", history)
+    trees = GBDT_HYPER["num_trees"]
+    out["fit"] = {
+        "seconds": [seconds, seconds2], "ms_per_tree":
+        [1e3 * s / trees for s in (seconds, seconds2)],
+        "rows_trees_per_s": [GBDT_ROWS * trees / s
+                             for s in (seconds, seconds2)],
+        "peak_device_bytes": peak, "loss_history": history,
+        "same_bits_twice": True}
+
+    # one level's histogram at depth 5 and one tree under torch.profiler
+    xb = gbdt.apply_bins(torch.tensor(x, device=dev), first.edges)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nodes = 1 << GBDT_HIST_DEPTH
+    node = torch.randint(0, nodes, (GBDT_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    g = torch.randn(GBDT_ROWS, generator=gen, device=dev)
+    h = torch.rand(GBDT_ROWS, generator=gen, device=dev)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+    hist_ms = time_ms(lambda: gbdt._level_histogram(
+        xb, node, g, h, nodes, GBDT_HYPER["num_bins"]), flush, 10)
+    del flush
+    entries = GBDT_ROWS * HIGGS_FEATURES
+    bound_ms, bound_by = bound(entries * (4 + 8), 2 * entries)
+    out["level_histogram"] = {
+        "depth": GBDT_HIST_DEPTH, "entries": entries, "ms": hist_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_counts": "a 4-byte key and an 8-byte (g, h) value an entry"}
+    build = gbdt.make_tree_builder(GBDT_HYPER["max_depth"],
+                                   GBDT_HYPER["num_bins"], 1.0, 1.0)
+
+    def one_tree():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build(xb, g, h)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    one_tree()
+    out["tree_profile"] = profile_call(one_tree)
+    del xb, node, g, h
+    print(json.dumps({"gbdt_fit": out}), flush=True)
+
+    # the card against the CPU route at GBDT_CPU_ROWS
+    ys = y[:GBDT_CPU_ROWS]
+    card, card_hist, card_s = gbdt_fit(xs, ys, dev)
+    cpu, cpu_hist, cpu_s = gbdt_fit(xs, ys, "cpu")
+    np.testing.assert_allclose(card_hist, cpu_hist, rtol=GBDT_LOSS_RTOL)
+    out["card_vs_cpu"] = {
+        "rows": GBDT_CPU_ROWS, "card_seconds": card_s, "cpu_seconds": cpu_s,
+        "loss_max_rel_diff": float(np.max(np.abs(
+            np.array(card_hist) - cpu_hist) / np.abs(cpu_hist))),
+        "trees_same_structure": same_structure(tree_bits(card),
+                                               tree_bits(cpu)),
+        "predict": hold_close("GBDT card vs CPU predictions",
+                              card.predict(xs), cpu.predict(xs),
+                              GBDT_PRED_MEAN_ATOL)}
+
+    # (b) fit_uri over phase 5's HIGGS file, tokenized on the card
+    kernels.reset_launch_counts()
+    with count_parts() as parts:
+        learner = gbdt.GBDTLearner(device=dev, **GBDT_HYPER)
+        t0 = time.perf_counter()
+        uri_hist = learner.fit_uri(higgs_file, HIGGS_FEATURES + 1)
+        torch.cuda.synchronize()
+        uri_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    require(launches["tokenize_boundaries"] == len(parts) > 0,
+            "GBDT fit_uri: %d tokenizer launches for %d chunk parts",
+            launches["tokenize_boundaries"], len(parts))
+    require(np.all(np.isfinite(uri_hist))
+            and uri_hist[-1] < uri_hist[0] - MIN_LOSS_FALL,
+            "GBDT fit_uri: loss history %s", uri_hist)
+    out["fit_uri"] = {"rows": HIGGS_ROWS, "seconds": uri_s,
+                      "chunk_parts": len(parts), "launches": launches,
+                      "loss_history": uri_hist}
+    out["edges"] = first.edges
+    out["world1_margin"] = first.predict_margin(xs)
+    return out
+
+
+def drive_group(gbdt_out) -> dict:
+    """Phases 14 (c) and 15's group runs: world 2 on the one card over
+    gloo (:func:`group_rank`). The ranks' GBDT models must be bit-identical
+    and within ``GBDT_PRED_MEAN_ATOL`` of world 1's margins; the
+    feature-sharded steps within ``MP_TOL`` of the data-parallel step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "edges.npy"), gbdt_out["edges"])
+        spec = {"name": "group_world2", "world": 2,
+                "init": f"file://{tmp}/pg", "backend": "gloo",
+                "devices": ["cuda:0"] * 2, "seed": 14}
+        reports, arrays = run_ranks(spec, tmp, "--group-rank")
+    for k in ("feature", "bin", "gain", "leaf", "margin"):
+        require(arrays[1][f"gbdt/{k}"].tobytes()
+                == arrays[0][f"gbdt/{k}"].tobytes(),
+                "GBDT world 2: rank 1's %s differs from rank 0's", k)
+    history = reports[0]["gbdt"]["history"]
+    require(history == reports[1]["gbdt"]["history"],
+            "GBDT world 2: the ranks' loss histories differ")
+    seconds = max(r["gbdt"]["seconds"] for r in reports)
+    trees = GBDT_HYPER["num_trees"]
+    gbdt_report = {
+        "seconds": [r["gbdt"]["seconds"] for r in reports],
+        "rows_trees_per_s": GBDT_ROWS * trees / seconds,
+        "loss_history": history, "ranks_bit_identical": True,
+        "margin_vs_world1": hold_close(
+            "GBDT world 2 vs world 1 margins", arrays[0]["gbdt/margin"],
+            gbdt_out["world1_margin"], GBDT_PRED_MEAN_ATOL)}
+    mp_report = {}
+    for key in ("mp/1x2", "mp/2x1"):
+        errs = {}
+        for r in range(2):
+            for k in ("w", "b"):
+                got, want = arrays[r][f"{key}/{k}"], arrays[r][
+                    f"{key}/dp_{k}"]
+                require(np.allclose(got, want, **MP_TOL),
+                        "%s rank %d: %s differs from the data-parallel "
+                        "step's beyond %s", key, r, k, MP_TOL)
+                errs[f"rank{r}/{k}"] = float(np.max(np.abs(got - want)))
+        mp_report[key] = {"max_abs_err_vs_dp_step": errs,
+                          "loss_sum": float(arrays[0][f"{key}/loss_sum"])}
+    return {"gbdt_world2_gloo": gbdt_report, "feature_sharded": mp_report}
+
+
+def drive_sharded(kernels, dev) -> dict:
+    """Phase 15 on one process: the sharded SpMV against ``spmv`` on the
+    same Criteo batch, each of its sections through ``coo_segment_sum``;
+    then ``run_parity(world=2)`` with the single process on the card."""
+    from dmlc_tpu_torch.data.row_block import RowBlock
+    from dmlc_tpu_torch.device.csr import pad_to_bucket_sharded
+    from dmlc_tpu_torch.ops.spmv import make_sharded_spmv, spmv
+    from dmlc_tpu_torch.tools.parity import run_parity
+
+    rng = np.random.RandomState(16)
+    counts = np.full(CRITEO_BATCH, CRITEO_NNZ)
+    counts[-100:] = 0  # a short batch: the last rows padded
+    offset = np.concatenate([[0], np.cumsum(counts)])
+    nnz = int(offset[-1])
+    block = RowBlock(offset=offset, label=np.zeros(CRITEO_BATCH, np.float32),
+                     index=rng.randint(1, CRITEO_DIM + 1, nnz).astype(
+                         np.uint32),
+                     value=rng.randint(-3, 4, nnz).astype(np.float32))
+    w = torch.tensor(rng.randint(-2, 3, CRITEO_DIM + 1).astype(np.float32),
+                     device=dev)
+    rows = torch.tensor(np.repeat(np.arange(CRITEO_BATCH), counts),
+                        device=dev)
+    want = spmv(torch.tensor(block.value, device=dev),
+                torch.tensor(block.index.astype(np.int32), device=dev),
+                rows, w, CRITEO_BATCH)
+    batch = pad_to_bucket_sharded(block, CRITEO_BATCH, SHARDED_SPMV_SECTIONS)
+    local = make_sharded_spmv(CRITEO_BATCH // SHARDED_SPMV_SECTIONS)
+    sections = [{k: torch.tensor(v, device=dev) for k, v in
+                 batch.section(s).items()}
+                for s in range(SHARDED_SPMV_SECTIONS)]
+    kernels.reset_launch_counts()
+    got = torch.cat([local(sec["values"], sec["indices"], sec["offsets"], w)
+                     for sec in sections])
+    torch.cuda.synchronize()
+    launches = kernels.KERNELS["coo_segment_sum"].launches
+    require(launches == SHARDED_SPMV_SECTIONS,
+            "sharded spmv: coo_segment_sum launched %d times for %d "
+            "sections", launches, SHARDED_SPMV_SECTIONS)
+    require(torch.equal(got, want),
+            "sharded spmv: the sections' rows differ from spmv's")
+    report = {"sharded_spmv": {
+        "sections": SHARDED_SPMV_SECTIONS, "nnz_bucket": batch.nnz_bucket,
+        "coo_segment_sum_launches": launches, "bits_equal_spmv": True}}
+    t0 = time.perf_counter()
+    parity = run_parity(world=2)
+    report["parity"] = dict(parity, seconds=time.perf_counter() - t0)
+    require(parity["single_backend"] == "cuda" and parity["pass"],
+            "run_parity(world=2) on the card failed: %s", parity)
+    return report
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -1821,15 +2213,17 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--fit-rank"] and len(sys.argv) == 4:
         return fit_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--group-rank"] and len(sys.argv) == 4:
+        return group_rank(int(sys.argv[2]), sys.argv[3])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
-    # phases 5-6 write the fit files here, and phase 13 reads them again
+    # phases 5-6 write the fit files here, and phases 13-14 read them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-13 (the module docstring), with the fit files in
+    """Phases 1-15 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -2043,6 +2437,24 @@ def smoke(fit_dir: str) -> int:
     torch.cuda.synchronize()
     print(json.dumps({"distributed": distributed}), flush=True)
 
+    # ---- 14. GBDT on the card ----------------------------------------------
+    t0 = time.perf_counter()
+    gbdt_out = drive_gbdt(kernels, dev, fit_files["dense"])
+    torch.cuda.synchronize()
+    # ---- 14 (c) and 15: world 2 over gloo, then the one-process checks -----
+    group = drive_group(gbdt_out)
+    gbdt_out["world2_gloo"] = group["gbdt_world2_gloo"]
+    for k in ("edges", "world1_margin"):
+        del gbdt_out[k]
+    gbdt_out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"gbdt": gbdt_out}), flush=True)
+    t0 = time.perf_counter()
+    sharded = drive_sharded(kernels, dev)
+    sharded["feature_sharded"] = group["feature_sharded"]
+    torch.cuda.synchronize()
+    sharded["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"data_parallel_rest": sharded}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -2067,6 +2479,17 @@ def smoke(fit_dir: str) -> int:
                 for flavor, layouts in report["fits"].items()}
         for world, report in distributed.items()
         if isinstance(report, dict)}}}))
+    print(json.dumps({"gbdt_summary": {
+        "card": card, "fit_seconds": gbdt_out["fit"]["seconds"],
+        "ms_per_tree": gbdt_out["fit"]["ms_per_tree"],
+        "rows_trees_per_s": gbdt_out["fit"]["rows_trees_per_s"],
+        "peak_device_bytes": gbdt_out["fit"]["peak_device_bytes"],
+        "level_histogram_ms": gbdt_out["level_histogram"]["ms"],
+        "level_histogram_bound_ms": gbdt_out["level_histogram"]["bound_ms"],
+        "tree_idle_share": gbdt_out["tree_profile"]["idle_share"],
+        "fit_uri_seconds": gbdt_out["fit_uri"]["seconds"],
+        "world2_rows_trees_per_s":
+            gbdt_out["world2_gloo"]["rows_trees_per_s"]}}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
                       + [token_row]}))

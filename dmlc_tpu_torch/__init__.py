@@ -3,7 +3,8 @@
 A second package beside ``dmlc_tpu`` with the same layout, so each module's
 counterpart sits at the same path:
 
-- ``dmlc_tpu_torch.utils``  — DMLCError/check logging layer, device rule
+- ``dmlc_tpu_torch.utils``  — DMLCError/check logging layer, device rule,
+  the threefry copy behind GBDT's masks (``utils.prng``)
 - ``dmlc_tpu_torch.params`` — the Parameter/field subset the learners use
 - ``dmlc_tpu_torch.io``     — URISpec and the byte-range InputSplit (local
   files)
@@ -15,7 +16,10 @@ counterpart sits at the same path:
   (``ops/csrc``) with their plain PyTorch versions
 - ``dmlc_tpu_torch.parallel`` — differentiable collectives over a
   ``torch.distributed`` process group (the sequence axis)
-- ``dmlc_tpu_torch.models`` — the allreduce-SGD linear learner
+- ``dmlc_tpu_torch.models`` — the allreduce-SGD linear learner and
+  histogram GBDT
+- ``dmlc_tpu_torch.tools``  — the parity tool (``python -m
+  dmlc_tpu_torch.tools.parity``)
 
 The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``dmlc_tpu``. Entry points take ``device=None``, which means ``cuda``; with

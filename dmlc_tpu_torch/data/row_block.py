@@ -291,6 +291,46 @@ class RowBlockContainer:
         return RowBlock(offset=offset, label=label, index=index, value=value,
                         weight=weight, qid=qid, field=field)
 
+    def emit_csr_into(
+        self,
+        labels: np.ndarray,
+        weights: np.ndarray,
+        indices: np.ndarray,
+        values: np.ndarray,
+        offsets: np.ndarray,
+    ) -> tuple:
+        """Write the accumulated rows straight into caller-provided CSR
+        staging arrays, skipping ``to_block``'s concatenation: each pushed
+        part lands once, in order, where the device copy reads.
+        ``offsets`` needs room for ``size + 1`` entries and is written
+        from 0; parts without weights or values emit 1.0. Returns
+        ``(nrows, nnz)`` written; the caller zeroes any pad tail. qid and
+        field do not ride the device batch and are not emitted."""
+        check(len(labels) >= self._nrows, "labels staging too small")
+        check(len(offsets) >= self._nrows + 1, "offsets staging too small")
+        check(len(indices) >= self._nnz, "indices staging too small")
+        row = 0
+        ent = 0
+        offsets[0] = 0
+        for i, lbl in enumerate(self._label_parts):
+            n = len(lbl)
+            idx = self._index_parts[i]
+            m = len(idx)
+            labels[row:row + n] = lbl
+            w = self._weight_parts[i]
+            weights[row:row + n] = 1.0 if w is None else w
+            if n:
+                offsets[row + 1:row + n + 1] = ent + np.cumsum(
+                    self._count_parts[i])
+            indices[ent:ent + m] = idx
+            v = self._value_parts[i]
+            values[ent:ent + m] = 1.0 if v is None else v
+            row += n
+            ent += m
+        check_eq(row, self._nrows, "emit_csr_into row count drift")
+        check_eq(ent, self._nnz, "emit_csr_into nnz drift")
+        return row, ent
+
     # ---- binary page format (row_block.h:189-215) ----------------------
     def save(self, stream: Stream) -> None:
         block = self.to_block()

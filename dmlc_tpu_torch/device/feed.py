@@ -1,10 +1,13 @@
 """DeviceFeed: host parse → fixed-shape batch → device tensors.
 
 The single-device port of ``dmlc_tpu/device/feed.py``. The parser's
-RowBlocks are re-batched exactly as the reference's
-``_host_batches_python`` does (whole slices of ``batch_size`` rows, the
-tail kept for the next chunk, a short last batch unless
-``drop_remainder``), then padded into static shapes (device/csr.py).
+RowBlocks are re-batched as the reference's device-resident producer does
+(``batch_size`` rows a batch, collected as zero-copy slices in a
+``RowBlockContainer``, the tail kept for the next chunk, a short last
+batch unless ``drop_remainder``), then padded into static shapes
+(device/csr.py): a csr batch straight from the container into its staging
+arrays (``emit_to_bucket``, one copy), a dense batch through
+``block_to_dense``.
 
 On a CUDA feed the padding writes straight into pinned host staging, the
 copies are ``non_blocking``, and a staging buffer is handed out again only
@@ -30,7 +33,7 @@ import torch
 
 from dmlc_tpu_torch.data.parsers import Parser, create_parser
 from dmlc_tpu_torch.data.row_block import RowBlockContainer
-from dmlc_tpu_torch.device.csr import block_to_dense, pad_to_bucket
+from dmlc_tpu_torch.device.csr import block_to_dense, emit_to_bucket
 from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.logging import check
 
@@ -120,24 +123,23 @@ class DeviceFeed:
         self.spec = spec
         self.pool = PinnedPool() if self.device.type == "cuda" else None
 
-    # ---- host side: re-batch parser blocks into fixed-size slices ------
-    def _host_batches(self) -> Iterator:
+    # ---- host side: re-batch parser blocks into fixed-size batches ------
+    def _host_batches(self) -> Iterator[RowBlockContainer]:
+        """Containers of ``batch_size`` rows (the last one shorter unless
+        ``drop_remainder``), each holding slices of the parser's blocks."""
         bs = self.spec.batch_size
         pending = RowBlockContainer()
         for block in self._parser:
-            pending.push_block(block)
-            if len(pending) < bs:
-                continue
-            # finalize once, emit every full slice, keep only the tail
-            whole = pending.to_block()
-            nfull = len(whole) // bs
-            for k in range(nfull):
-                yield whole.slice(k * bs, (k + 1) * bs)
-            pending = RowBlockContainer()
-            if len(whole) > nfull * bs:
-                pending.push_block(whole.slice(nfull * bs, len(whole)))
+            start = 0
+            while start < len(block):
+                take = min(bs - len(pending), len(block) - start)
+                pending.push_block(block.slice(start, start + take))
+                start += take
+                if len(pending) == bs:
+                    yield pending
+                    pending = RowBlockContainer()
         if len(pending) and not self.spec.drop_remainder:
-            yield pending.to_block()
+            yield pending
 
     # ---- device side ---------------------------------------------------
     def _put(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -152,21 +154,21 @@ class DeviceFeed:
         self.pool.retire(arrays.values(), event)
         return out
 
-    def _to_device(self, block) -> dict:
+    def _to_device(self, rows: RowBlockContainer) -> dict:
         spec = self.spec
         if spec.layout == "dense":
             x, labels, weights = block_to_dense(
-                block, spec.batch_size, spec.num_features, pool=self.pool)
+                rows.to_block(), spec.batch_size, spec.num_features,
+                pool=self.pool)
             out = self._put({"x": x, "label": labels, "weight": weights})
-            out["num_rows"] = len(block)
+            out["num_rows"] = len(rows)
             return out
         # an out-of-range feature id would index past w on the device
-        check(spec.num_features <= 0 or block.num_nonzero == 0
-              or int(block.index.max()) < spec.num_features,
+        check(spec.num_features <= 0 or rows.num_nonzero == 0
+              or rows.max_index < spec.num_features,
               "feature id %d out of range for num_features %d",
-              int(block.index.max()) if block.num_nonzero else 0,
-              spec.num_features)
-        batch = pad_to_bucket(block, spec.batch_size, pool=self.pool)
+              rows.max_index, spec.num_features)
+        batch = emit_to_bucket(rows, spec.batch_size, pool=self.pool)
         out = self._put({
             "label": batch.labels,
             "weight": batch.weights,
@@ -179,8 +181,8 @@ class DeviceFeed:
         return out
 
     def __iter__(self):
-        for block in self._host_batches():
-            yield self._to_device(block)
+        for rows in self._host_batches():
+            yield self._to_device(rows)
 
     def before_first(self) -> None:
         self._parser.before_first()

@@ -1,12 +1,15 @@
-"""Learners: the allreduce-SGD linear learner (single-device, data-parallel
-and hostsync steps)."""
+"""Learners: the allreduce-SGD linear learner (single-device, data-parallel,
+hostsync and feature-sharded steps) and histogram GBDT."""
 
+from dmlc_tpu_torch.models.gbdt import GBDTLearner, GBDTParam
 from dmlc_tpu_torch.models.linear import (
     EpochMetrics,
     LinearLearner,
     LinearModelParam,
+    feature_shard,
     init_linear_params,
     linear_predict_dense,
+    make_feature_sharded_train_step,
     make_hostsync_train_step,
     make_linear_train_step,
     params_from_numpy,
@@ -15,8 +18,10 @@ from dmlc_tpu_torch.models.linear import (
 )
 
 __all__ = [
-    "EpochMetrics", "LinearLearner", "LinearModelParam",
-    "init_linear_params", "linear_predict_dense", "make_hostsync_train_step",
+    "EpochMetrics", "GBDTLearner", "GBDTParam", "LinearLearner",
+    "LinearModelParam", "feature_shard",
+    "init_linear_params", "linear_predict_dense",
+    "make_feature_sharded_train_step", "make_hostsync_train_step",
     "make_linear_train_step",
     "params_from_numpy", "params_to_numpy", "step_batch",
 ]

@@ -14,7 +14,8 @@ SGD``. Three step flavors share one gradient core and one update:
   ring across processes), copied back.
 
 At world 2 every flavor adds each element once, so they give the same
-bits. The gradient core has two layouts:
+bits. A fourth step, :func:`make_feature_sharded_train_step`, splits the
+weight vector over a model-parallel group as well (dp × mp). The gradient core has two layouts:
 
 - dense (small feature spaces, HIGGS's 28): the whole step is one CUDA
   kernel, ``fused_linear_grads``;
@@ -35,6 +36,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dmlc_tpu_torch import collective
 from dmlc_tpu_torch.collective.device import bucketed_all_reduce
@@ -98,6 +100,19 @@ def params_from_numpy(np_params: Dict, device=None) -> Dict:
 def params_to_numpy(params: Dict) -> Dict:
     """This package's params → ``{"w": f32 [F], "b": f32 0-d}`` numpy."""
     return {k: params[k].detach().cpu().numpy().copy() for k in ("w", "b")}
+
+
+def feature_shard(array, rank: int, size: int):
+    """Block ``rank`` of ``size`` of the last axis of ``array`` (numpy or
+    tensor): the feature-sharded layout of w ([F]) and of a dense batch's
+    x ([B, F]), the reference's ``LINEAR_MP_PARTITION_RULES`` (w split
+    over mp in contiguous blocks; b replicated). F must divide over
+    ``size``."""
+    nf = array.shape[-1]
+    check(nf % size == 0, "feature dim %d must divide over %d shards", nf,
+          size)
+    per = nf // size
+    return array[..., rank * per:(rank + 1) * per]
 
 
 def linear_predict_dense(params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -247,6 +262,53 @@ def make_hostsync_train_step(
     return step
 
 
+def make_feature_sharded_train_step(
+    dp_group=None,
+    mp_group=None,
+    objective: str = "logistic",
+    learning_rate: float = 0.1,
+):
+    """dp × mp train step: batch rows split over ``dp_group``, the weight
+    vector and the feature dim of x over ``mp_group`` (each a
+    ``torch.distributed`` group from ``new_group``, or None for one rank).
+
+    The counterpart of the reference's parameter-server mode: the partial
+    margins are summed over mp (the pull of the full response), gw, gb,
+    the weight sum and the loss sum over dp in one ``bucketed_all_reduce``
+    (the push); the [F/mp] gradient never leaves its mp rank.
+
+    Returns step(params, x, label, weight) -> (params, metrics) with local
+    shapes: params ``{"w": [F/mp], "b": ()}`` (:func:`feature_shard`), x
+    [B/dp, F/mp], label and weight [B/dp]. New tensors are returned; the inputs are not written. A plain
+    SGD step (no momentum, no l2), as in the reference.
+    """
+    check(objective in OBJECTIVES, "unknown objective %r", objective)
+
+    def step(params, x, label, weight):
+        partial_margin = x @ params["w"]
+        if mp_group is not None:
+            partial_margin = bucketed_all_reduce([partial_margin],
+                                                 mp_group)[0]
+        margin = partial_margin + params["b"]
+        loss, dmargin = margin_loss_grad(objective, margin, label)
+        wg = weight * dmargin
+        # margin is the same on every mp rank, so wg is too: gw needs
+        # only the dp sum
+        grads = [x.T @ wg, torch.sum(wg), torch.sum(weight),
+                 torch.sum(weight * loss)]
+        if dp_group is not None:
+            grads = bucketed_all_reduce(grads, dp_group)
+        gw, gb, wsum, loss_sum = grads
+        denom = torch.clamp_min(wsum, 1e-12)
+        new_params = {
+            "w": params["w"] - learning_rate * gw / denom,
+            "b": params["b"] - learning_rate * gb / denom,
+        }
+        return new_params, {"loss_sum": loss_sum, "weight_sum": wsum}
+
+    return step
+
+
 class EpochMetrics:
     """Collect per-step metric scalars with no per-step host sync; reading
     fetches them in one copy. The host sums each drained batch of scalars
@@ -342,6 +404,27 @@ class LinearLearner:
                 # the learner owns params and velocity: update in place
                 self._step = make_linear_train_step(
                     self.group, donate_batch=True, **hyper)
+
+    def reshard(self, group=None, device=None) -> None:
+        """Re-place params and velocity on ``device`` (None: the learner's)
+        for training over ``group`` (None: the default group when
+        torch.distributed is up, else one device), through host copies,
+        and drop the built step: the elastic re-entry hook, whose old
+        placement may name a card or a group that is gone."""
+        check(self.sync == "spmd", "reshard re-places a sync='spmd' "
+              "learner (sync='host' reduces through the collective engine)")
+        if group is None and dist.is_initialized():
+            group = dist.group.WORLD
+        self.group = group
+        if device is not None:
+            self.device = resolve_device(device)
+        if self.params is not None:
+            self.params = params_from_numpy(params_to_numpy(self.params),
+                                            self.device)
+        if self.velocity is not None:
+            self.velocity = params_from_numpy(
+                params_to_numpy(self.velocity), self.device)
+        self._step = None
 
     def fit_uri(
         self,

@@ -8,6 +8,10 @@ reduce on the CUDA kernel ``coo_segment_sum``); the gradient
 (:func:`spmv_transpose`) is a segment sum keyed by feature id. Padded
 entries (value 0 at feature 0) are arithmetic no-ops in both directions.
 
+:func:`make_sharded_spmv` is the forward SpMV over one rank's section of
+a ``device/csr.ShardedCSRBatch``: the section's entries only, its local
+offsets, its rows' slice of the output.
+
 Determinism: nothing here adds floats with atomics, and ``spmv_transpose``
 repeats its bits on both routes. On CUDA it uses ``index_put_`` with
 ``accumulate=True``, which sorts the entries by feature id and reduces each
@@ -22,8 +26,10 @@ in entry order from 0, the order of the reference's CPU scatter
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from dmlc_tpu_torch.ops.kernels import coo_segment_sum, coo_segment_sum_plain
+from dmlc_tpu_torch.utils.logging import check
 
 
 def expand_row_ids(offsets: torch.Tensor, nnz: int) -> torch.Tensor:
@@ -81,3 +87,25 @@ def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):
     out[ids.long()] = torch.segment_reduce(contrib[order], "sum",
                                            lengths=counts)
     return out
+
+
+def make_sharded_spmv(num_rows: int, group=None):
+    """SpMV with entries and output rows split over the ranks of ``group``
+    (None: one rank), the counterpart of the reference's shard_map over a
+    ``ShardedCSRBatch``. Returns f(values, indices, offsets, weight_vec) ->
+    [num_rows / world]: this rank's section (``ShardedCSRBatch.section``)
+    with its local CSR offsets, expanded to local row ids on the section's
+    device and summed by ``coo_segment_sum``; ``weight_vec`` is the whole
+    vector on every rank. Nothing crosses the group: each rank's rows need
+    only its own entries."""
+    world = 1 if group is None else dist.get_world_size(group)
+    check(num_rows % world == 0,
+          "num_rows %d must divide over the group's %d ranks", num_rows,
+          world)
+    rows_local = num_rows // world
+
+    def local(values, indices, offsets, weight_vec):
+        row_ids = expand_row_ids(offsets, values.shape[0])
+        return spmv_kernel(values, indices, row_ids, weight_vec, rows_local)
+
+    return local

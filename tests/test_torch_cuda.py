@@ -357,3 +357,93 @@ def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
         parser.close()
     assert kernels.tokenize_boundaries.launches == 2
     assert np.array_equal(split.index, want.index)
+
+
+# ---------------------------------------------------------------------------
+# GBDT and the sharded SpMV (chip_smoke.py phases 14-15)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nodes,channels", [(1, 1), (8, 1), (32, 3)])
+def test_gbdt_histogram_on_the_card_matches_cpu(cuda, nodes, channels):
+    """Integer (g, h): every cell's sum is exact, so the card's histogram
+    (stable sort, serial segment sums) equals the CPU route bit for bit,
+    and repeats its bits."""
+    from dmlc_tpu_torch.models import gbdt
+
+    rng = np.random.RandomState(nodes)
+    n, f, bins = 20000, 28, 256
+    xb = rng.randint(0, bins, (n, f)).astype(np.uint8)
+    node = rng.randint(0, nodes, n).astype(np.int32)
+    shape = (n,) if channels == 1 else (n, channels)
+    g = rng.randint(-4, 5, shape).astype(np.float32)
+    h = rng.randint(0, 3, shape).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xb, node, g, h)]
+    want = gbdt._level_histogram(*args, nodes, bins)
+    got = gbdt._level_histogram(*[a.to(cuda) for a in args], nodes, bins)
+    again = gbdt._level_histogram(*[a.to(cuda) for a in args], nodes, bins)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 1 << 20])
+def test_gbdt_row_mask_on_the_card_matches_host(cuda, n):
+    """The row draw made on the card (int64 threefry) equals the host's
+    numpy draw bit for bit."""
+    from dmlc_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(7), 3), 2)
+    got = prng.uniform(key, n, cuda)
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert got.cpu().numpy().tobytes() == prng.uniform(key, n).tobytes()
+
+
+def test_gbdt_squared_tree_on_the_card_matches_cpu(cuda):
+    """One squared-loss tree on integer labels: features, bins and leaves
+    equal the CPU route's bits."""
+    from dmlc_tpu_torch.models import GBDTLearner
+
+    rng = np.random.RandomState(3)
+    x = rng.randint(-8, 9, (4096, 10)).astype(np.float32)
+    y = rng.randint(-3, 4, 4096).astype(np.float32)
+    hyper = dict(objective="squared", num_trees=1, max_depth=6)
+    card = GBDTLearner(**hyper)
+    card.fit(x, y)
+    cpu = GBDTLearner(device="cpu", **hyper)
+    cpu.fit(x, y)
+    assert card.edges.tobytes() == cpu.edges.tobytes()
+    for k in ("feature", "bin", "leaf"):
+        assert card.trees[k].cpu().numpy().tobytes() == \
+            cpu.trees[k].numpy().tobytes(), k
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_sharded_spmv_through_coo_segment_sum(cuda, shards):
+    """Each section of a ShardedCSRBatch through the sharded SpMV on the
+    card (one coo_segment_sum launch a section) against ``spmv`` of the
+    whole batch on the CPU, bit for bit on integer data."""
+    from dmlc_tpu_torch.data.row_block import RowBlock
+    from dmlc_tpu_torch.device import csr
+    from dmlc_tpu_torch.ops.spmv import make_sharded_spmv, spmv
+
+    rng = np.random.RandomState(shards)
+    batch, nf = 8192, 1 << 12
+    counts = rng.randint(0, 40, batch - 100)
+    index = np.concatenate([np.sort(rng.choice(nf, c, replace=False))
+                            for c in counts]).astype(np.uint32)
+    block = RowBlock(offset=np.concatenate([[0], np.cumsum(counts)]),
+                     label=np.zeros(len(counts), np.float32), index=index,
+                     value=rng.randint(-3, 4, len(index)).astype(np.float32))
+    sharded = csr.pad_to_bucket_sharded(block, batch, shards)
+    w = torch.tensor(rng.randint(-2, 3, nf).astype(np.float32))
+    rows = torch.from_numpy(np.repeat(np.arange(len(counts)), counts))
+    want = spmv(torch.from_numpy(block.value),
+                torch.from_numpy(index.astype(np.int32)), rows, w, batch)
+    local = make_sharded_spmv(batch // shards)
+    kernels.reset_launch_counts()
+    got = torch.cat([local(*(torch.from_numpy(sec[k]).to(cuda)
+                             for k in ("values", "indices", "offsets")),
+                           w.to(cuda))
+                     for sec in map(sharded.section, range(shards))])
+    assert kernels.KERNELS["coo_segment_sum"].launches == shards
+    assert torch.equal(got.cpu(), want)

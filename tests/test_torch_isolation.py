@@ -22,8 +22,11 @@ from dmlc_tpu_torch.data import create_row_block_iter
 from dmlc_tpu_torch import collective
 from dmlc_tpu_torch.data import PipelinedParser, create_parser
 from dmlc_tpu_torch.io import fetch_ordered
-from dmlc_tpu_torch.models import LinearLearner
+from dmlc_tpu_torch.models import GBDTLearner, LinearLearner
+from dmlc_tpu_torch.models import gbdt
 from dmlc_tpu_torch.ops import sequence_parallel as sp
+from dmlc_tpu_torch.tools import parity
+from dmlc_tpu_torch.utils import prng
 from dmlc_tpu_torch.parallel import distributed
 from dmlc_tpu_torch.tracker import RabitTracker
 
@@ -53,6 +56,14 @@ it = create_row_block_iter(sys.argv[1] + "#" + sys.argv[1] + ".cache",
                            device="cpu")
 assert sum(len(b) for b in it) == 11 and it.num_col() == 8
 it.close()
+gbdt_learner = GBDTLearner(device="cpu", num_trees=2, max_depth=2,
+                           num_bins=4, subsample=0.5, colsample_bytree=0.5)
+gbdt_learner.fit_uri(sys.argv[1], num_features=8)
+gbdt_learner.save(sys.argv[1] + ".gbdt")
+GBDTLearner(device="cpu").load(sys.argv[1] + ".gbdt")
+assert prng.permutation(prng.PRNGKey(1), 5).shape == (5,)
+assert parity._ulp_diff(gbdt.fit_bins([[0.0], [1.0]], 4),
+                        gbdt.fit_bins([[0.0], [1.0]], 4)) == 0
 attend = sp.make_ulysses_attention(local_attention=sp.make_flash_local(True))
 q = torch.randn(1, 16, 4, 32, requires_grad=True)
 kv = torch.randn(1, 16, 2, 32, requires_grad=True)
@@ -85,7 +96,8 @@ def test_import_and_cpu_fit_load_no_jax_and_no_reference(tmp_path):
 
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
-    from dmlc_tpu_torch.models import LinearLearner, init_linear_params
+    from dmlc_tpu_torch.models import (GBDTLearner, LinearLearner,
+                                       init_linear_params)
     from dmlc_tpu_torch.utils import DMLCError, resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -99,8 +111,11 @@ def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
         init_linear_params(3)
     with pytest.raises(DMLCError, match="no CUDA device"):
         DeviceFeed(str(data), BatchSpec(batch_size=2, num_features=2))
+    with pytest.raises(DMLCError, match="no CUDA device"):
+        GBDTLearner()
     assert resolve_device("cpu") == torch.device("cpu")
     assert LinearLearner(device="cpu").device == torch.device("cpu")
+    assert GBDTLearner(device="cpu").device == torch.device("cpu")
 
 
 _FORBIDDEN_IMPORT = re.compile(

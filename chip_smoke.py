@@ -151,12 +151,47 @@ non-zero exit and no result line:
    the sharded SpMV of a Criteo batch in 4 sections, each through
    ``coo_segment_sum`` (4 launches), bit for bit against ``spmv``; and
    ``run_parity(world=2)`` (socket-engine ranks on the CPU, the single
-   process on the card), which must pass its rtol criterion.
+   process on the card), which must pass its rtol criterion;
+16. factorization machines (``FMLearner``, ``FM_HYPER``: FMParam's
+   defaults, K = 8) at the csr path's width (2^20 + 1 features, batch
+   8192) over phase 6's rows written as libfm (``write_libfm``) through
+   ``DeviceFeed(create_parser(format libfm))``: (a) the column
+   ``coo_segment_sum`` at [327,680, 17] (8192 rows) and at
+   ``seg_sum_edge_cases`` with C in ``FM_SEG_COLS``, bit-equal to its
+   plain version on integer data, each column bit-equal to the [E] call,
+   the same bits twice; (b) ``feature_segment_sum`` at [E, 8] the same bits
+   twice and under ``torch.use_deterministic_algorithms(True)``; (c) 2
+   epochs on the card from params drawn once on the host: one
+   ``coo_segment_sum`` launch a step, the loss falls by ``MIN_LOSS_FALL``,
+   two fits give the same bits, the loss history within ``FM_LOSS_RTOL``
+   of the CPU route's and w, b and v each within ``FM_PARAM_REL`` of its
+   update; (d) known faults read against those limits, which must fail
+   them: the margin without its −q term, the factor gradient without its
+   −x·v self term; (e) rows/s, ms a step, peak device bytes, the feed's
+   seconds with no step, and one step under torch.profiler (device ops,
+   idle share); (f) CUDA-event times
+   (cold L2) of the column kernel at [327,680, 17] beside its plain
+   version, ``index_add_`` over [E, 17] and its byte bound;
+17. snapshots and resume on the card: (a) the csr linear fit of phase 6's
+   file (``fit_uri(snapshot_uri=...)``) and the FM fit of phase 16
+   (``Snapshotter``), 3 epochs, a preemption notice injected at poll
+   ``SNAP_NOTICE_POLL`` (mid-epoch 2) must raise ``Preempted`` with code 75
+   after committing epoch 1; ``resume=True`` (linear) or ``start_epoch`` /
+   ``history`` from ``load_snapshot`` (FM) must end bit-identical to an
+   uninterrupted 3-epoch run on the card; (b) a child process
+   (``--snap-rank SPEC``) fits the csr file for ``SIGNAL_EPOCHS`` epochs
+   with snapshots armed and takes a SIGTERM once its first manifest has
+   committed: it must still be running then, and exit with 75; relaunched
+   with ``resume=True``, its saved model must equal an uninterrupted
+   run's file byte for byte; (c) ``capture_ns`` (device → host on the
+   training thread) and ``write_ns`` of the FM snapshots.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
-device. The last lines are the ``{"kernels": [...]}`` line, the card line
-again, and ``{"ok": true, "device": {...}}``.
+device. The ``{"kernels": [...]}`` line has a row a kernel at its main
+path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
+(launches from phase 16's fit). The last lines are that line, the card
+line again, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -262,6 +297,26 @@ GBDT_PRED_MEAN_ATOL = 1e-4
 MP_STEPS = 3
 MP_TOL = dict(rtol=1e-5, atol=1e-6)
 SHARDED_SPMV_SECTIONS = 4
+# phase 16: FM at FMParam's defaults over phase 6's rows written as libfm
+# (the same seed: the same rows and planted rule), at the csr path's width
+FM_HYPER = dict(objective="logistic", num_factors=8, init_scale=0.01,
+                learning_rate=0.05)
+FM_COLS = 2 * FM_HYPER["num_factors"] + 1  # [linear | x·v | (x·v)^2]
+FM_SEG_COLS = (1, 3, FM_COLS)
+# card vs CPU after 2 epochs, as the linear fits (FIT_LOSS_RTOL,
+# FIT_PARAM_REL): the row and feature sums run in another order and the
+# card's exp differs from the host's by an ulp. Params are read as the
+# norm of the difference over the norm of the CPU fit's update (params -
+# start), for each of w, b and v: v's random start would hide a fault in
+# its gradient from a norm over the whole table.
+FM_LOSS_RTOL = 1e-5
+FM_PARAM_REL = 1e-5
+# phase 17: 3 epochs of 8 steps, the notice injected at the 20th poll
+# (epoch 2, step 4); the signalled child fits 8 epochs, so that it is
+# still running when its first manifest commits
+SNAP_EPOCHS = 3
+SNAP_NOTICE_POLL = 2 * (CRITEO_ROWS // CRITEO_BATCH) + 4
+SIGNAL_EPOCHS = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -309,30 +364,50 @@ def write_higgs(path: str, rows: int, seed: int) -> None:
                 for i in range(n)) + "\n")
 
 
-def write_criteo(path: str, rows: int, seed: int) -> None:
-    """Criteo-shaped libsvm: 39 sorted ids a row in [1, 2^20], 4-digit
-    values (the bench.py csr tier's widths). Ids are skewed as hashed
-    categorical values are (1 + 2^20·u^8 for uniform u: ~42 % of entries
-    fall on the 1024 hottest ids), and labels 0/1 come from a noisy sparse
-    linear rule, so that two epochs can lower the loss. Each row is one
-    ``%`` format over a float64 row (ids and labels are exact there)."""
+def criteo_rows(rows: int, seed: int):
+    """Seeded Criteo-shaped rows in blocks of 8192: (labels, ids, values),
+    39 sorted ids a row in [1, 2^20] and 4-digit values (the bench.py csr
+    tier's widths). Ids are skewed as hashed categorical values are
+    (1 + 2^20·u^8 for uniform u: ~42 % of entries fall on the 1024 hottest
+    ids), and labels 0/1 come from a noisy sparse linear rule, so that two
+    epochs can lower the loss."""
     rng = np.random.RandomState(seed)
     true_w = rng.randn(CRITEO_DIM + 1)
-    fmt = "%d " + " ".join(["%d:%.4f"] * CRITEO_NNZ)
+    for start in range(0, rows, 8192):
+        n = min(8192, rows - start)
+        ids = np.sort(1 + (rng.rand(n, CRITEO_NNZ) ** 8
+                           * CRITEO_DIM).astype(np.int64), axis=1)
+        vals = rng.rand(n, CRITEO_NNZ)
+        margin = (vals * true_w[ids]).sum(axis=1)
+        labels = (margin + 0.5 * rng.randn(n) > 0).astype(int)
+        yield labels, ids, vals
+
+
+def _write_rows(path: str, rows: int, seed: int, fmt: str) -> None:
+    """:func:`criteo_rows` through ``fmt``, one ``%`` format over a float64
+    row of (label, id, value, id, value, ...) a line (ids and labels are
+    exact there)."""
     with open(path, "w") as fh:
-        for start in range(0, rows, 8192):
-            n = min(8192, rows - start)
-            ids = np.sort(1 + (rng.rand(n, CRITEO_NNZ) ** 8
-                               * CRITEO_DIM).astype(np.int64), axis=1)
-            vals = rng.rand(n, CRITEO_NNZ)
-            margin = (vals * true_w[ids]).sum(axis=1)
-            labels = (margin + 0.5 * rng.randn(n) > 0).astype(int)
-            table = np.empty((n, 1 + 2 * CRITEO_NNZ))
+        for labels, ids, vals in criteo_rows(rows, seed):
+            table = np.empty((len(labels), 1 + 2 * CRITEO_NNZ))
             table[:, 0] = labels
             table[:, 1::2] = ids
             table[:, 2::2] = vals
             fh.write("\n".join(fmt % tuple(row) for row in table.tolist())
                      + "\n")
+
+
+def write_criteo(path: str, rows: int, seed: int) -> None:
+    """:func:`criteo_rows` as libsvm (``id:value``)."""
+    _write_rows(path, rows, seed,
+                "%d " + " ".join(["%d:%.4f"] * CRITEO_NNZ))
+
+
+def write_libfm(path: str, rows: int, seed: int) -> None:
+    """:func:`criteo_rows` as libfm (``field:id:value``), the field the
+    id's position in its row (Criteo's 39 fields), for the FM path."""
+    _write_rows(path, rows, seed, "%d " + " ".join(
+        f"{j}:%d:%.4f" for j in range(CRITEO_NNZ)))
 
 
 @contextlib.contextmanager
@@ -2149,6 +2224,426 @@ def drive_sharded(kernels, dev) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: factorization machines, snapshots and resume
+# ---------------------------------------------------------------------------
+
+
+def hold_seg_sum_cols(kernels, dev, name, row_ids, num_rows, cols):
+    """The column ``coo_segment_sum`` on ``row_ids`` with seeded integer
+    contributions [E, cols]: bit-equal to the plain version, each column
+    bit-equal to the [E] call on it, the same bits twice."""
+    rng = np.random.RandomState(len(row_ids) + num_rows + cols)
+    contrib = torch.tensor(rng.randint(-5, 6, (len(row_ids), cols)).astype(
+        np.float32), device=dev)
+    ids = torch.tensor(row_ids, device=dev)
+    got = kernels.coo_segment_sum(contrib, ids, num_rows)
+    again = kernels.coo_segment_sum(contrib, ids, num_rows)
+    want = kernels.coo_segment_sum_plain(contrib, ids, num_rows)
+    columns = [kernels.coo_segment_sum(contrib[:, c].contiguous(), ids,
+                                       num_rows) for c in range(cols)]
+    torch.cuda.synchronize()
+    require(got.shape == (num_rows, cols), "coo_segment_sum %s [E, %d]: "
+            "shape %s", name, cols, tuple(got.shape))
+    require(torch.equal(got, want), "coo_segment_sum %s [E, %d]: kernel "
+            "and plain differ", name, cols)
+    require(torch.equal(got, again), "coo_segment_sum %s [E, %d]: two "
+            "runs differ", name, cols)
+    for c, col in enumerate(columns):
+        require(torch.equal(got[:, c], col), "coo_segment_sum %s: column "
+                "%d of [E, %d] differs from the [E] call", name, c, cols)
+
+
+def fm_learner(device, start):
+    """An ``FMLearner`` with ``FM_HYPER`` at the csr path's width, from the
+    params ``start`` (numpy)."""
+    from dmlc_tpu_torch.models import FMLearner, fm_params_from_numpy
+
+    learner = FMLearner(device=device, num_features=CRITEO_DIM + 1,
+                        **FM_HYPER)
+    learner.params = fm_params_from_numpy(start, learner.device)
+    return learner
+
+
+def fm_feed(path, device):
+    from dmlc_tpu_torch.data import create_parser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+
+    return DeviceFeed(
+        create_parser(path, data_format="libfm", device=device),
+        BatchSpec(batch_size=CRITEO_BATCH, layout="csr",
+                  num_features=CRITEO_DIM + 1), device=device)
+
+
+def run_fm_fit(path, device, start, epochs=EPOCHS, learner=None, **fit):
+    """(history, params as numpy, seconds) of ``FMLearner.fit_feed`` over
+    the libfm file ``path``; ``fit`` passes the snapshot arguments."""
+    from dmlc_tpu_torch.models import fm_params_to_numpy
+
+    learner = learner or fm_learner(device, start)
+    feed = fm_feed(path, device)
+    t0 = time.perf_counter()
+    try:
+        history = learner.fit_feed(feed, epochs, **fit)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    finally:
+        feed.close()
+    return history, fm_params_to_numpy(learner.params), \
+        time.perf_counter() - t0
+
+
+def fm_update_rel_err(params, ref, start) -> float:
+    """The largest over w, b and v of |params - ref| / |ref - start|: the
+    difference read against the reference fit's update (v's random start
+    would otherwise hide a fault in its gradient)."""
+    worst = 0.0
+    for k in ("w", "b", "v"):
+        p, r, s = (np.asarray(a[k], np.float64) for a in (params, ref, start))
+        worst = max(worst, float(np.linalg.norm(p - r)
+                                 / np.linalg.norm(r - s)))
+    return worst
+
+
+@contextlib.contextmanager
+def fm_fault(kind: str):
+    """Run the block with a known fault in FM's forward: ``"no_q"`` leaves
+    the −q term out of the margin; ``"no_self"`` drops the −x·v self term
+    from the factor gradient (the per-entry x·v the margin hands back is
+    only read there)."""
+    from dmlc_tpu_torch.models import fm
+    from dmlc_tpu_torch.ops.kernels import coo_segment_sum_plain
+
+    real = fm._fm_margin
+
+    def faulty(params, values, indices, row_ids, num_rows):
+        margin, s, xv = real(params, values, indices, row_ids, num_rows)
+        if kind == "no_q":
+            q = coo_segment_sum_plain(xv * xv, row_ids, num_rows)
+            return margin + 0.5 * torch.sum(q, dim=-1), s, xv
+        return margin, s, torch.zeros_like(xv)
+
+    fm._fm_margin = faulty
+    try:
+        yield
+    finally:
+        fm._fm_margin = real
+
+
+def drive_fm(kernels, dev, fm_file) -> tuple:
+    """Phase 16 (the module docstring); returns (report, kernel row, the
+    fits' initial params as numpy)."""
+    from dmlc_tpu_torch.models import (fm_params_from_numpy,
+                                       fm_params_to_numpy, init_fm_params,
+                                       make_fm_train_step, step_batch)
+    from dmlc_tpu_torch.ops.spmv import expand_row_ids, feature_segment_sum
+
+    report = {}
+    # (a) the column kernel against its plain version
+    batch = criteo_batch(dev, 3)
+    entries = batch["values"].shape[0]
+    row_ids = expand_row_ids(batch["offsets"], entries)
+    hold_seg_sum_cols(kernels, dev, "criteo batch", row_ids.cpu().numpy(),
+                      CRITEO_BATCH, FM_COLS)
+    for name, ids, num_rows in seg_sum_edge_cases():
+        for cols in FM_SEG_COLS:
+            hold_seg_sum_cols(kernels, dev, name, ids, num_rows, cols)
+    # FM's scale (phase 4's): values in [0, 1) times 0.1·N(0, 1), 0 in the
+    # padded tail
+    rng = np.random.RandomState(16)
+    packed = batch["values"][:, None] * torch.tensor(
+        0.1 * rng.randn(entries, FM_COLS).astype(np.float32), device=dev)
+    got = kernels.coo_segment_sum(packed, row_ids, CRITEO_BATCH)
+    want = kernels.coo_segment_sum_plain(packed, row_ids, CRITEO_BATCH)
+    seg_err = float((got - want).abs().max())
+    require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+            "coo_segment_sum [E, %d] float data: max abs err %g", FM_COLS,
+            seg_err)
+    # (b) the [E, K] feature sum repeats its bits
+    dv = packed[:, :FM_HYPER["num_factors"]].contiguous()
+    g1 = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
+    g2 = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        g_det = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    require(torch.equal(g1, g2), "feature_segment_sum [E, K]: two runs "
+            "differ in bits")
+    require(torch.equal(g1, g_det), "feature_segment_sum [E, K]: bits "
+            "differ from torch's deterministic mode")
+    report["kernel_checks"] = {"coo_segment_sum_cols_float_max_abs_err":
+                               seg_err, "feature_sum_same_bits": True}
+    print(json.dumps({"fm_kernel_checks": report["kernel_checks"]}),
+          flush=True)
+    # (c) the fit on the card, twice, and on the CPU
+    start = fm_params_to_numpy(init_fm_params(
+        CRITEO_DIM + 1, FM_HYPER["num_factors"], FM_HYPER["init_scale"],
+        device="cpu"))
+    steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    history, params, seconds = run_fm_fit(fm_file, None, start)
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    require(launches["coo_segment_sum"] == steps,
+            "fm path: coo_segment_sum launched %d times for %d steps",
+            launches["coo_segment_sum"], steps)
+    require(np.all(np.isfinite(history)), "fm path: loss history %s",
+            history)
+    for k, shape in (("w", (CRITEO_DIM + 1,)), ("b", ()),
+                     ("v", (CRITEO_DIM + 1, FM_HYPER["num_factors"]))):
+        require(params[k].shape == shape and np.all(np.isfinite(params[k])),
+                "fm path: %s of shape %s or not finite", k, params[k].shape)
+    require(history[-1] < history[0] - MIN_LOSS_FALL,
+            "fm path: loss did not fall by %g: %s", MIN_LOSS_FALL, history)
+    again = run_fm_fit(fm_file, None, start)
+    require(again[0] == history and all(
+        again[1][k].tobytes() == params[k].tobytes() for k in params),
+        "fm path: two fits on the card differ in bits")
+    cpu_history, cpu_params, cpu_seconds = run_fm_fit(fm_file, "cpu", start)
+    np.testing.assert_allclose(history, cpu_history, rtol=FM_LOSS_RTOL)
+    rel_err = fm_update_rel_err(params, cpu_params, start)
+    require(rel_err <= FM_PARAM_REL, "fm path: params differ from the "
+            "CPU's by %g of its update (limit %g)", rel_err, FM_PARAM_REL)
+    loss_rel = float(np.max(np.abs(np.subtract(history, cpu_history))
+                            / np.abs(cpu_history)))
+    # (d) known faults, read against the same limits
+    faults = {}
+    for kind in ("no_q", "no_self"):
+        with fm_fault(kind):
+            f_history, f_params, _ = run_fm_fit(fm_file, None, start)
+        faults[kind] = {
+            "param_rel_err": fm_update_rel_err(f_params, cpu_params, start),
+            "loss_rel_err": float(np.max(np.abs(np.subtract(
+                f_history, cpu_history)) / np.abs(cpu_history)))}
+        require(faults[kind]["param_rel_err"] > FM_PARAM_REL,
+                "fm path: the %s fault reads %g, within the limit %g", kind,
+                faults[kind]["param_rel_err"], FM_PARAM_REL)
+    # (e) one step under torch.profiler
+    feed = fm_feed(fm_file, None)
+    try:
+        one = step_batch(next(iter(feed)), "csr")
+    finally:
+        feed.close()
+    step = make_fm_train_step(None, CRITEO_DIM + 1,
+                              objective=FM_HYPER["objective"],
+                              learning_rate=FM_HYPER["learning_rate"],
+                              donate_batch=True)
+    state = {"params": fm_params_from_numpy(start, dev)}
+
+    def one_step():
+        t0 = time.perf_counter()
+        state["params"], _ = step(state["params"], one)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    one_step()
+    report["fit"] = {
+        "steps": steps, "launches": launches, "seconds": seconds,
+        "feed_only_seconds": feed_seconds(
+            fm_file + "?format=libfm", "csr", CRITEO_BATCH, CRITEO_DIM + 1),
+        "rows_per_s": EPOCHS * CRITEO_ROWS / seconds,
+        "ms_per_step": seconds / steps * 1e3,
+        "peak_device_bytes": peak, "loss_history": history,
+        "cpu_loss_history": cpu_history, "cpu_seconds": cpu_seconds,
+        "loss_rel_err_vs_cpu": loss_rel,
+        "param_rel_err_vs_cpu": rel_err, "faults": faults,
+        "same_bits_twice": True, "step_profile": profile_call(one_step)}
+    # (f) the column kernel timed at FM's shape
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    ids64 = row_ids.long()
+    row = {
+        "name": "coo_segment_sum_fm", "route": "cuda",
+        "source": "dmlc_tpu_torch/ops/csrc/coo_segment_sum.cu",
+        "replaces": "dmlc_tpu/ops/pallas_kernels.py:221",
+        "launches": launches["coo_segment_sum"], "max_abs_err": seg_err,
+        "shape": [entries, FM_COLS, CRITEO_BATCH],
+        "ms": time_ms(lambda: kernels.coo_segment_sum(
+            packed, row_ids, CRITEO_BATCH), flush),
+        "plain_ms": time_ms(lambda: kernels.coo_segment_sum_plain(
+            packed, row_ids, CRITEO_BATCH), flush),
+        "library_ms": time_ms(lambda: torch.zeros(
+            CRITEO_BATCH, FM_COLS, device=dev).index_add_(0, ids64, packed),
+            flush),
+    }
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (entries * FM_COLS + entries + CRITEO_BATCH * FM_COLS),
+        entries * FM_COLS)
+    del flush
+    torch.cuda.synchronize()
+    return report, row, start
+
+
+def snap_linear_fit(path, epochs, **snap):
+    """The csr linear fit of phase 6's file on the card: (history, params
+    as numpy)."""
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+
+    learner = LinearLearner(objective="logistic")
+    history = learner.fit_uri(path, batch_size=CRITEO_BATCH, epochs=epochs,
+                              layout="csr", num_features=CRITEO_DIM + 1,
+                              **snap)
+    torch.cuda.synchronize()
+    return history, params_to_numpy(learner.params), learner
+
+
+def same_fit(what, got, want) -> None:
+    require(got[0] == want[0], "%s: loss history %s, uninterrupted %s",
+            what, got[0], want[0])
+    for k in want[1]:
+        require(got[1][k].tobytes() == want[1][k].tobytes(),
+                "%s: %s differs from the uninterrupted run's bits", what, k)
+
+
+def preempted(what, fit) -> None:
+    """Run ``fit`` under the injected notice; it must raise Preempted with
+    the relaunch code."""
+    from dmlc_tpu_torch import resilience
+    from dmlc_tpu_torch.resilience import EXIT_PREEMPTED, Preempted, preempt
+
+    resilience.configure(f"preempt.notice:nth={SNAP_NOTICE_POLL}")
+    try:
+        fit()
+    except Preempted as err:
+        require(err.code == EXIT_PREEMPTED, "%s: exit code %s", what,
+                err.code)
+    else:
+        raise SmokeFailure(f"{what}: no Preempted at poll {SNAP_NOTICE_POLL}")
+    finally:
+        resilience.reset()
+        preempt.reset()
+
+
+def snap_rank(spec_path: str) -> int:
+    """Phase 17 (b)'s child, run as ``chip_smoke.py --snap-rank SPEC``: the
+    csr linear fit of ``spec["epochs"]`` epochs with snapshots armed (and
+    ``spec["resume"]``), then ``save`` to ``spec["model"]``. A SIGTERM
+    ends it with exit code 75 once the last boundary is committed."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    learner = snap_linear_fit(spec["file"], spec["epochs"],
+                              snapshot_uri=spec["snap"],
+                              resume=spec["resume"])[2]
+    learner.save(spec["model"])
+    return 0
+
+
+def run_snap_child(spec: dict, tmp: str, signal_after_commit: bool):
+    """Start a ``--snap-rank`` child; with ``signal_after_commit``, send it
+    SIGTERM once its first manifest has committed (it must still be
+    running then). Returns (exit code, seconds, the log's tail)."""
+    import signal
+
+    path = os.path.join(tmp, "snap_spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    log = open(os.path.join(tmp, "snap_child.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--snap-rank", path], stdout=log,
+                            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        if signal_after_commit:
+            manifest = os.path.join(spec["snap"], "snap_v1.manifest")
+            while not os.path.exists(manifest):
+                require(proc.poll() is None, "snapshot child exited with %s "
+                        "before its first manifest", proc.returncode)
+                require(time.monotonic() < deadline, "no manifest in %d s",
+                        RANK_TIMEOUT_S)
+                time.sleep(0.01)
+            require(proc.poll() is None, "the snapshot child finished "
+                    "before the signal: give it more epochs")
+            proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    with open(os.path.join(tmp, "snap_child.log")) as fh:
+        tail = fh.read()[-4000:]
+    return proc.returncode, time.perf_counter() - t0, tail
+
+
+def drive_snapshots(csr_file, fm_file, start, tmp) -> dict:
+    """Phase 17 (the module docstring)."""
+    from dmlc_tpu_torch.collective import (JobSnapshot, Snapshotter,
+                                           load_snapshot)
+    from dmlc_tpu_torch.resilience import preempt
+
+    report = {}
+    # (a) the injected notice, in process: csr linear, then FM
+    clean = snap_linear_fit(csr_file, SNAP_EPOCHS)
+    snap_dir = os.path.join(tmp, "linear_snap")
+    preempted("linear", lambda: snap_linear_fit(
+        csr_file, SNAP_EPOCHS, snapshot_uri=snap_dir))
+    meta = JobSnapshot(snap_dir).restore()[2]
+    require(meta.get("epoch") == 1, "linear: the committed snapshot is of "
+            "epoch %s, not 1", meta.get("epoch"))
+    same_fit("linear resume", snap_linear_fit(
+        csr_file, SNAP_EPOCHS, snapshot_uri=snap_dir, resume=True), clean)
+    report["linear_injected"] = {"manifest_epoch": meta["epoch"],
+                                 "bit_identical": True}
+
+    fm_clean = run_fm_fit(fm_file, None, start, SNAP_EPOCHS)
+    fm_dir = os.path.join(tmp, "fm_snap")
+    snapper = Snapshotter(JobSnapshot(fm_dir))
+    try:
+        preempted("fm", lambda: run_fm_fit(fm_file, None, start,
+                                           SNAP_EPOCHS, snapshotter=snapper))
+        stats = snapper.stats()
+    finally:
+        snapper.close()
+    snap = JobSnapshot(fm_dir)
+    snapper = Snapshotter(snap)
+    try:
+        version, state, meta = load_snapshot(snap)
+        require(meta.get("epoch") == 1, "fm: the committed snapshot is of "
+                "epoch %s, not 1", meta.get("epoch"))
+        learner = fm_learner(None, start)
+        learner.restore_snapshot_model(state["model"])
+        snapper.mark_restored(state["epoch"])
+        resumed = run_fm_fit(fm_file, None, start, SNAP_EPOCHS,
+                             learner=learner, snapshotter=snapper,
+                             start_epoch=state["epoch"] + 1,
+                             history=state["history"])
+    finally:
+        snapper.close()
+        preempt.uninstall()
+    same_fit("fm resume", resumed, fm_clean)
+    # (c) the cost of a snapshot of FM's table
+    report["fm_injected"] = {
+        "manifest_epoch": meta["epoch"], "bit_identical": True,
+        "v_bytes": int(start["v"].nbytes),
+        "capture_ns": stats["capture_ns"], "write_ns": stats["write_ns"],
+        "part_bytes": stats["bytes"]}
+    print(json.dumps({"snapshot_capture": report["fm_injected"]}),
+          flush=True)
+    # (b) the real signal, in a child process, then its relaunch
+    model = os.path.join(tmp, "uninterrupted.model")
+    snap_linear_fit(csr_file, SIGNAL_EPOCHS)[2].save(model)
+    spec = {"file": csr_file, "epochs": SIGNAL_EPOCHS,
+            "snap": os.path.join(tmp, "signal_snap"),
+            "model": os.path.join(tmp, "resumed.model"), "resume": False}
+    rc, first_s, tail = run_snap_child(spec, tmp, True)
+    require(rc == 75, "the signalled child exited with %s, not 75:\n%s",
+            rc, tail)
+    meta = JobSnapshot(spec["snap"]).restore()[2]
+    rc, second_s, tail = run_snap_child(dict(spec, resume=True), tmp, False)
+    require(rc == 0, "the relaunched child exited with %s:\n%s", rc, tail)
+    with open(model, "rb") as a, open(spec["model"], "rb") as b:
+        require(a.read() == b.read(), "the relaunched run's model file "
+                "differs from the uninterrupted run's")
+    report["sigterm"] = {"exit_code": 75, "manifest_epoch": meta["epoch"],
+                         "first_child_s": first_s,
+                         "relaunch_s": second_s,
+                         "model_bytes_equal": True}
+    return report
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -2169,6 +2664,7 @@ def kernel_times(kernels, dev) -> dict:
     row_ids = expand_row_ids(batch["offsets"], batch["values"].shape[0])
     ids64 = row_ids.long()
     contrib = batch["values"] * 0.5
+    packed = contrib[:, None].repeat(1, FM_COLS)
     dense = fused_case(kernels, dev, HIGGS_BATCH, HIGGS_FEATURES + 1,
                        "logistic", False, 2)[1]
     chunk = torch.tensor(token_chunk("mixed", CHUNK_BYTES, seed=1),
@@ -2191,6 +2687,11 @@ def kernel_times(kernels, dev) -> dict:
             "index_add_": time_ms(lambda: torch.zeros(
                 CRITEO_BATCH, device=dev).index_add_(0, ids64, contrib),
                 flush),
+            "coo_segment_sum_fm": time_ms(lambda: kernels.coo_segment_sum(
+                packed, row_ids, CRITEO_BATCH), flush),
+            "index_add_fm": time_ms(lambda: torch.zeros(
+                CRITEO_BATCH, FM_COLS, device=dev).index_add_(
+                    0, ids64, packed), flush),
             "fused_linear_grads": time_ms(lambda: kernels.fused_linear_grads(
                 *dense, objective="logistic"), flush),
             "tokenize_boundaries": time_ms(
@@ -2215,6 +2716,8 @@ def main() -> int:
         return fit_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--group-rank"] and len(sys.argv) == 4:
         return group_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--snap-rank"] and len(sys.argv) == 3:
+        return snap_rank(sys.argv[2])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
     # phases 5-6 write the fit files here, and phases 13-14 read them again
@@ -2223,7 +2726,7 @@ def main() -> int:
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-15 (the module docstring), with the fit files in
+    """Phases 1-17 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -2455,6 +2958,21 @@ def smoke(fit_dir: str) -> int:
     sharded["seconds"] = time.perf_counter() - t0
     print(json.dumps({"data_parallel_rest": sharded}), flush=True)
 
+    # ---- 16. FM on the card ------------------------------------------------
+    t0 = time.perf_counter()
+    fm_file = os.path.join(fit_dir, "criteo.libfm")
+    write_libfm(fm_file, CRITEO_ROWS, seed=12)
+    fm_out, fm_row, fm_start = drive_fm(kernels, dev, fm_file)
+    fm_out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"fm": fm_out}), flush=True)
+
+    # ---- 17. snapshots and resume ------------------------------------------
+    t0 = time.perf_counter()
+    snaps = drive_snapshots(fit_files["csr"], fm_file, fm_start, fit_dir)
+    torch.cuda.synchronize()
+    snaps["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"snapshots": snaps}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -2490,9 +3008,20 @@ def smoke(fit_dir: str) -> int:
         "fit_uri_seconds": gbdt_out["fit_uri"]["seconds"],
         "world2_rows_trees_per_s":
             gbdt_out["world2_gloo"]["rows_trees_per_s"]}}))
+    print(json.dumps({"fm_summary": {
+        "card": card, "rows_per_s": fm_out["fit"]["rows_per_s"],
+        "ms_per_step": fm_out["fit"]["ms_per_step"],
+        "feed_only_seconds": fm_out["fit"]["feed_only_seconds"],
+        "peak_device_bytes": fm_out["fit"]["peak_device_bytes"],
+        "step_idle_share": fm_out["fit"]["step_profile"]["idle_share"],
+        "coo_segment_sum_fm_ms": fm_row["ms"],
+        "coo_segment_sum_fm_bound_ms": fm_row["bound_ms"],
+        "index_add_fm_ms": fm_row["library_ms"],
+        "snapshot_capture_ns": snaps["fm_injected"]["capture_ns"],
+        "snapshot_write_ns": snaps["fm_injected"]["write_ns"]}}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
-                      + [token_row]}))
+                      + [token_row, fm_row]}))
     print("card:", card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

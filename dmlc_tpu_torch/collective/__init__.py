@@ -16,26 +16,42 @@ explicit ``engine=`` wins. The host-array ``allreduce`` is the
 compatibility surface (the hostsync train step); the data-parallel step
 reduces its gradients on the device with ``bucketed_all_reduce``.
 
-Checkpoints, version numbers, recovery and elastic membership are not
-ported.
+Checkpoints: the rabit API ``checkpoint(state, uri)`` /
+``load_checkpoint(uri)`` / ``version_number()`` over one in-process blob
+(optionally a file), and the job-snapshot plane of ``collective.checkpoint``
+(``CheckpointManager``, ``JobSnapshot``) and ``collective.snapshot``
+(``Snapshotter``, ``load_snapshot``). Recovery (``reinit_recover``,
+``broadcast_state``, ``run_with_recovery``) and elastic membership are
+not ported.
 """
 
 from __future__ import annotations
 
 import os
 import threading
-from typing import List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch.distributed as dist
 
+from dmlc_tpu_torch.collective.checkpoint import (CheckpointManager,
+                                                  JobSnapshot,
+                                                  SnapshotSuperseded)
 from dmlc_tpu_torch.collective.device import DeviceEngine, \
     bucketed_all_reduce
+from dmlc_tpu_torch.collective.snapshot import Snapshotter, load_snapshot
 from dmlc_tpu_torch.collective.socket_engine import SocketEngine
+from dmlc_tpu_torch.io.filesystem import create_stream
+from dmlc_tpu_torch.io.serializer import load_obj, save_obj
+from dmlc_tpu_torch.io.stream import MemoryStream
+from dmlc_tpu_torch.resilience import faultpoint
 from dmlc_tpu_torch.utils.logging import DMLCError, log_info
 
 _engine = None
 _engine_lock = threading.Lock()
+# the rabit checkpoint: the newest blob and its version, in this process
+_version = 0
+_checkpoint_blob: Optional[bytes] = None
 
 
 class _LocalEngine:
@@ -154,8 +170,57 @@ def tracker_print(msg: str) -> None:
         log_info("%s", msg)
 
 
+# ---- checkpointing (rabit CheckPoint/LoadCheckPoint semantics) ------------
+
+
+def checkpoint(state: Any, uri: Optional[str] = None) -> None:
+    """Keep ``state`` as the process's newest checkpoint and bump the
+    version; with ``uri`` also write it there. The blob is the reference's
+    ``("dmlc_ckpt_v1", version, state)`` through the serializer, so either
+    package reads the other's file. Tensors must be host arrays (numpy)."""
+    global _version, _checkpoint_blob
+    # before the bump: an injected commit fault leaves the version as it was
+    faultpoint("ckpt.commit")
+    _version += 1
+    stream = MemoryStream()
+    save_obj(stream, ("dmlc_ckpt_v1", _version, state))
+    _checkpoint_blob = stream.getvalue()
+    if uri:
+        with create_stream(uri, "w") as out:
+            out.write(_checkpoint_blob)
+
+
+def load_checkpoint(uri: Optional[str] = None) -> Optional[Any]:
+    """The newest checkpoint's state (the in-process blob, else the file at
+    ``uri``), or None. Sets ``version_number()`` to its version."""
+    global _version, _checkpoint_blob
+    blob = _checkpoint_blob
+    if blob is None and uri:
+        faultpoint("ckpt.read")
+        stream = create_stream(uri, "r", allow_null=True)
+        if stream is not None:
+            with stream:
+                blob = stream.read_all()
+            _checkpoint_blob = blob
+    if blob is None:
+        return None
+    payload = load_obj(MemoryStream(blob))
+    if (isinstance(payload, tuple) and len(payload) == 3
+            and payload[0] == "dmlc_ckpt_v1"):
+        _version = int(payload[1])
+        return payload[2]
+    return payload  # a blob written before versions: the state as it is
+
+
+def version_number() -> int:
+    """Number of checkpoints taken (rabit.version_number)."""
+    return _version
+
+
 __all__ = [
-    "DeviceEngine", "SocketEngine", "allgather", "allreduce", "barrier",
-    "broadcast", "bucketed_all_reduce", "engine_kind", "finalize", "init",
-    "rank", "tracker_print", "world_size",
+    "CheckpointManager", "DeviceEngine", "JobSnapshot", "SnapshotSuperseded",
+    "Snapshotter", "SocketEngine", "allgather", "allreduce", "barrier",
+    "broadcast", "bucketed_all_reduce", "checkpoint", "engine_kind",
+    "finalize", "init", "load_checkpoint", "load_snapshot", "rank",
+    "tracker_print", "version_number", "world_size",
 ]

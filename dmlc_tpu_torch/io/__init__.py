@@ -1,7 +1,14 @@
 """I/O layer: streams, the serializer, local files, URI parsing, the
 text InputSplit over local files and the ordered thread-pool window."""
 
-from dmlc_tpu_torch.io.filesystem import create_stream
+from dmlc_tpu_torch.io.filesystem import (
+    atomic_write,
+    create_stream,
+    delete,
+    exists,
+    list_dir,
+    makedirs,
+)
 from dmlc_tpu_torch.io.input_split import (
     InputSplitBase,
     LineSplitter,
@@ -22,5 +29,6 @@ __all__ = [
     "Stream", "SeekStream", "FileObjStream", "MemoryStream", "save_obj",
     "load_obj", "create_stream", "InputSplitBase", "LineSplitter",
     "URISpec", "create_input_split", "list_split_files", "OrderedWindow",
-    "fetch_ordered",
+    "fetch_ordered", "atomic_write", "delete", "exists", "list_dir",
+    "makedirs",
 ]

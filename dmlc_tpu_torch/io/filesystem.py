@@ -1,5 +1,8 @@
 """Local files as streams: ``create_stream`` (``Stream::Create``,
-src/io.cc), the local-file part of ``dmlc_tpu/io/filesystem.py``.
+src/io.cc), the local-file part of ``dmlc_tpu/io/filesystem.py``, with the
+file operations the checkpoint code needs: :func:`list_dir`,
+:func:`exists`, :func:`delete`, :func:`makedirs` and the crash-safe
+:func:`atomic_write`.
 
 A path is a plain path or a ``file://`` uri; any other scheme (s3://,
 hdfs://, http://, ...) raises DMLCError: remote filesystems are not ported.
@@ -7,7 +10,8 @@ hdfs://, http://, ...) raises DMLCError: remote filesystems are not ported.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import List, Optional
 
 from dmlc_tpu_torch.io.stream import FileObjStream, Stream
 from dmlc_tpu_torch.utils.logging import check
@@ -34,3 +38,36 @@ def create_stream(uri: str, flag: str,
         if allow_null and flag == "r":
             return None
         raise
+
+
+def list_dir(uri: str) -> List[str]:
+    """The names in directory ``uri``, sorted."""
+    return sorted(os.listdir(local_path(uri)))
+
+
+def exists(uri: str) -> bool:
+    return os.path.exists(local_path(uri))
+
+
+def delete(uri: str) -> None:
+    """Remove the file ``uri``; a missing file is not an error."""
+    try:
+        os.remove(local_path(uri))
+    except FileNotFoundError:
+        pass
+
+
+def makedirs(uri: str) -> None:
+    os.makedirs(local_path(uri), exist_ok=True)
+
+
+def atomic_write(uri: str, payload: bytes) -> None:
+    """Write ``payload`` so that a crash never leaves a truncated file:
+    a temporary file beside it, fsync, then ``os.replace``."""
+    path = local_path(uri)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as fh:
+        fh.write(payload)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)

@@ -44,6 +44,15 @@ class Stream:
             remaining -= len(chunk)
         return b"".join(chunks)
 
+    def read_all(self) -> bytes:
+        """Every byte up to the end of the stream."""
+        parts = []
+        while True:
+            piece = self.read(1 << 20)
+            if not piece:
+                return b"".join(parts)
+            parts.append(piece)
+
     def write_fmt(self, fmt: str, *values) -> None:
         self.write(struct.pack("<" + fmt, *values))
 

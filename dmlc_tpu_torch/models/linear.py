@@ -47,6 +47,7 @@ from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
 from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_kernel, \
     spmv_transpose
 from dmlc_tpu_torch.params.parameter import Parameter, field
+from dmlc_tpu_torch.resilience import Preempted, preempt
 from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.logging import check
 
@@ -436,18 +437,32 @@ class LinearLearner:
         part_index: Optional[int] = None,
         num_parts: Optional[int] = None,
         drop_remainder: bool = False,
+        snapshot_uri: Optional[str] = None,
+        resume: bool = False,
+        snap_every_epochs: int = 1,
     ):
         """One call from data uri to fitted params: InputSplit part →
         parser (tokenizing on the learner's device) → DeviceFeed →
         fit_feed. The part defaults to this process's collective rank and
         world size (``InputSplit::Create(uri, rank, world)``), so the same
         line reads the whole file in one process and its own byte range in
-        each rank of a job. Returns the per-epoch mean losses."""
+        each rank of a job. Returns the per-epoch mean losses.
+
+        ``snapshot_uri`` (a local directory) arms preemption-proof job
+        snapshots: every ``snap_every_epochs``-th epoch boundary (and the
+        job's ``DMLC_TPU_SNAP_EVERY_S`` clock) commits params, velocity
+        and the loss history through the async two-phase-commit writer,
+        and a SIGTERM mid-epoch commits the last boundary's state and
+        exits with code 75. ``resume=True`` first loads the newest
+        committed snapshot and continues at the next epoch: the result is
+        bit-identical to a run that was never stopped."""
         from dmlc_tpu_torch.data.parsers import create_parser
         from dmlc_tpu_torch.device.feed import BatchSpec, DeviceFeed
 
         nf = num_features or self.param.num_features
         check(nf > 0, "fit_uri requires num_features")
+        check(snapshot_uri is not None or not resume,
+              "resume=True requires snapshot_uri")
         if part_index is None:
             part_index = collective.rank()
         if num_parts is None:
@@ -459,28 +474,99 @@ class LinearLearner:
             device=self.device,
         )
         try:
-            return self.fit_feed(feed, epochs=epochs)
+            if snapshot_uri is None:
+                return self.fit_feed(feed, epochs=epochs)
+            snap = collective.JobSnapshot(
+                snapshot_uri, rank=collective.rank(),
+                world_size=collective.world_size())
+            snapshotter = collective.Snapshotter(
+                snap, every_epochs=snap_every_epochs)
+            try:
+                start_epoch, history = 0, None
+                if resume:
+                    version, state, _meta = collective.load_snapshot(snap)
+                    if version and state is not None:
+                        self._restore_snapshot_model(state["model"])
+                        start_epoch = int(state.get("epoch", -1)) + 1
+                        history = list(state.get("history", ()))
+                        snapshotter.mark_restored(start_epoch - 1)
+                return self.fit_feed(feed, epochs=epochs,
+                                     snapshotter=snapshotter,
+                                     start_epoch=start_epoch,
+                                     history=history)
+            finally:
+                snapshotter.close()
         finally:
             feed.close()
 
-    def fit_feed(self, feed, epochs: int = 1):
-        """Train over a DeviceFeed for N epochs; returns per-epoch losses."""
+    def fit_feed(self, feed, epochs: int = 1, snapshotter=None,
+                 start_epoch: int = 0, history=None):
+        """Train over a DeviceFeed for N epochs; returns per-epoch losses.
+
+        With ``snapshotter`` (a ``collective.Snapshotter``) each epoch
+        boundary hands it the state tree, and the loop polls for a
+        preemption notice between steps (SIGTERM, or the
+        ``preempt.notice`` faultpoint): a notice stops the partial epoch,
+        which is never snapshotted (a resume replays it whole: that keeps
+        the relaunch bit-identical), finalizes the freshest boundary
+        snapshot within the grace window and raises ``Preempted`` (exit
+        75). ``start_epoch`` / ``history`` continue a resumed run; the
+        returned history covers every epoch, the restored ones too."""
         check(feed.device == self.device,
               "feed device %s and learner device %s differ", feed.device,
               self.device)
         layout = feed.spec.layout
-        history = []
-        for epoch in range(epochs):
+        history = list(history) if history else []
+        for epoch in range(start_epoch, epochs):
             acc = EpochMetrics()
+            nstep = 0
+            preempted = False
             for batch in feed:
                 self._ensure(feed.spec.num_features, layout)
                 self.params, self.velocity, metrics = self._step(
                     self.params, self.velocity, step_batch(batch, layout))
                 acc.add(metrics)
+                nstep += 1
+                if snapshotter is not None and preempt.poll():
+                    preempted = True
+                    break
+            if preempted:
+                snapshotter.finalize()
+                raise Preempted(
+                    "preempted in epoch %d after %d steps; last committed "
+                    "snapshot epoch %d"
+                    % (epoch, nstep, snapshotter.committed_epoch))
             history.append(acc.mean_loss())
+            if snapshotter is not None:
+                snapshotter.capture(
+                    epoch, self._snapshot_state(feed, epoch, history))
             if epoch + 1 < epochs:
                 feed.before_first()
         return history
+
+    def _snapshot_state(self, feed, epoch: int, history) -> Dict:
+        """The job-snapshot state tree at one epoch boundary: the JAX
+        package's layout, with ``audit`` None (the port has no audit plane
+        yet). The snapshotter host-copies it before the next step."""
+        state = {
+            "model": {"params": dict(self.params),
+                      "velocity": dict(self.velocity or {})},
+            "epoch": int(epoch),
+            "history": [float(x) for x in history],
+            "rng": None,  # the SGD path draws no step-time randomness
+            "audit": None,
+        }
+        parser = getattr(feed, "_parser", None)
+        if hasattr(parser, "snapshot_state"):
+            state["data"] = {"parser": parser.snapshot_state()}
+        return state
+
+    def _restore_snapshot_model(self, model: Dict) -> None:
+        """Place a snapshot's host params and velocity on the learner's
+        device."""
+        self.params = params_from_numpy(model["params"], self.device)
+        if model.get("velocity"):
+            self.velocity = params_from_numpy(model["velocity"], self.device)
 
     def predict(self, x: np.ndarray) -> np.ndarray:
         check(self.params is not None, "model not fitted")

@@ -4,8 +4,8 @@ flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
 
 - :func:`fused_linear_grads` — the whole dense local step
   (csrc/fused_linear_grads.cu);
-- :func:`coo_segment_sum` — the row-direction reduce of the csr margin
-  (csrc/coo_segment_sum.cu);
+- :func:`coo_segment_sum` — the row-direction reduce of the csr margin and
+  of FM's packed row sums, one or more columns (csrc/coo_segment_sum.cu);
 - :func:`flash_attention_fwd` — attention output and row logsumexp
   (csrc/flash_attention_fwd.cu);
 - :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` — its
@@ -60,8 +60,8 @@ def _lib() -> ctypes.CDLL:
             _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int,
             _P, _P, _P, _P, _P]
         lib.dmlc_fused_linear_grads.restype = ctypes.c_int
-        lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _P, _P,
-                                             _P]
+        lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _I64, _P,
+                                             _P, _P]
         lib.dmlc_coo_segment_sum.restype = ctypes.c_int
         dims = [ctypes.c_int] * 6 + [_P]  # B T H Hkv D causal, stream
         lib.dmlc_flash_attention_fwd.argtypes = [_P] * 5 + dims
@@ -182,45 +182,53 @@ fused_linear_grads.launches = 0
 
 
 def coo_segment_sum_plain(contrib, row_ids, num_rows: int):
-    """``y[r] = Σ_{e: row_ids[e]==r} contrib[e]`` in plain PyTorch ops, for
-    row ids in any order; ids outside [0, num_rows) contribute nothing."""
+    """``y[r] = Σ_{e: row_ids[e]==r} contrib[e]`` in plain PyTorch ops
+    (``index_add_`` over dim 0), for contrib [E] or [E, C] and row ids in
+    any order; ids outside [0, num_rows) contribute nothing."""
     ids = row_ids.long()
     keep = (ids >= 0) & (ids < num_rows)
-    out = torch.zeros(num_rows, dtype=contrib.dtype, device=contrib.device)
+    out = contrib.new_zeros((num_rows,) + tuple(contrib.shape[1:]))
+    keep_entries = keep.view((-1,) + (1,) * (contrib.dim() - 1))
     return out.index_add_(
         0, torch.where(keep, ids, 0),
-        torch.where(keep, contrib, torch.zeros_like(contrib)))
+        torch.where(keep_entries, contrib, torch.zeros_like(contrib)))
 
 
 def coo_segment_sum(contrib, row_ids, num_rows: int):
     """``y[r] = Σ_{e: row_ids[e]==r} contrib[e]`` for r in [0, num_rows).
 
-    contrib [E] f32 and row_ids [E] i32 on one device; returns
-    [num_rows] f32. Row ids outside [0, num_rows) contribute nothing (the
-    reference's -1 pad). On a CUDA tensor this launches
-    csrc/coo_segment_sum.cu (two kernels: each row's first entry, then the
-    row sums), which requires ``row_ids`` to never decrease
-    — what ops/spmv.expand_row_ids produces — and is not checked here,
-    since checking would cost a device sync per call. On a CPU tensor it
-    runs :func:`coo_segment_sum_plain`, which takes any order.
+    contrib [E] or [E, C] f32 (row-major) and row_ids [E] i32 on one
+    device; returns [num_rows] or [num_rows, C] f32. Row ids outside
+    [0, num_rows) contribute nothing (the reference's -1 pad). On a CUDA
+    tensor this launches csrc/coo_segment_sum.cu (two kernels: each row's
+    first entry, once for all columns, then a warp per output), counted as
+    one launch; each column sums in the order of the [E] call, so column c
+    is bit-equal to ``coo_segment_sum(contrib[:, c].contiguous(), ...)``.
+    The kernel requires ``row_ids`` to never decrease — what
+    ops/spmv.expand_row_ids produces — which is not checked here, since
+    checking would cost a device sync per call. On a CPU tensor it runs
+    :func:`coo_segment_sum_plain`, which takes any order.
     """
     if contrib.device.type == "cpu":
         return coo_segment_sum_plain(contrib, row_ids, num_rows)
     check(contrib.device.type == "cuda", "unsupported device %s",
           contrib.device)
-    check(contrib.dim() == 1, "contrib must be [E], got shape %s",
+    check(contrib.dim() == 1 or (contrib.dim() == 2 and contrib.shape[1] > 0),
+          "contrib must be [E] or [E, C] with C > 0, got shape %s",
           tuple(contrib.shape))
     check(0 < num_rows < 2**31 - 1, "num_rows out of range: %d", num_rows)
     entries = contrib.shape[0]
+    cols = 1 if contrib.dim() == 1 else contrib.shape[1]
     dev = contrib.device
-    _check_input(contrib, "contrib", torch.float32, (entries,), dev)
+    _check_input(contrib, "contrib", torch.float32, contrib.shape, dev)
     _check_input(row_ids, "row_ids", torch.int32, (entries,), dev)
-    out = torch.empty(num_rows, dtype=torch.float32, device=dev)
+    out = torch.empty((num_rows,) + tuple(contrib.shape[1:]),
+                      dtype=torch.float32, device=dev)
     starts = torch.empty(num_rows + 1, dtype=torch.int64, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.dmlc_coo_segment_sum(
-            contrib.data_ptr(), row_ids.data_ptr(), entries, num_rows,
+            contrib.data_ptr(), row_ids.data_ptr(), entries, num_rows, cols,
             starts.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _launch_check(rc, "coo_segment_sum")

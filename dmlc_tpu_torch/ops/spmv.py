@@ -5,17 +5,19 @@ Batches carry CSR ``offsets``; :func:`expand_row_ids` turns them into
 per-entry row ids on the device. The forward SpMV is a gather plus a
 row-direction segment sum (:func:`spmv`, or :func:`spmv_kernel` with the
 reduce on the CUDA kernel ``coo_segment_sum``); the gradient
-(:func:`spmv_transpose`) is a segment sum keyed by feature id. Padded
-entries (value 0 at feature 0) are arithmetic no-ops in both directions.
+(:func:`spmv_transpose`) is a segment sum keyed by feature id,
+:func:`feature_segment_sum`, which FM's factor gradient also takes with a
+trailing dimension. Padded entries (value 0 at feature 0) are arithmetic
+no-ops in both directions.
 
 :func:`make_sharded_spmv` is the forward SpMV over one rank's section of
 a ``device/csr.ShardedCSRBatch``: the section's entries only, its local
 offsets, its rows' slice of the output.
 
-Determinism: nothing here adds floats with atomics, and ``spmv_transpose``
-repeats its bits on both routes. On CUDA it uses ``index_put_`` with
-``accumulate=True``, which sorts the entries by feature id and reduces each
-run of one id in a fixed order (PyTorch's ``index_put_with_sort`` path;
+Determinism: nothing here adds floats with atomics, and
+``feature_segment_sum`` repeats its bits on both routes. On CUDA it uses
+``index_put_`` with ``accumulate=True``, which sorts the entries by feature
+id and reduces each run of one id in a fixed order (PyTorch's ``index_put_with_sort`` path;
 chip_smoke.py checks the same bits run after run). On the CPU, where
 ``index_put_`` adds over threads in an order that changes from run to run,
 it sorts the entries by feature id (stably) and sums each feature's run
@@ -69,13 +71,12 @@ def spmv_kernel(values, indices, row_ids, weight_vec, num_rows: int):
     return coo_segment_sum(contrib, row_ids, num_rows)
 
 
-def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):
-    """g[f] = Σ_{e: indices[e]==f} values[e] * row_grads[row_ids[e]]: the
-    gradient of :func:`spmv` with respect to ``weight_vec``. Returns
-    [num_features], the same bits on every run (module docstring)."""
-    contrib = values * row_grads.index_select(0, row_ids)
-    out = torch.zeros(num_features, dtype=contrib.dtype,
-                      device=contrib.device)
+def feature_segment_sum(contrib, indices, num_features: int):
+    """g[f] = Σ_{e: indices[e]==f} contrib[e] for contrib [E] or [E, K];
+    returns [num_features] or [num_features, K], the same bits on every run
+    (module docstring): each feature's entries are summed in one fixed
+    order, on the CPU in entry order from 0, column by column."""
+    out = contrib.new_zeros((num_features,) + tuple(contrib.shape[1:]))
     if contrib.device.type != "cpu":
         return out.index_put_((indices.long(),), contrib, accumulate=True)
     if contrib.numel() == 0:
@@ -85,8 +86,16 @@ def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):
     feature, order = torch.sort(indices, stable=True)
     ids, counts = torch.unique_consecutive(feature, return_counts=True)
     out[ids.long()] = torch.segment_reduce(contrib[order], "sum",
-                                           lengths=counts)
+                                           lengths=counts, axis=0)
     return out
+
+
+def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):
+    """g[f] = Σ_{e: indices[e]==f} values[e] * row_grads[row_ids[e]]: the
+    gradient of :func:`spmv` with respect to ``weight_vec``. Returns
+    [num_features], the same bits on every run (module docstring)."""
+    contrib = values * row_grads.index_select(0, row_ids)
+    return feature_segment_sum(contrib, indices, num_features)
 
 
 def make_sharded_spmv(num_rows: int, group=None):

@@ -48,6 +48,10 @@ def log_info(msg: str, *args: Any) -> None:
     get_logger().info(msg % args if args else msg, stacklevel=2)
 
 
+def log_warning(msg: str, *args: Any) -> None:
+    get_logger().warning(msg % args if args else msg, stacklevel=2)
+
+
 def check(cond: Any, msg: str = "", *args: Any) -> None:
     """CHECK(cond): raise DMLCError when cond is falsy."""
     if not cond:

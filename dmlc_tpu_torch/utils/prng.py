@@ -10,9 +10,14 @@ It reproduces jax 0.9.0's default PRNG, ``threefry2x32`` with
   pair ``(i >> 32, i & 0xffffffff)`` and XORs the two output words);
 - :func:`uniform` (the top 23 bits as an f32 mantissa in [1, 2), minus 1);
 - :func:`permutation` (jax's ``_shuffle``: ``ceil(3 ln n / ln(2^32 - 1))``
-  rounds, each a split and a stable sort by 32 random bits).
+  rounds, each a split and a stable sort by 32 random bits);
+- :func:`normal` (``_normal_real``: a uniform draw on
+  ``[nextafter(-1, 0), 1)`` through XLA's f32 ``erf_inv``, times √2).
 
 Keys and the small draws live on the host as numpy uint32 arrays.
+:func:`normal` is the one draw that is not bit for bit: ``torch.log1p``
+rounds a few values an ulp away from XLA's, so it is held to
+:data:`NORMAL_MAX_ULP` of ``jax.random.normal`` (``tests/test_torch_prng.py``).
 :func:`uniform` also takes a torch device: the row draw of a tree is
 ``[N]`` and is made where the rows are, in int64 tensors masked to 32 bits.
 """
@@ -120,3 +125,46 @@ def permutation(key: np.ndarray, n: int) -> np.ndarray:
         x = x[np.argsort(random_bits(subkey, n), kind="stable")]
     return x
 
+
+
+#: the most that :func:`normal` differs from ``jax.random.normal`` in units
+#: in the last place: ``torch.log1p`` and XLA's differ by an ulp on some
+#: inputs, and the polynomial carries that through (3 seen over 2^20 draws)
+NORMAL_MAX_ULP = 4
+
+# XLA's f32 erf_inv (M. Giles, "Approximating the erfinv function"): a
+# degree-8 polynomial in w - 2.5 for w = -log1p(-x^2) < 5, else in
+# sqrt(w) - 3, highest power first
+_ERF_INV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` in torch ops (``torch.erfinv`` is another
+    approximation: on 2^20 uniform draws √2·erfinv differs from
+    ``jax.random.normal`` by up to 2.05e-5). ±1 map to ±inf."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.full_like(x, _ERF_INV_W_GE_5[0])
+    p = torch.where(small, _ERF_INV_W_LT_5[0], p)
+    for lt, ge in zip(_ERF_INV_W_LT_5[1:], _ERF_INV_W_GE_5[1:]):
+        p = torch.where(small, lt, ge).to(x.dtype) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+def normal(key: np.ndarray, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32, within
+    :data:`NORMAL_MAX_ULP`: ``uniform`` scaled onto ``[nextafter(-1, 0),
+    1)`` as jax's ``_uniform`` does (``max(lo, u * (hi - lo) + lo)``, with
+    ``hi - lo`` = 2 in f32), then √2 · :func:`erf_inv`. A CPU tensor: the
+    caller moves it, so every device starts from the same values."""
+    shape = tuple(int(d) for d in shape)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = torch.from_numpy(uniform(key, int(np.prod(shape, dtype=np.int64))))
+    u = torch.clamp_min(u * 2.0 + lo, lo)
+    return (float(np.float32(np.sqrt(2.0))) * erf_inv(u)).reshape(shape)

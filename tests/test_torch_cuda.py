@@ -15,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_CASES, TF32_FAULT_MIN_T, TOKEN_SIZES,
-                         flash_case, hold_seg_sum, one_call_ops,
-                         read_lost_tile, require_one_kernel,
-                         seg_sum_edge_cases, token_chunk)
+from chip_smoke import (FLASH_CASES, FM_SEG_COLS, TF32_FAULT_MIN_T,
+                         TOKEN_SIZES, flash_case, hold_seg_sum,
+                         hold_seg_sum_cols, one_call_ops, read_lost_tile,
+                         require_one_kernel, seg_sum_edge_cases,
+                         token_chunk)
 from dmlc_tpu_torch.data import create_parser, create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -447,3 +448,79 @@ def test_sharded_spmv_through_coo_segment_sum(cuda, shards):
                      for sec in map(sharded.section, range(shards))])
     assert kernels.KERNELS["coo_segment_sum"].launches == shards
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("cols", FM_SEG_COLS)
+@pytest.mark.parametrize("case", ["criteo batch"] + sorted(SEG_EDGE_CASES))
+def test_column_coo_segment_sum_matches_plain_and_1d(cuda, case, cols):
+    """chip_smoke.py's phase 16 (a): the [E, C] call bit-equal to its plain
+    version on integer data, each column bit-equal to the [E] call on it,
+    the same bits twice; one counted launch a call."""
+    if case == "criteo batch":
+        counts = np.full(8192, 39)
+        offsets = torch.tensor(np.minimum(np.concatenate(
+            [[0], np.cumsum(counts)]), 327_680).astype(np.int32),
+            device=cuda)
+        ids, rows = expand_row_ids(offsets, 327_680).cpu().numpy(), 8192
+    else:
+        ids, rows = SEG_EDGE_CASES[case]
+    before = kernels.coo_segment_sum.launches
+    hold_seg_sum_cols(kernels, cuda, case, ids, rows, cols)
+    assert kernels.coo_segment_sum.launches == before + 2 + cols
+
+
+def test_feature_segment_sum_columns_repeat_their_bits(cuda):
+    from dmlc_tpu_torch.ops.spmv import feature_segment_sum
+
+    rng = np.random.RandomState(1)
+    entries, nfeat, k = 200_000, 1 << 14, 8
+    indices = torch.tensor(rng.randint(0, 256, entries).astype(np.int32),
+                           device=cuda)
+    contrib = torch.tensor(rng.randn(entries, k).astype(np.float32),
+                           device=cuda)
+    first = feature_segment_sum(contrib, indices, nfeat)
+    torch.use_deterministic_algorithms(True)
+    try:
+        det = feature_segment_sum(contrib, indices, nfeat)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(first, det)
+    for _ in range(3):
+        assert torch.equal(first, feature_segment_sum(contrib, indices,
+                                                      nfeat))
+    np.testing.assert_allclose(
+        first.cpu().numpy(),
+        feature_segment_sum(contrib.cpu(), indices.cpu(), nfeat).numpy(),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_fm_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path):
+    from dmlc_tpu_torch.models import (FMLearner, fm_params_from_numpy,
+                                       fm_params_to_numpy, init_fm_params)
+
+    path = tmp_path / "d.libfm"
+    rng = np.random.RandomState(2)
+    path.write_text("".join(
+        "%d %s\n" % (i % 2, " ".join(
+            "%d:%d:%.3f" % (f, j, rng.rand()) for f, j in enumerate(
+                np.sort(rng.choice(np.arange(1, 300), 6, replace=False)))))
+        for i in range(1000)))
+    start = fm_params_to_numpy(init_fm_params(300, 4, 0.1, device="cpu"))
+    fits = {}
+    for device in ("cuda", "cpu"):
+        learner = FMLearner(device=device, num_features=300, num_factors=4,
+                            learning_rate=0.2)
+        learner.params = fm_params_from_numpy(start, learner.device)
+        feed = DeviceFeed(create_parser(str(path), data_format="libfm",
+                                        device=learner.device),
+                          BatchSpec(batch_size=128, layout="csr",
+                                    num_features=300),
+                          device=learner.device)
+        kernels.reset_launch_counts()
+        try:
+            fits[device] = learner.fit_feed(feed, 2)
+        finally:
+            feed.close()
+        if device == "cuda":
+            assert kernels.coo_segment_sum.launches == 2 * 8
+    np.testing.assert_allclose(fits["cuda"], fits["cpu"], rtol=1e-5)

@@ -69,6 +69,25 @@ q = torch.randn(1, 16, 4, 32, requires_grad=True)
 kv = torch.randn(1, 16, 2, 32, requires_grad=True)
 (attend(q, kv, kv) ** 2).sum().backward()
 assert q.grad.shape == q.shape and kv.grad.shape == kv.shape
+# factorization machines with a job snapshot, and the linear resume
+from dmlc_tpu_torch import resilience
+from dmlc_tpu_torch.collective import JobSnapshot, Snapshotter, load_snapshot
+from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+from dmlc_tpu_torch.models import FMLearner
+fm_learner = FMLearner(device="cpu", num_features=8, num_factors=2)
+feed = DeviceFeed(create_parser(sys.argv[1], device="cpu"),
+                  BatchSpec(batch_size=4, layout="csr", num_features=8),
+                  device="cpu")
+snapper = Snapshotter(JobSnapshot(sys.argv[1] + ".fmsnap"),
+                      install_sigterm=False)
+assert len(fm_learner.fit_feed(feed, 2, snapshotter=snapper)) == 2
+snapper.close()
+feed.close()
+assert load_snapshot(JobSnapshot(sys.argv[1] + ".fmsnap"))[2]["epoch"] == 1
+assert len(LinearLearner(device="cpu").fit_uri(
+    sys.argv[1], batch_size=4, epochs=2, num_features=8,
+    snapshot_uri=sys.argv[1] + ".snap", resume=True)) == 2
+resilience.preempt.uninstall()
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

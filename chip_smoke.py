@@ -184,7 +184,36 @@ non-zero exit and no result line:
    committed: it must still be running then, and exit with 75; relaunched
    with ``resume=True``, its saved model must equal an uninterrupted
    run's file byte for byte; (c) ``capture_ns`` (device → host on the
-   training thread) and ``write_ns`` of the FM snapshots.
+   training thread) and ``write_ns`` of the FM snapshots;
+18. fault-tolerant distributed training on the card: rank processes
+   (``--recover-rank SPEC``) started by the port's launcher (``python -m
+   dmlc_tpu_torch.tracker.submit --cluster local --host-ip 127.0.0.1``)
+   fit phase 6's csr file at phase 13's world-2 batch, ``LinearLearner(
+   sync="host")`` over the socket engine, one epoch a round under
+   ``collective.run_with_recovery`` for ``RECOVER_EPOCHS`` rounds, each
+   round from the shared checkpoint (epoch, params, velocity, loss
+   history) on part ``rank()`` of ``world_size()``; each rank prints its
+   digest of (w, b), version, generation and launch counts. (a) ``-n 2``,
+   no fault: the yardstick digest; (b) ``--max-attempts 2``, rank 1 exits
+   hard as it starts round 2, is relaunched, the survivor recovers, both
+   replay: the digests equal (a)'s, version 4 on both, the seconds from
+   the crash to the replayed round and the relaunch's parts; (c)
+   ``--elastic --spares 1``, rank 1 killed by the ``worker.step``
+   faultpoint (``RECOVER_FAULTS``) outside the recovery before round 3,
+   the warm spare called up: the digests equal (a)'s, the tracker's
+   generation 2 with ``join`` and ``rebuild`` events, the spare's own
+   launches; (d) world 2 on the device engine, ``sync="spmd"`` over gloo
+   with CUDA tensors, each task in a relaunch loop exporting
+   DMLC_TPU_COORDINATOR / DMLC_TPU_NUM_PROC / DMLC_TPU_PROC_ID: a clean
+   run within ``FIT_PARAM_REL`` of (a)'s params, and a run where rank 0
+   (which serves the store) crashes as it starts round 2 and rank 1 as
+   it starts round 3 (the surviving rank 0 then serves the store again),
+   whose digests must equal the clean run's; the route each survivor
+   took (re-initialized in process, or the fail-stop exit 41 and a
+   relaunch) is reported. Over NCCL only
+   with a second card. In every job each process launches
+   ``coo_segment_sum`` once a step and the tokenizer once a chunk part;
+   (e) rows/s of (a) and the seconds of (b)-(d) against their clean runs.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
@@ -317,6 +346,15 @@ FM_PARAM_REL = 1e-5
 SNAP_EPOCHS = 3
 SNAP_NOTICE_POLL = 2 * (CRITEO_ROWS // CRITEO_BATCH) + 4
 SIGNAL_EPOCHS = 8
+# phase 18: rounds of one epoch over phase 6's csr file at phase 13's
+# world-2 batch; (b) and (d) crash a rank as it starts round 2, after two
+# committed checkpoints, and (d) crashes the other rank as it starts round
+# 3; (c) kills rank 1 as it starts round 3: rank r
+# passes the worker.step faultpoint r + 1 times before each round, so its
+# 8th pass is rank 1's before round 3 (and no other rank reaches 8)
+RECOVER_EPOCHS = 4
+RECOVER_CRASH_EPOCH = 2
+RECOVER_FAULTS = "worker.step:nth=8"
 
 
 class SmokeFailure(RuntimeError):
@@ -2644,6 +2682,492 @@ def drive_snapshots(csr_file, fm_file, start, tmp) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 18: fault-tolerant distributed training
+# ---------------------------------------------------------------------------
+
+
+def process_start_time() -> float:
+    """This process's start, unix seconds, from /proc (Linux): its start
+    in clock ticks after boot, and the boot from /proc/uptime (10 ms)."""
+    with open("/proc/self/stat") as fh:
+        ticks = int(fh.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/uptime") as fh:
+        boot = time.time() - float(fh.read().split()[0])
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def recover_rank(spec_path: str) -> int:
+    """One rank of phase 18, run as ``chip_smoke.py --recover-rank SPEC``
+    by the port's launcher (the socket engine, ``sync="host"``) or by
+    :func:`run_device_job`'s per-task loop (the device engine over the
+    DMLC_TPU_* env, ``sync="spmd"``): fits ``spec["file"]`` one epoch a
+    round under ``run_with_recovery`` for ``RECOVER_EPOCHS`` rounds, each
+    round from the shared checkpoint ``spec["ckpt"]`` (epoch, params,
+    velocity, loss history, as numpy) on part ``rank()`` of
+    ``world_size()``, rank 0 writing the file. Each entry of
+    ``spec["crashes"]`` names a rank that exits hard as it starts that
+    epoch's round, once a job (the marker it leaves first,
+    ``crashed-rank<r>.json``, says it did); the ``worker.step``
+    faultpoint, passed rank + 1 times before each round outside the
+    recovery, kills the rank it fires on. Prints
+    one ``recover_rank`` line (rank, digest of (w, b), version,
+    generation, launch counts) and writes the whole report (steps,
+    times, rounds) to ``report-rank<r>.json`` beside the spec: the ranks
+    share the launcher's stdout, where their writes may interleave."""
+    import hashlib
+
+    import torch.distributed as dist
+    from dmlc_tpu_torch import collective, resilience
+    from dmlc_tpu_torch.models import (LinearLearner, init_linear_params,
+                                       params_from_numpy, params_to_numpy)
+    from dmlc_tpu_torch.ops import kernels
+    from dmlc_tpu_torch.parallel import distributed
+
+    times = {"process_start": process_start_time(), "entry": time.time()}
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    device_engine = spec["engine"] == "device"
+    task = int(os.environ.get("DMLC_TASK_ID", 0))
+    attempt = int(os.environ.get("DMLC_NUM_ATTEMPT", 0))
+    dev = torch.device(spec["devices"][task] if device_engine else "cuda:0")
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    times["cuda_ready"] = time.time()
+    kernels._lib()  # built by the parent: loaded, never built again
+    times["kernels_loaded"] = time.time()
+    if device_engine:
+        distributed.initialize_from_env(backend=spec["backend"], device=dev)
+        collective.init("device")
+    else:
+        collective.init()  # a warm spare parks here until called up
+    times["engine_ready"] = time.time()
+    recoveries = []
+    collective.on_membership_change(lambda: recoveries.append(time.time()))
+
+    class Learner(LinearLearner):
+        steps = 0
+
+        def _ensure(self, num_features, layout):  # once a step
+            super()._ensure(num_features, layout)
+            self.steps += 1
+
+    learner = Learner(device=dev, sync=spec["sync"], objective="logistic",
+                      group=dist.group.WORLD if device_engine else None)
+    nf = DIST_NF["csr"]
+    start = params_to_numpy(init_linear_params(nf, "cpu"))
+    rounds = []
+
+    def marker(name: str, epoch: int) -> None:
+        with open(os.path.join(spec["out"], name), "w") as fh:
+            json.dump({"task": task, "rank": collective.rank(),
+                       "epoch": epoch, "at": time.time()}, fh)
+
+    def round_fn():
+        state = collective.load_checkpoint(spec["ckpt"])
+        if state is None:
+            state = (0, start, {k: np.zeros_like(v) for k, v in start.items()},
+                     [])
+        epoch, params, velocity, history = state
+        if epoch >= RECOVER_EPOCHS:
+            return state
+        for crash in spec["crashes"]:
+            name = "crashed-rank%d.json" % crash["rank"]
+            if (collective.rank() == crash["rank"]
+                    and epoch == crash["epoch"] and not os.path.exists(
+                        os.path.join(spec["out"], name))):
+                marker(name, epoch)
+                os._exit(17)
+        learner.params = params_from_numpy(params, dev)
+        learner.velocity = params_from_numpy(velocity, dev)
+        rounds.append({"epoch": epoch, "start": time.time(),
+                       "rank": collective.rank(),
+                       "world": collective.world_size()})
+        loss = learner.fit_uri(spec["file"], batch_size=DIST_BATCH["csr"],
+                               epochs=1, layout="csr", num_features=nf,
+                               drop_remainder=True)
+        torch.cuda.synchronize(dev)
+        rounds[-1]["end"] = time.time()
+        state = (epoch + 1, params_to_numpy(learner.params),
+                 params_to_numpy(learner.velocity), list(history) + loss)
+        collective.checkpoint(
+            state, spec["ckpt"] if collective.rank() == 0 else None)
+        return state
+
+    kernels.reset_launch_counts()
+    with count_parts() as parts:
+        state = (0,)
+        while state[0] < RECOVER_EPOCHS:
+            for _ in range(collective.rank() + 1):
+                try:
+                    resilience.faultpoint("worker.step")
+                except resilience.InjectedFault:
+                    marker("killed.json", state[0])
+                    os._exit(1)
+            state = collective.run_with_recovery(round_fn, max_attempts=6)
+    launches = {k: kernels.KERNELS[k].launches
+                for k in ("coo_segment_sum", "tokenize_boundaries")}
+    params = state[1]
+    rank = collective.rank()
+    np.savez(os.path.join(spec["out"], f"params-rank{rank}.npz"), **params)
+    report = {
+        "task": task, "attempt": attempt, "rank": rank,
+        "world": collective.world_size(),
+        "spare": os.environ.get("DMLC_TPU_SPARE") == "1",
+        "digest": hashlib.sha256(params["w"].tobytes()
+                                 + params["b"].tobytes()).hexdigest(),
+        "version": collective.version_number(),
+        "generation": getattr(collective._engine, "generation", 1),
+        "launches": launches, "steps": learner.steps,
+        "chunk_parts": len(parts), "history": state[3], "times": times,
+        "rounds": rounds, "recoveries": recoveries}
+    with open(os.path.join(spec["out"], f"report-rank{rank}.json"),
+              "x") as fh:  # one final report a rank: a second one fails
+        json.dump(report, fh)
+    sys.stdout.write(
+        f"recover_rank rank={rank} digest={report['digest']} version="
+        f"{report['version']} generation={report['generation']} "
+        + " ".join(f"{k}={v}" for k, v in launches.items()) + "\n")
+    sys.stdout.flush()
+    learner.close()
+    collective.finalize()
+    distributed.shutdown()
+    return 0
+
+
+def _kill_group(proc) -> None:
+    """SIGKILL the process group a job runs in (its ranks included)."""
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def _reports(out: str) -> dict:
+    """The final reports of a job's ranks, by rank."""
+    reports = {}
+    for name in sorted(os.listdir(out)):
+        if name.startswith("report-rank"):
+            with open(os.path.join(out, name)) as fh:
+                rep = json.load(fh)
+            reports[rep["rank"]] = rep
+    return reports
+
+
+def _job_spec(tmp: str, name: str, csr_file: str, **spec) -> str:
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    spec = dict({"file": csr_file, "ckpt": os.path.join(out, "ckpt.bin"),
+                 "out": out, "engine": "socket", "sync": "host",
+                 "crashes": []}, **spec)
+    path = os.path.join(out, "spec.json")
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    return path
+
+
+def run_launcher_job(tmp, name, csr_file, launcher_args, faults="",
+                     **spec):
+    """One job of phase 18 (a)-(c) through the port's launcher,
+    ``python -m dmlc_tpu_torch.tracker.submit --cluster local``, in its
+    own process group; every process of it is killed on the way out. A
+    job that fails or outlasts ``RANK_TIMEOUT_S`` fails the run. Returns
+    (the final ``recover_rank`` reports by rank, the job's log, its wall
+    seconds, the spec)."""
+    spec_path = _job_spec(tmp, name, csr_file, **spec)
+    out = os.path.dirname(spec_path)
+    env = dict(os.environ, DMLC_TPU_ELASTIC_WINDOW_S="1.0")
+    for key in ("DMLC_TPU_FAULTS", "DMLC_TPU_ELASTIC", "DMLC_TPU_SPARE",
+                "DMLC_TRACKER_URI", "DMLC_TPU_COORDINATOR"):
+        env.pop(key, None)
+    if faults:
+        env["DMLC_TPU_FAULTS"] = faults
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "dmlc_tpu_torch.tracker.submit",
+           "--cluster", "local", "--host-ip", "127.0.0.1", *launcher_args,
+           sys.executable, os.path.abspath(__file__), "--recover-rank",
+           spec_path]
+    log_path = os.path.join(out, "job.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            code = proc.poll()
+            _kill_group(proc)
+    seconds = time.perf_counter() - t0
+    with open(log_path) as fh:
+        text = fh.read()
+    require(code == 0, "%s: the launcher %s:\n%s", name,
+            "did not finish in %d s" % RANK_TIMEOUT_S if code is None
+            else "exited with %s" % code, text[-6000:])
+    with open(spec_path) as fh:
+        return _reports(out), text, seconds, json.load(fh)
+
+
+def run_device_job(tmp, name, csr_file, backend, devices, crashes=()):
+    """Phase 18 (d): a world of ``len(devices)`` ranks on the device
+    engine, each task in a per-task relaunch loop of its own (up to 3
+    attempts) that exports DMLC_TPU_COORDINATOR (``host:port``) /
+    DMLC_TPU_NUM_PROC / DMLC_TPU_PROC_ID, as a GPU launcher would.
+    Returns (the final reports by rank, each task's exit codes, the wall
+    seconds, the spec)."""
+    import socket
+
+    world = len(devices)
+    spec_path = _job_spec(tmp, name, csr_file, engine="device",
+                          sync="spmd", backend=backend, devices=devices,
+                          crashes=list(crashes))
+    out = os.path.dirname(spec_path)
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    codes = {tid: [] for tid in range(world)}
+    logs = {tid: [] for tid in range(world)}
+    lock = threading.Lock()
+    procs = []
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+
+    def run_task(tid: int) -> None:
+        for attempt in range(3):
+            env = dict(os.environ, DMLC_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                       DMLC_TPU_NUM_PROC=str(world),
+                       DMLC_TPU_PROC_ID=str(tid), DMLC_TASK_ID=str(tid),
+                       DMLC_NUM_ATTEMPT=str(attempt),
+                       DMLC_TPU_RECOVER_TIMEOUT="60")
+            for key in ("DMLC_TPU_FAULTS", "DMLC_TRACKER_URI"):
+                env.pop(key, None)
+            log_path = os.path.join(out, f"task{tid}.{attempt}.log")
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--recover-rank", spec_path], env=env, stdout=log,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+                with lock:
+                    procs.append(proc)
+                try:
+                    code = proc.wait(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    code = None
+            with open(log_path) as fh:
+                text = fh.read()
+            with lock:
+                codes[tid].append(code)
+                logs[tid].append(text)
+            if code in (0, None):
+                return
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run_task, args=(tid,))
+               for tid in range(world)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        for proc in procs:
+            _kill_group(proc)
+    seconds = time.perf_counter() - t0
+    for tid in range(world):
+        require(codes[tid][-1] == 0, "%s: task %d exit codes %s:\n%s", name,
+                tid, codes[tid], logs[tid][-1][-6000:])
+    with open(spec_path) as fh:
+        return _reports(out), codes, seconds, json.load(fh)
+
+
+def hold_recover_job(name, reports, world, digest=None) -> dict:
+    """Phase 18's checks of one job's final reports: one a rank, each at
+    version ``RECOVER_EPOCHS``, every digest equal (and equal to
+    ``digest``), each process's ``coo_segment_sum`` launches equal to the
+    steps it ran and its tokenizer launches to its chunk parts."""
+    require(sorted(reports) == list(range(world)), "%s: final reports of "
+            "ranks %s, want %d", name, sorted(reports), world)
+    digests = {rep["digest"] for rep in reports.values()}
+    require(len(digests) == 1, "%s: the ranks' digests differ: %s", name,
+            digests)
+    if digest is not None:
+        require(digests == {digest}, "%s: digest %s, the clean run's %s",
+                name, digests, digest)
+    for r, rep in reports.items():
+        require(rep["version"] == RECOVER_EPOCHS, "%s: rank %d ends at "
+                "version %d", name, r, rep["version"])
+        require(rep["launches"]["coo_segment_sum"] == rep["steps"] > 0,
+                "%s: rank %d launched coo_segment_sum %d times for %d "
+                "steps", name, r, rep["launches"]["coo_segment_sum"],
+                rep["steps"])
+        require(rep["launches"]["tokenize_boundaries"]
+                == rep["chunk_parts"] > 0, "%s: rank %d launched the "
+                "tokenizer %d times for %d chunk parts", name, r,
+                rep["launches"]["tokenize_boundaries"], rep["chunk_parts"])
+    return {"digest": digests.pop(), "ranks": {
+        r: {k: rep[k] for k in ("task", "attempt", "spare", "generation",
+                                "version", "launches", "steps",
+                                "chunk_parts")}
+        for r, rep in reports.items()}}
+
+
+def fault_marker(spec, name) -> dict:
+    with open(os.path.join(spec["out"], name)) as fh:
+        return json.load(fh)
+
+
+def replay_seconds(fault, reports) -> float:
+    """Seconds from the fault to the replayed round's start on the last
+    rank to reach it: the first replayed step is that round's first
+    all-reduce, which waits for every rank. A rank whose final process
+    started after that round (it crashed later) has no say."""
+    starts = [min(r["start"] for r in rep["rounds"]
+                  if r["epoch"] == fault["epoch"] and r["start"] > fault["at"])
+              for rep in reports.values()
+              if any(r["epoch"] == fault["epoch"] and r["start"] > fault["at"]
+                     for r in rep["rounds"])]
+    require(starts, "no rank replayed round %d after the fault",
+            fault["epoch"])
+    return max(starts) - fault["at"]
+
+
+def relaunch_seconds(fault, rep) -> dict:
+    """A relaunched process's start, split: the crash to the process's
+    start (the launcher's notice and exec), imports, CUDA, the kernels'
+    library (loaded, not built) and the rendezvous."""
+    fault_at = fault["at"]
+    t = rep["times"]
+    return {"to_process_start": t["process_start"] - fault_at,
+            "imports": t["entry"] - t["process_start"],
+            "cuda_init": t["cuda_ready"] - t["entry"],
+            "kernels_load": t["kernels_loaded"] - t["cuda_ready"],
+            "rendezvous": t["engine_ready"] - t["kernels_loaded"],
+            "total": t["engine_ready"] - fault_at}
+
+
+def fit_rows_per_s(reports) -> float:
+    """All ranks' stepped rows over the slowest rank's round seconds."""
+    rows = sum(rep["steps"] for rep in reports.values()) * DIST_BATCH["csr"]
+    seconds = max(sum(r["end"] - r["start"] for r in rep["rounds"])
+                  for rep in reports.values())
+    return rows / seconds
+
+
+def drive_recovery(csr_file, tmp, parts=("clean", "crash", "elastic",
+                                         "device")) -> dict:
+    """Phase 18 (the module docstring): the jobs of ``parts``, in order;
+    "crash", "elastic" and "device" hold their digests against "clean"."""
+    report = {}
+    reports, _, clean_s, spec = run_launcher_job(
+        tmp, "clean", csr_file, ["-n", "2"])
+    clean = hold_recover_job("clean", reports, 2)
+    clean_params = dict(np.load(os.path.join(spec["out"],
+                                             "params-rank0.npz")))
+    report["clean"] = dict(clean, seconds=clean_s,
+                           rows_per_s=fit_rows_per_s(reports))
+    if "crash" in parts:
+        reports, _, secs, spec = run_launcher_job(
+            tmp, "crash", csr_file, ["-n", "2", "--max-attempts", "2"],
+            crashes=[{"rank": 1, "epoch": RECOVER_CRASH_EPOCH}])
+        held = hold_recover_job("crash", reports, 2, clean["digest"])
+        relaunched = reports[1]
+        require(relaunched["attempt"] == 1 and reports[0]["attempt"] == 0
+                and len(reports[0]["recoveries"]) == 1,
+                "crash: rank 1 attempt %d, rank 0 attempt %d with %d "
+                "recoveries", relaunched["attempt"], reports[0]["attempt"],
+                len(reports[0]["recoveries"]))
+        fault = fault_marker(spec, "crashed-rank1.json")
+        report["crash"] = dict(
+            held, seconds=secs, vs_clean=secs / clean_s,
+            crash_to_replay_s=replay_seconds(fault, reports),
+            relaunch_s=relaunch_seconds(fault, relaunched))
+    if "elastic" in parts:
+        reports, text, secs, spec = run_launcher_job(
+            tmp, "elastic", csr_file,
+            ["-n", "2", "--elastic", "--spares", "1"],
+            faults=RECOVER_FAULTS)
+        held = hold_recover_job("elastic", reports, 2, clean["digest"])
+        line = [ln for ln in text.splitlines()
+                if "@tracker membership" in ln]
+        require(line, "elastic: no membership line in the launcher's log")
+        fields = dict(f.split("=", 1) for f in line[-1].split()
+                      if "=" in f)
+        kinds = set(fields["events"].split(","))
+        require(fields["world_version"] == "2" and {"join", "rebuild"}
+                <= kinds, "elastic: the tracker's membership %s", line[-1])
+        spares = [rep for rep in reports.values() if rep["spare"]]
+        require(len(spares) == 1 and all(
+            rep["generation"] == 2 for rep in reports.values()),
+            "elastic: %d spares in the final world, generations %s",
+            len(spares), [rep["generation"] for rep in reports.values()])
+        require(spares[0]["launches"]["coo_segment_sum"] > 0
+                and spares[0]["launches"]["tokenize_boundaries"] > 0,
+                "elastic: the spare launched %s", spares[0]["launches"])
+        fault = fault_marker(spec, "killed.json")
+        report["elastic"] = dict(
+            held, seconds=secs, vs_clean=secs / clean_s,
+            world_version=2, events=fields["events"],
+            kill_to_replay_s=replay_seconds(fault, reports),
+            kill_to_spare_ready_s=(spares[0]["times"]["engine_ready"]
+                                   - fault["at"]))
+    if "device" in parts:
+        report["device"] = {}
+        flavors = [("gloo", ["cuda:0", "cuda:0"])]
+        if torch.cuda.device_count() >= 2:
+            flavors.append(("nccl", ["cuda:0", "cuda:1"]))
+        else:
+            report["device"]["nccl"] = "skipped: one card (NCCL refuses " \
+                                       "two ranks on one GPU)"
+        for backend, devices in flavors:
+            reports, codes, clean_d_s, spec = run_device_job(
+                tmp, f"device_{backend}_clean", csr_file, backend, devices)
+            base = hold_recover_job(f"device {backend} clean", reports, 2)
+            rel = param_rel_err(dict(np.load(os.path.join(
+                spec["out"], "params-rank0.npz"))), clean_params)
+            require(rel <= FIT_PARAM_REL, "device %s: the clean spmd fit is "
+                    "%g from the host fit's params (limit %g)", backend, rel,
+                    FIT_PARAM_REL)
+            # rank 0, which serves the store, dies first; then rank 1,
+            # and the surviving (relaunched) rank 0 serves it again
+            crashes = [{"rank": 0, "epoch": RECOVER_CRASH_EPOCH},
+                       {"rank": 1, "epoch": RECOVER_CRASH_EPOCH + 1}]
+            reports, codes, secs, spec = run_device_job(
+                tmp, f"device_{backend}_crash", csr_file, backend, devices,
+                crashes)
+            held = hold_recover_job(f"device {backend} crash", reports, 2,
+                                    base["digest"])
+            # each rank is the survivor of the other's crash, and a
+            # fail-stop exit 41 can only end a survivor's re-init
+            routes, to_replay, relaunch = {}, {}, {}
+            for crash in crashes:
+                dead = crash["rank"]
+                survivor = reports[1 - dead]
+                key = "rank%d_crash" % dead
+                require(codes[reports[dead]["task"]].count(17) == 1,
+                        "device %s: rank %d exit codes %s", backend, dead,
+                        codes[reports[dead]["task"]])
+                routes[key] = ("survivor rank %d: %s" % (
+                    1 - dead, "fail-stop exit 41, relaunched"
+                    if 41 in codes[survivor["task"]]
+                    else "re-initialized in process"))
+                fault = fault_marker(spec, "crashed-rank%d.json" % dead)
+                to_replay[key] = replay_seconds(fault, reports)
+                relaunch[key] = relaunch_seconds(fault, reports[dead])
+            report["device"][backend] = dict(
+                held, exit_codes={rep["rank"]: codes[rep["task"]]
+                                  for rep in reports.values()},
+                routes=routes, clean_seconds=clean_d_s, seconds=secs,
+                vs_clean=secs / clean_d_s, clean_vs_host_rel_err=rel,
+                crash_to_replay_s=to_replay, relaunch_s=relaunch)
+    return report
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -2718,6 +3242,8 @@ def main() -> int:
         return group_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--snap-rank"] and len(sys.argv) == 3:
         return snap_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--recover-rank"] and len(sys.argv) == 3:
+        return recover_rank(sys.argv[2])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
     # phases 5-6 write the fit files here, and phases 13-14 read them again
@@ -2726,7 +3252,7 @@ def main() -> int:
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-17 (the module docstring), with the fit files in
+    """Phases 1-18 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -2973,6 +3499,12 @@ def smoke(fit_dir: str) -> int:
     snaps["seconds"] = time.perf_counter() - t0
     print(json.dumps({"snapshots": snaps}), flush=True)
 
+    # ---- 18. fault-tolerant distributed training ---------------------------
+    t0 = time.perf_counter()
+    recovery = drive_recovery(fit_files["csr"], fit_dir)
+    recovery["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"recovery": recovery}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -3019,6 +3551,22 @@ def smoke(fit_dir: str) -> int:
         "index_add_fm_ms": fm_row["library_ms"],
         "snapshot_capture_ns": snaps["fm_injected"]["capture_ns"],
         "snapshot_write_ns": snaps["fm_injected"]["write_ns"]}}))
+    print(json.dumps({"recovery_summary": {
+        "card": card, "clean_rows_per_s": recovery["clean"]["rows_per_s"],
+        "clean_s": recovery["clean"]["seconds"],
+        "crash_s": recovery["crash"]["seconds"],
+        "crash_vs_clean": recovery["crash"]["vs_clean"],
+        "crash_to_replay_s": recovery["crash"]["crash_to_replay_s"],
+        "relaunch_s": recovery["crash"]["relaunch_s"]["total"],
+        "elastic_s": recovery["elastic"]["seconds"],
+        "elastic_vs_clean": recovery["elastic"]["vs_clean"],
+        "kill_to_replay_s": recovery["elastic"]["kill_to_replay_s"],
+        "device_routes": {b: d["routes"] for b, d in
+                          recovery["device"].items() if isinstance(d, dict)},
+        "device_crash_to_replay_s": {
+            b: d["crash_to_replay_s"] for b, d in
+            recovery["device"].items() if isinstance(d, dict)},
+        "phase_seconds": recovery["seconds"]}}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
                       + [token_row, fm_row]}))

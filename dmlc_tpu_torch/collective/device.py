@@ -11,7 +11,11 @@ ICI/DCN there; NCCL between cards, or gloo, here).
   for the collective API's "device" engine.
 
 The process group is the caller's (``parallel/distributed.py`` starts
-one); nothing here picks a backend.
+one); nothing here picks a backend. A backend failure (a lost peer)
+surfaces from both as :class:`DMLCError`, the error
+``collective.run_with_recovery`` recovers from; recovery aborts the
+group, starts a new default group and builds a new ``DeviceEngine`` over
+it (``collective.reinit_recover``).
 """
 
 from __future__ import annotations
@@ -38,14 +42,18 @@ def bucketed_all_reduce(tensors: Sequence[torch.Tensor],
     ``all_reduce`` per dtype: each dtype's tensors are flattened into one
     contiguous bucket in the given order, reduced, and split back to their
     shapes. Same-dtype buckets only, so nothing is upcast by a mixed
-    concatenation. Returns new tensors; the inputs are not written."""
+    concatenation. Returns new tensors; the inputs are not written. A
+    backend failure raises DMLCError."""
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     by_dtype: dict = {}
     for i, t in enumerate(tensors):
         by_dtype.setdefault(t.dtype, []).append(i)
     for idxs in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        try:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        except RuntimeError as err:
+            raise DMLCError(f"bucketed all_reduce failed: {err}") from err
         offset = 0
         for i in idxs:
             n = tensors[i].numel()

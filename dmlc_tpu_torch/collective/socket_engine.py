@@ -16,10 +16,15 @@ peer links:
   are identical on every rank and on every repeat;
 - broadcast (an or-style allreduce), allgather (one broadcast a rank),
   barrier, tracker_print, abort, shutdown, and cmd='recover' re-entry
-  with the old rank.
+  with the old rank;
+- cmd='elastic' re-entry into the tracker's next membership generation:
+  the tracker sends the generation being joined before the standard
+  frame (-1: refused, an evicted rank or a banned jobid), rank and world
+  size come from the tracker, and :attr:`SocketEngine.generation` keeps
+  the generation (1 for a static world) for heartbeat acks to be held
+  against.
 
-Host numpy arrays in, host numpy arrays out. ``cmd='elastic'`` and
-membership generations are not ported.
+Host numpy arrays in, host numpy arrays out.
 """
 
 from __future__ import annotations
@@ -27,11 +32,12 @@ from __future__ import annotations
 import os
 import socket
 import threading
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from dmlc_tpu_torch.resilience.faults import faultpoint
+from dmlc_tpu_torch.resilience.retry import RetryPolicy
 from dmlc_tpu_torch.tracker.rendezvous import MAGIC, FramedSocket
 from dmlc_tpu_torch.utils.logging import DMLCError, check
 
@@ -69,13 +75,16 @@ class SocketEngine:
         self.tracker_port = int(
             tracker_port or os.environ.get("DMLC_TRACKER_PORT", 0))
         check(self.tracker_uri, "no tracker address (DMLC_TRACKER_URI unset)")
-        check(cmd in ("start", "recover"),
-              "cmd must be start or recover, got %r", cmd)
+        check(cmd in ("start", "recover", "elastic"),
+              "cmd must be start, recover or elastic, got %r", cmd)
         self.jobid = jobid or os.environ.get("DMLC_TASK_ID", "NULL")
         self.connect_retry = connect_retry
         self.rank = rank
         self.world_size = world_size
         self._aborted = False
+        # the membership generation this engine entered: 1 for a static
+        # world; cmd='elastic' takes the tracker's committed world_version
+        self.generation = 1
         self.parent_rank = -1
         self.ring_prev = -1
         self.ring_next = -1
@@ -100,27 +109,27 @@ class SocketEngine:
         conn.send_str(cmd)
         return conn
 
-    def _dial_tracker_retrying(self, cmd: str, retries: int) -> FramedSocket:
-        """Dial with capped exponential backoff on connection errors only:
-        a DMLCError is a bad-magic handshake (the wrong service), which
-        dialing the same port again cannot fix."""
-        attempts = max(1, retries)
-        delay = 0.2
-        for attempt in range(1, attempts + 1):
-            try:
-                return self._dial_tracker(cmd)
-            except OSError as err:
-                if attempt == attempts:
-                    raise DMLCError(
-                        f"tracker {self.tracker_uri}:{self.tracker_port} "
-                        f"unreachable after {attempts} attempts: {err}"
-                    ) from err
-                time.sleep(delay)
-                delay = min(2.0, delay * 2)
-
     def _connect(self, cmd: str, retries: int) -> None:
-        conn = self._dial_tracker_retrying(cmd, retries)
+        def dial():
+            faultpoint("collective.connect")
+            return self._dial_tracker(cmd)
+
+        # connection errors only: a DMLCError here is a bad-magic handshake
+        # (the wrong service), which dialing the same port cannot fix
+        conn = RetryPolicy(
+            max_attempts=max(1, retries), base_s=0.2, cap_s=2.0,
+            classify=lambda err: isinstance(err, (ConnectionError, OSError)),
+        ).call(dial, "collective.connect",
+               display=f"tracker {self.tracker_uri}:{self.tracker_port}")
         try:
+            if cmd == "elastic":
+                # the admission ack before the standard frame: the
+                # generation this entrant joins, or -1 for a refusal
+                generation = conn.recv_int()
+                if generation < 0:
+                    raise DMLCError("tracker refused elastic re-entry "
+                                    "(evicted or banned)")
+                self.generation = generation
             self.rank = conn.recv_int()
             self.parent_rank = conn.recv_int()
             self.world_size = conn.recv_int()

@@ -1,6 +1,7 @@
 """Data layer: CSR RowBlocks, the text parsers (libsvm tokenized by the
 ``tokenize_boundaries`` kernel on the parser's device, libfm, csv), the
-cross-chunk ``PipelinedParser`` and the row iterators."""
+cross-chunk ``PipelinedParser``, the row iterators, and
+``reshard_split`` for a new membership generation."""
 
 from dmlc_tpu_torch.data.parsers import (
     PARSER_REGISTRY,
@@ -14,6 +15,7 @@ from dmlc_tpu_torch.data.parsers import (
 )
 from dmlc_tpu_torch.data.pipeline import PipelinedParser
 from dmlc_tpu_torch.data.row_block import Row, RowBlock, RowBlockContainer
+from dmlc_tpu_torch.data.service import reshard_count, reshard_split
 from dmlc_tpu_torch.data.row_iter import (
     BasicRowIter,
     DiskRowIter,
@@ -26,5 +28,6 @@ __all__ = [
     "LibFMParser", "CSVParser", "ThreadedParser", "PipelinedParser",
     "create_parser",
     "register_parser", "PARSER_REGISTRY", "RowBlockIter", "BasicRowIter",
-    "DiskRowIter", "create_row_block_iter",
+    "DiskRowIter", "create_row_block_iter", "reshard_count",
+    "reshard_split",
 ]

@@ -35,7 +35,8 @@ import torch
 import torch.distributed as dist
 
 from dmlc_tpu_torch.collective.device import bucketed_all_reduce
-from dmlc_tpu_torch.models.linear import EpochMetrics, step_batch
+from dmlc_tpu_torch.models.linear import (EpochMetrics, current_group,
+                                          listen_membership, step_batch)
 from dmlc_tpu_torch.ops.kernels import coo_segment_sum
 from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
 from dmlc_tpu_torch.ops.spmv import (expand_row_ids, feature_segment_sum,
@@ -174,6 +175,8 @@ class FMLearner:
     size is the ``num_features`` hyper-parameter, as in the reference,
     which sizes it that way whatever the feed says. ``params`` may be set
     before a fit (``fm_params_from_numpy``) to start from given values.
+    With a ``group`` the learner re-places its params on the new default
+    group after every membership rebuild until it is closed or collected.
     """
 
     def __init__(self, device=None, group=None, **hyper):
@@ -184,6 +187,13 @@ class FMLearner:
         self.params = None
         self._step = None
         self._nf = None
+        self._unlisten = (None if group is None
+                          else listen_membership(self))
+
+    def close(self) -> None:
+        """Drop the membership listener (idempotent)."""
+        if self._unlisten is not None:
+            self._unlisten()
 
     def _ensure(self, num_features: int) -> None:
         if self.params is None:
@@ -195,6 +205,7 @@ class FMLearner:
         if self._step is None:
             # the learner owns params and rebinds them every step: update
             # in place
+            self.group = current_group(self.group)
             self._step = make_fm_train_step(
                 self.group, self._nf or self.param.num_features
                 or num_features, objective=self.param.objective,

@@ -32,6 +32,7 @@ stable sort (``ops/spmv.py``). So a run repeats its bits on either route.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
@@ -338,6 +339,47 @@ class EpochMetrics:
         return self._loss_total / max(self._weight_total, 1e-12)
 
 
+#: a learner's ``group`` between a device re-init's release of the old
+#: group and the learner's next ``reshard`` or step, which take the new
+#: default group
+REGROUP = object()
+
+
+def listen_membership(learner) -> weakref.finalize:
+    """Register ``learner.reshard()`` to run after every membership rebuild
+    (``collective.on_membership_change``), and the release of the old
+    group and step before a device re-init ends them
+    (``collective.on_group_release``: rank 0's store server lives as long
+    as the old group), while the learner lives: the listeners hold it by
+    a weak reference and are dropped when the learner is collected, or
+    when the returned finalizer is called (``close``)."""
+    ref = weakref.ref(learner)
+
+    def _on_change() -> None:
+        obj = ref()
+        if obj is not None and obj.params is not None:
+            obj.reshard()
+
+    def _on_release() -> None:
+        obj = ref()
+        if obj is not None:
+            obj.group, obj._step = REGROUP, None
+
+    return weakref.finalize(learner, _unregister_all, (
+        collective.on_membership_change(_on_change),
+        collective.on_group_release(_on_release)))
+
+
+def _unregister_all(unregisters) -> None:
+    for unregister in unregisters:
+        unregister()
+
+
+def current_group(group):
+    """``group``, or the default group for a released one (:data:`REGROUP`)."""
+    return dist.group.WORLD if group is REGROUP else group
+
+
 class LinearLearner:
     """Convenience trainer: uri → fitted params (the rabit-SGD loop).
 
@@ -360,6 +402,10 @@ class LinearLearner:
     more than the others waits for ever in its extra collective, as in the
     reference. ``fit_uri``'s ``drop_remainder`` and parts of equal size
     keep the counts equal.
+
+    A learner built with a ``group`` re-places its params on the new
+    default group after every membership rebuild (``reshard`` through
+    ``collective.on_membership_change``) until it is closed or collected.
     """
 
     def __init__(self, device=None, group=None, sync: str = "spmd",
@@ -379,6 +425,13 @@ class LinearLearner:
         self._step = None
         self._layout = None
         self._nf = None
+        self._unlisten = (None if group is None
+                          else listen_membership(self))
+
+    def close(self) -> None:
+        """Drop the membership listener (idempotent)."""
+        if self._unlisten is not None:
+            self._unlisten()
 
     def _ensure(self, num_features: int, layout: str) -> None:
         if self.params is None:
@@ -403,6 +456,7 @@ class LinearLearner:
                 self._step = make_hostsync_train_step(**hyper)
             else:
                 # the learner owns params and velocity: update in place
+                self.group = current_group(self.group)
                 self._step = make_linear_train_step(
                     self.group, donate_batch=True, **hyper)
 

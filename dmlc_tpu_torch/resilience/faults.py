@@ -19,7 +19,10 @@ A fired faultpoint raises :class:`InjectedFault`, an ``OSError``: callers
 treat it as the I/O or peer failure it stands in for. The sites this
 package has: ``preempt.notice`` (resilience/preempt.py), ``ckpt.commit``,
 ``ckpt.read`` and ``snap.commit`` (collective/checkpoint.py,
-collective/__init__.py). Fired faults are counted in :func:`stats`.
+collective/__init__.py), ``collective.connect`` (the socket engine's
+tracker dial), ``tracker.join`` and ``tracker.evict``
+(tracker/rendezvous.py); a program may pass its own (a training loop's
+``worker.step``). Fired faults are counted in :func:`stats`.
 """
 
 from __future__ import annotations

@@ -1,0 +1,50 @@
+"""The job submitter, the port of ``dmlc_tpu/tracker/submit.py``
+(tracker/dmlc_tracker/submit.py): configures logging (submit.py:13-36)
+and hands the options to the cluster's launcher (submit.py:43-56).
+
+    python -m dmlc_tpu_torch.tracker.submit --cluster local -n 2 \\
+        [--max-attempts 2] [--elastic --spares 1] python train.py ...
+
+``--elastic`` sets DMLC_TPU_ELASTIC for the tracker and, through the
+inherited env, for every task.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+
+from dmlc_tpu_torch.tracker.launchers import get_launcher
+from dmlc_tpu_torch.tracker.opts import get_opts
+
+
+def config_logger(args) -> None:
+    fmt = "%(asctime)-15s %(message)s"
+    level = logging.DEBUG if args.log_level == "DEBUG" else logging.INFO
+    logging.basicConfig(format=fmt, level=level)
+    if args.log_file:
+        handler = logging.FileHandler(args.log_file)
+        handler.setFormatter(logging.Formatter(fmt))
+        logging.getLogger().addHandler(handler)
+
+
+def submit(args) -> None:
+    if args.elastic:
+        os.environ["DMLC_TPU_ELASTIC"] = "1"
+    get_launcher(args.cluster).submit(args)
+
+
+def main(argv=None) -> None:
+    try:
+        args = get_opts(argv)
+        get_launcher(args.cluster)  # an unported cluster fails here
+    except ValueError as err:
+        print(f"dmlc_tpu_torch.tracker.submit: {err}", file=sys.stderr)
+        raise SystemExit(2)
+    config_logger(args)
+    submit(args)
+
+
+if __name__ == "__main__":
+    main()

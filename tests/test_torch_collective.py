@@ -431,6 +431,26 @@ def test_tracker_rejects_bad_handshakes_and_fails_fast():
         tracker.close()
     tracker.thread.join(5)
     assert not tracker.alive()
-    with pytest.raises(DMLCError, match="cmd must be start or recover"):
+    with pytest.raises(DMLCError, match="cmd must be start, recover or "
+                       "elastic"):
         SocketEngine(tracker_uri="127.0.0.1", tracker_port=tracker.port,
-                     cmd="elastic")
+                     cmd="join")
+    # an elastic re-entry is accepted: a world of one enters generation 2
+    tracker = rendezvous.RabitTracker("127.0.0.1", 1, port=21150,
+                                      port_end=21200)
+    try:
+        tracker.start()
+        engine = SocketEngine(tracker_uri="127.0.0.1",
+                              tracker_port=tracker.port, jobid="e")
+        assert engine.generation == 1
+        engine.abort()
+        engine = SocketEngine(tracker_uri="127.0.0.1",
+                              tracker_port=tracker.port, jobid="e",
+                              cmd="elastic")
+        assert (engine.rank, engine.world_size, engine.generation) == \
+            (0, 1, 2)
+        assert tracker.world_version == 2
+        engine.shutdown()
+        tracker.join()
+    finally:
+        tracker.close()

@@ -16,10 +16,10 @@ import pytest
 import torch
 
 from chip_smoke import (FLASH_CASES, FM_SEG_COLS, TF32_FAULT_MIN_T,
-                         TOKEN_SIZES, flash_case, hold_seg_sum,
-                         hold_seg_sum_cols, one_call_ops, read_lost_tile,
-                         require_one_kernel, seg_sum_edge_cases,
-                         token_chunk)
+                         TOKEN_SIZES, drive_recovery, flash_case,
+                         hold_seg_sum, hold_seg_sum_cols, one_call_ops,
+                         read_lost_tile, require_one_kernel,
+                         seg_sum_edge_cases, token_chunk, write_criteo)
 from dmlc_tpu_torch.data import create_parser, create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -524,3 +524,19 @@ def test_fm_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path):
         if device == "cuda":
             assert kernels.coo_segment_sum.launches == 2 * 8
     np.testing.assert_allclose(fits["cuda"], fits["cpu"], rtol=1e-5)
+
+
+def test_crash_recover_csr_fit_through_the_launcher(cuda, tmp_path):
+    """World 2 through ``python -m dmlc_tpu_torch.tracker.submit``: a clean
+    run, then rank 1 crashing as it starts round 2, relaunched, both
+    replaying from the checkpoint. ``drive_recovery`` holds each rank's
+    ``coo_segment_sum`` launches to its steps and its tokenizer launches
+    to its chunk parts; 39,864 rows give each rank 3 steps a round."""
+    path = str(tmp_path / "criteo.svm")
+    write_criteo(path, 39_864, seed=12)
+    kernels._lib()  # the rank processes load it
+    out = drive_recovery(path, str(tmp_path), parts=("clean", "crash"))
+    assert out["crash"]["digest"] == out["clean"]["digest"]
+    for rep in out["crash"]["ranks"].values():
+        assert rep["launches"]["coo_segment_sum"] == rep["steps"] > 0
+    assert out["crash"]["ranks"][1]["attempt"] == 1

@@ -43,6 +43,20 @@ for layout in ("dense", "csr"):
         assert len(history) == 2, history
 learner.save(sys.argv[1] + ".model")
 LinearLearner(device="cpu").load(sys.argv[1] + ".model")
+# an elastic world-1 fit: rounds under run_with_recovery, a re-entry into
+# generation 2, and the launcher's modules
+import os
+from dmlc_tpu_torch.data import reshard_split
+from dmlc_tpu_torch.tracker import launchers, opts, submit
+os.environ["DMLC_TPU_ELASTIC"] = "1"
+def one_round():
+    return LinearLearner(device="cpu", sync="host").fit_uri(
+        sys.argv[1], batch_size=4, epochs=1, layout="csr", num_features=8)
+assert len(collective.run_with_recovery(one_round)) == 1
+assert not collective.elastic_sync()
+assert collective.reenter_elastic() == 2 and collective.world_size() == 1
+assert len(collective.run_with_recovery(one_round)) == 1
+assert launchers.get_launcher("local").MAX_PREEMPT_RELAUNCHES > 0
 collective.finalize()
 tracker.thread.join(10)
 tracker.close()

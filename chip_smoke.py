@@ -213,14 +213,40 @@ non-zero exit and no result line:
    relaunch) is reported. Over NCCL only
    with a second card. In every job each process launches
    ``coo_segment_sum`` once a step and the tokenizer once a chunk part;
-   (e) rows/s of (a) and the seconds of (b)-(d) against their clean runs.
+   (e) rows/s of (a) and the seconds of (b)-(d) against their clean runs;
+19. expert-parallel MoE and the GPipe pipeline at Mixtral-8x7B's MoE
+   widths (``MOE_*``: D 4096, expert hidden 14336, 8 experts, top-2; the
+   reference's GELU FFN, not SwiGLU), weights and x drawn on the card:
+   (a) ``make_moe_layer`` over a one-rank group, B 1, T 4096, capacity
+   4096: forward and backward of sum(y²) + aux held against the
+   per-expert ``moe_dense_oracle`` on the card, y, aux and every
+   gradient by its relative norm error (``MOE_REL``), and both f32 routes'
+   y read against a float64 oracle;
+   ms a step (median of ``MOE_STEPS`` after a warm-up) beside the f32
+   bound of its operations, peak device bytes, one step under
+   torch.profiler (idle share), and the forward's router, dispatch and
+   combine einsums and expert FFN timed alone; (b) the MoE-transformer
+   block of ``dmlc_tpu_torch.examples.moe_transformer`` (causal ring
+   attention with 32 query and 8 KV heads of 128, the MoE FFN, RMSNorm,
+   residuals) at T 4096, forward, within the example's max|Δ| < 1e-3 of
+   its single-rank block; (c) world 2 on the one card over gloo
+   (``--moe-rank``): each rank's 4 experts and 2048 tokens, capacity
+   2048, forward and backward held against (a)'s layer at one rank with
+   world 2's loss (its aux the mean of the two halves'), the
+   ``all_to_all`` timed alone; the 2-stage pipeline of
+   tests/test_pipeline_parallel.py's ``_mlp_stage`` at D 4096, batch 4096
+   in 8 microbatches, forward and gradients against ``pipeline_oracle``
+   on the card (``MOE_REL``), ms a step and the bubble M / (M + N - 1).
+   NCCL at world 2 needs a second card and is not run. No kernel of
+   ``KERNELS`` is on this path (the reference computes it with XLA ops).
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
-(launches from phase 16's fit). The last lines are that line, the card
-line again, and ``{"ok": true, "device": {...}}``.
+(launches from phase 16's fit). Before the last lines come the ``moe``
+and ``pipeline`` lines (phase 19); the last lines are the ``kernels``
+line, the card line again, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -355,6 +381,31 @@ SIGNAL_EPOCHS = 8
 RECOVER_EPOCHS = 4
 RECOVER_CRASH_EPOCH = 2
 RECOVER_FAULTS = "worker.step:nth=8"
+# phase 19: Mixtral-8x7B's MoE widths (its public config.json:
+# hidden_size 4096, intermediate_size 14336, num_local_experts 8,
+# num_experts_per_tok 2; attention 32 query heads, 8 KV heads, head dim
+# 128). Only the widths are taken: the experts are the reference's
+# two-matrix GELU FFN, not SwiGLU. B = 1, T = 4096, capacity T (no token
+# dropped), weights and x drawn on the card from MOE_SEED
+MOE_D, MOE_H, MOE_E, MOE_K, MOE_T = 4096, 14336, 8, 2, 4096
+MOE_HEADS, MOE_KV_HEADS = 32, 8
+MOE_SEED, MOE_STEPS = 19, 3
+# the layer against its per-expert oracle, world 2 against world 1, and
+# the pipeline against its sequential fold: every tensor (y, aux, each
+# gradient) by its relative 2-norm error, ‖got − want‖ / ‖want‖, held to
+# FIT_PARAM_REL. The routing is exact and the products are f32 sums of
+# 4096 and 14336 terms in another order. Elementwise limits set at the
+# reference's toy widths do not describe that: the gate's gradient
+# cancels (the two chosen experts' dp_k are sums of ~1e3), and on the CPU
+# at D 1024 both f32 routes sit 1.8× tests/test_moe.py's gradient limit
+# from a float64 oracle, while every tensor's relative norm error stays
+# ~1e-6 at D 256-2048. A wrong slot, a dropped token or a gradient scaled
+# by the world size reads O(1). Both f32 routes are also read against a
+# float64 oracle (a measurement, not a check)
+MOE_REL = FIT_PARAM_REL
+# the 2-stage pipeline of tests/test_pipeline_parallel.py's _mlp_stage at
+# D = 4096, batch 4096 in 8 microbatches
+PIPE_D, PIPE_BATCH, PIPE_M, PIPE_STAGES = 4096, 4096, 8, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -3168,6 +3219,408 @@ def drive_recovery(csr_file, tmp, parts=("clean", "crash", "elastic",
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 19: expert-parallel MoE and the GPipe pipeline at Mixtral's widths
+# ---------------------------------------------------------------------------
+
+
+def moe_inputs(dev):
+    """Phase 19's MoE params (``init_moe_params`` at Mixtral's widths from
+    ``MOE_SEED``) and x [1, MOE_T, MOE_D], drawn on the card: the same bits
+    in every process on the card. Leaves that require grad."""
+    from dmlc_tpu_torch.ops.moe import init_moe_params
+
+    params = init_moe_params(MOE_E, MOE_D, MOE_H, seed=MOE_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    x = randn(gen, (1, MOE_T, MOE_D), dev)
+    return {k: v.requires_grad_(True) for k, v in params.items()}, \
+        x.requires_grad_(True)
+
+
+def moe_step(fn, params, x) -> tuple:
+    """Forward and backward of sum(y²) + aux from fresh gradients:
+    (y, aux, {"dx", "dwg", "dw1", "dw2"}), all detached."""
+    leaves = {"x": x, **params}
+    for v in leaves.values():
+        v.grad = None
+    y, aux = fn(params, x)
+    ((y ** 2).sum() + aux).backward()
+    return y.detach(), aux.detach(), {f"d{k}": v.grad
+                                      for k, v in leaves.items()}
+
+
+def moe_flops(tokens: int, capacity: int, ep: int) -> dict:
+    """Operations of one rank's MoE layer at Mixtral's widths, forward and
+    forward + backward: the router, the dispatch and combine einsums over
+    [T, E, C] and the expert FFN over [E / ep, ep·C] rows."""
+    router = 2 * tokens * MOE_D * MOE_E
+    einsum = 2 * tokens * MOE_E * capacity * MOE_D  # dispatch or combine
+    ffn = 2 * 2 * (MOE_E // ep) * ep * capacity * MOE_D * MOE_H
+    forward = router + 2 * einsum + ffn
+    # backward: the router's two products, x's gradient through dispatch,
+    # combine's two operands, and the FFN's activations and weights
+    backward = 2 * router + einsum + 2 * einsum + 2 * ffn
+    return {"forward": forward, "step": forward + backward,
+            "ffn_forward": ffn, "einsums_forward": 2 * einsum}
+
+
+def rel_err(got, want) -> float:
+    """‖got − want‖₂ / ‖want‖₂, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+def hold_rel(what, got: dict, want: dict, report: dict) -> None:
+    """Hold each tensor of ``got`` against ``want`` by its relative norm
+    error (``MOE_REL``); the errors and the largest absolute differences
+    go to ``report``."""
+    errs = {k: rel_err(got[k], want[k]) for k in got}
+    report["rel_err"] = errs
+    report["max_abs_err"] = {k: float((got[k] - want[k]).abs().max())
+                             for k in got}
+    for key, err in errs.items():
+        require(err <= MOE_REL, "%s: %s differs by a relative norm of %g "
+                "(limit %g)", what, key, err, MOE_REL)
+
+
+def moe_tensors(result) -> dict:
+    """{"y", "aux", "dx", "dwg", "dw1", "dw2"} of a ``moe_step`` result."""
+    y, aux, grads = result
+    return {"y": y, "aux": aux, **grads}
+
+
+def drive_moe_world1(dev, flush, tmp) -> dict:
+    """Phase 19 (a): the MoE layer over a one-rank group at Mixtral's
+    widths, T = MOE_T, top-2, capacity T; forward and backward held
+    against the per-expert oracle on the card; ms a step (median of
+    MOE_STEPS after a warm-up), peak bytes, one step profiled, and the
+    forward's parts timed alone. Saves to ``tmp/moe_world1.pt`` what (c)
+    is held to: y, and aux and the gradients of world 2's loss, whose aux
+    is the mean of the two token halves' (one rank, the same layer)."""
+    import torch.nn.functional as F
+
+    import torch.distributed as dist
+    from dmlc_tpu_torch.ops.moe import (_route_topk, make_moe_layer,
+                                        moe_dense_oracle)
+
+    report = {"shape": {"B": 1, "T": MOE_T, "D": MOE_D, "H": MOE_H,
+                        "E": MOE_E, "top_k": MOE_K, "capacity": MOE_T}}
+    params, x = moe_inputs(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp}/pg1", rank=0,
+                            world_size=1)
+    try:
+        layer = make_moe_layer(dist.group.WORLD, MOE_E, capacity=MOE_T,
+                               top_k=MOE_K)
+        got = moe_step(layer, params, x)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            got = moe_step(layer, params, x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        report["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        report["step_ms"] = times
+
+        def profiled():
+            t0 = time.perf_counter()
+            moe_step(layer, params, x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        report["step_profile"] = profile_call(profiled)
+
+        # (c)'s reference: world 2's loss at one rank, whose aux is the
+        # mean of the two token halves' switch losses (each rank balances
+        # its own routing), and its gradients
+        def world2_loss(p, v):
+            halves = v.split(MOE_T // 2, dim=1)
+            aux = torch.stack([_route_topk(
+                h.reshape(-1, MOE_D), p["wg"], MOE_E, MOE_T // 2, MOE_K)[2]
+                for h in halves]).mean()
+            return layer(p, v)[0], aux
+
+        world2 = moe_step(world2_loss, params, x)
+    finally:
+        dist.destroy_process_group()
+    flops = moe_flops(MOE_T, MOE_T, 1)
+    report["flops"] = flops
+    report["step_ms_median"] = statistics.median(times)
+    # bytes: params and x read once, y and every gradient written once
+    n_params = sum(v.numel() for v in params.values())
+    report["step_bound_ms"], report["step_bound_by"] = bound(
+        4 * (2 * n_params + 3 * x.numel()), flops["step"])
+    report["step_share_of_bound"] = (report["step_bound_ms"]
+                                     / report["step_ms_median"])
+    want = moe_step(lambda p, v: moe_dense_oracle(p, v, top_k=MOE_K),
+                    params, x)
+    with torch.no_grad():
+        y64, _ = moe_dense_oracle({k: v.detach().double()
+                                   for k, v in params.items()},
+                                  x.detach().double(), top_k=MOE_K)
+        report["y_vs_float64_oracle_rel_err"] = {
+            "layer": rel_err(got[0], y64), "oracle": rel_err(want[0], y64)}
+        del y64
+    report["vs_oracle"] = {}
+    hold_rel("moe (a) layer vs oracle", moe_tensors(got), moe_tensors(want),
+             report["vs_oracle"])
+    del want
+    # the forward's parts alone (no autograd): the router, the dispatch
+    # and combine einsums, the expert FFN
+    with torch.no_grad():
+        xt, wg = x.detach().reshape(MOE_T, MOE_D), params["wg"].detach()
+        w1, w2 = params["w1"].detach(), params["w2"].detach()
+        route = lambda: _route_topk(xt, wg, MOE_E, MOE_T, MOE_K)  # noqa: E731
+        dispatch, combine, _ = route()
+        xd = torch.einsum("tec,td->ecd", dispatch, xt)
+        ffn = lambda: torch.einsum(  # noqa: E731
+            "ech,ehd->ecd", F.gelu(torch.einsum("ecd,edh->ech", xd, w1),
+                                   approximate="tanh"), w2)
+        y = ffn()
+        parts = {
+            "router_ms": time_ms(route, flush, MOE_STEPS),
+            "dispatch_einsum_ms": time_ms(lambda: torch.einsum(
+                "tec,td->ecd", dispatch, xt), flush, MOE_STEPS),
+            "expert_ffn_ms": time_ms(ffn, flush, MOE_STEPS),
+            "combine_einsum_ms": time_ms(lambda: torch.einsum(
+                "tec,ecd->td", combine, y), flush, MOE_STEPS)}
+        parts["expert_ffn_bound_ms"] = flops["ffn_forward"] \
+            / PEAK_F32_FLOPS * 1e3
+        parts["einsums_bound_ms"] = flops["einsums_forward"] \
+            / PEAK_F32_FLOPS * 1e3
+        report["forward_parts"] = parts
+        del dispatch, combine, xd, y
+    report["forward_bound_ms"] = flops["forward"] / PEAK_F32_FLOPS * 1e3
+    torch.save({"y": world2[0].cpu(), "aux": world2[1].cpu(),
+                **{k: v.cpu() for k, v in world2[2].items()}},
+               os.path.join(tmp, "moe_world1.pt"))
+    return report
+
+
+def drive_moe_block(dev) -> dict:
+    """Phase 19 (b): the example's block (ring attention with GQA, the
+    MoE FFN, RMSNorm and residuals) at Mixtral's widths, T = MOE_T, one
+    rank, forward, against its single-rank reference within the example's
+    max|Δ| < 1e-3; ms of each."""
+    from dmlc_tpu_torch.examples import moe_transformer as ex
+
+    params = ex.block_params(MOE_D, MOE_HEADS, MOE_KV_HEADS, MOE_E, MOE_H,
+                             dev, seed=MOE_SEED)
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 2)
+    x = randn(gen, (1, MOE_T, MOE_D), dev)
+    block = ex.make_block(params, MOE_HEADS, MOE_KV_HEADS, MOE_T, MOE_K)
+    with torch.no_grad():
+        block(x)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, aux = block(x)
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = ex.reference_block(params, x, MOE_HEADS, MOE_KV_HEADS, MOE_K)
+        torch.cuda.synchronize()
+        ref_ms = (time.perf_counter() - t0) * 1e3
+    err = float((got - want).abs().max())
+    require(torch.isfinite(got).all() and err < ex.MAX_ABS_DIFF,
+            "moe block: max|Δ| %g against the single-rank block (limit %g)",
+            err, ex.MAX_ABS_DIFF)
+    return {"heads": MOE_HEADS, "kv_heads": MOE_KV_HEADS,
+            "head_dim": MOE_D // MOE_HEADS, "T": MOE_T,
+            "max_abs_err": err, "limit": ex.MAX_ABS_DIFF,
+            "aux": float(aux), "block_ms": block_ms, "reference_ms": ref_ms}
+
+
+def pipeline_inputs(dev):
+    """Phase 19 (c)'s pipeline: the reference's ``_mlp_stage`` stacked for
+    PIPE_STAGES stages at D = PIPE_D (w scaled by 1/√D so that tanh stays
+    off its rails, b by 0.1) and x [PIPE_BATCH, PIPE_D], drawn on the
+    card from MOE_SEED + 3."""
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 3)
+    params = {"w": randn(gen, (PIPE_STAGES, PIPE_D, PIPE_D), dev)
+              .mul_(PIPE_D ** -0.5),
+              "b": randn(gen, (PIPE_STAGES, PIPE_D), dev).mul_(0.1)}
+    return params, randn(gen, (PIPE_BATCH, PIPE_D), dev)
+
+
+def mlp_stage(p, x):
+    """tests/test_pipeline_parallel.py's ``_mlp_stage``."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def moe_rank(rank: int, spec_path: str) -> int:
+    """One rank of phase 19 (c), run as ``chip_smoke.py --moe-rank RANK
+    SPEC`` by :func:`run_ranks` (world 2 over gloo on the one card): the
+    MoE layer with its 4 experts and its 2048 tokens, forward and backward
+    held against (a)'s saved results, ms a step, the all_to_all timed
+    alone; then the 2-stage pipeline against ``pipeline_oracle`` on the
+    card, ms a step. Writes ``rank<r>.json`` (and an empty npz) beside the
+    spec."""
+    import torch.distributed as dist
+    from dmlc_tpu_torch.ops.moe import (make_moe_layer, shard_moe_params,
+                                        shard_tokens)
+    from dmlc_tpu_torch.ops.pipeline_parallel import (make_pipeline,
+                                                      pipeline_oracle,
+                                                      shard_pipeline_params)
+    from dmlc_tpu_torch.parallel import axis, distributed
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    out = os.path.dirname(spec_path)
+    world = spec["world"]
+    dev = distributed.initialize(spec["init"], world, rank,
+                                 backend=spec["backend"],
+                                 device=spec["devices"][rank])
+    group = dist.group.WORLD
+    report = {"device": str(dev), "backend": dist.get_backend()}
+    try:
+        whole, x = moe_inputs(dev)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in shard_moe_params(whole, group).items()}
+        xs = shard_tokens(x.detach(), group).clone().requires_grad_(True)
+        del whole, x
+        capacity = MOE_T // world
+        layer = make_moe_layer(group, MOE_E, capacity=capacity, top_k=MOE_K)
+        got = moe_step(layer, params, xs)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            got = moe_step(layer, params, xs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        report["moe"] = {"step_ms": times,
+                         "step_ms_median": statistics.median(times),
+                         "capacity": capacity, "tokens": MOE_T // world}
+        ref = torch.load(os.path.join(out, "moe_world1.pt"), mmap=True)
+        t_lo, t_hi = rank * MOE_T // world, (rank + 1) * MOE_T // world
+        e_lo, e_hi = rank * MOE_E // world, (rank + 1) * MOE_E // world
+        want = (ref["y"][:, t_lo:t_hi].to(dev), ref["aux"].to(dev),
+                {"dx": ref["dx"][:, t_lo:t_hi].to(dev),
+                 "dwg": ref["dwg"].to(dev),
+                 "dw1": ref["dw1"][e_lo:e_hi].to(dev),
+                 "dw2": ref["dw2"][e_lo:e_hi].to(dev)})
+        report["moe"]["vs_world1"] = {}
+        hold_rel(f"moe (c) rank {rank} vs world 1", moe_tensors(got),
+                 moe_tensors(want), report["moe"]["vs_world1"])
+        del ref, want, got
+        # the dispatch's all_to_all alone: [ep, E / ep, C, D]
+        xd = torch.zeros(world, MOE_E // world, capacity, MOE_D, device=dev)
+        a2a = []
+        for _ in range(MOE_STEPS + 1):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            axis.all_to_all(xd, group, 0, 0)
+            torch.cuda.synchronize()
+            a2a.append((time.perf_counter() - t0) * 1e3)
+        report["moe"]["all_to_all_ms"] = a2a[1:]
+        report["moe"]["all_to_all_bytes"] = xd.numel() * 4
+        del xd, params, xs, layer
+        torch.cuda.empty_cache()
+        # the GPipe pipeline: 2 stages, PIPE_M microbatches
+        stacked, x = pipeline_inputs(dev)
+        stage = {k: v.clone().requires_grad_(True)
+                 for k, v in shard_pipeline_params(stacked, group).items()}
+        xp = x.clone().requires_grad_(True)
+        pipe = make_pipeline(group, mlp_stage, PIPE_M)
+
+        def pipe_step():
+            for v in (xp, *stage.values()):
+                v.grad = None
+            y = pipe(stage, xp)
+            (y ** 2).sum().backward()
+            return y.detach()
+
+        pipe_step()  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MOE_STEPS):
+            t0 = time.perf_counter()
+            y = pipe_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        whole = {k: v.clone().requires_grad_(True) for k, v in stacked.items()}
+        xo = x.clone().requires_grad_(True)
+        y_ref = pipeline_oracle(mlp_stage, whole, xo)
+        (y_ref ** 2).sum().backward()
+        report["pipeline"] = {
+            "step_ms": times, "step_ms_median": statistics.median(times),
+            "vs_oracle": {}}
+        hold_rel(f"pipeline rank {rank} vs pipeline_oracle",
+                 {"y": y, "dx": xp.grad,
+                  **{f"d{k}": v.grad for k, v in stage.items()}},
+                 {"y": y_ref.detach(), "dx": xo.grad,
+                  **{f"d{k}": v.grad[rank:rank + 1]
+                     for k, v in whole.items()}},
+                 report["pipeline"]["vs_oracle"])
+    finally:
+        distributed.shutdown()
+    np.savez(os.path.join(out, f"rank{rank}.npz"))
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def moe_summary(card, moe) -> dict:
+    """The ``moe`` line: phase 19's numbers beside the card."""
+    w1, w2 = moe["world1"], moe["world2_gloo"]
+    return {
+        "card": card, "step_ms": w1["step_ms_median"],
+        "step_bound_ms": w1["step_bound_ms"],
+        "forward_bound_ms": w1["forward_bound_ms"],
+        "step_tflop": w1["flops"]["step"] / 1e12,
+        "peak_device_bytes": w1["peak_device_bytes"],
+        "idle_share": w1["step_profile"]["idle_share"],
+        "forward_parts": w1["forward_parts"],
+        "vs_oracle_rel_err": w1["vs_oracle"]["rel_err"],
+        "y_vs_float64_oracle_rel_err": w1["y_vs_float64_oracle_rel_err"],
+        "block_ms": moe["block"]["block_ms"],
+        "block_max_abs_err": moe["block"]["max_abs_err"],
+        "world2_step_ms": max(r["step_ms_median"] for r in w2["ranks"]),
+        "world2_all_to_all_ms": [statistics.median(r["all_to_all_ms"])
+                                 for r in w2["ranks"]],
+        "world2_vs_world1_rel_err": [r["vs_world1"]["rel_err"]
+                                     for r in w2["ranks"]],
+        "phase_seconds": moe["seconds"]}
+
+
+def drive_moe(dev) -> tuple:
+    """Phase 19 (the module docstring): (a) and (b) in this process, (c)
+    as two ``--moe-rank`` processes. Returns the ``moe`` and ``pipeline``
+    reports."""
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        moe = {"world1": drive_moe_world1(dev, flush, tmp)}
+        del flush
+        torch.cuda.empty_cache()
+        moe["world1"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe["block"] = drive_moe_block(dev)
+        torch.cuda.empty_cache()
+        moe["block"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spec = {"name": "moe_world2", "world": 2, "init": f"file://{tmp}/pg",
+                "backend": "gloo", "devices": ["cuda:0"] * 2}
+        reports, _ = run_ranks(spec, tmp, "--moe-rank")
+        world2_s = time.perf_counter() - t0
+    moe["world2_gloo"] = {
+        "ranks": [r["moe"] for r in reports], "seconds": world2_s,
+        "nccl": "not run: NCCL at world 2 needs a second card"}
+    bubble = PIPE_M / (PIPE_M + PIPE_STAGES - 1)
+    pipeline = {
+        "stages": PIPE_STAGES, "D": PIPE_D, "batch": PIPE_BATCH,
+        "microbatches": PIPE_M, "bubble_efficiency": bubble,
+        "backend": reports[0]["backend"],
+        "ranks": [r["pipeline"] for r in reports],
+        "step_ms_median": max(r["pipeline"]["step_ms_median"]
+                              for r in reports),
+        "nccl": "not run: NCCL at world 2 needs a second card"}
+    return moe, pipeline
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -3244,6 +3697,8 @@ def main() -> int:
         return snap_rank(sys.argv[2])
     if sys.argv[1:2] == ["--recover-rank"] and len(sys.argv) == 3:
         return recover_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--moe-rank"] and len(sys.argv) == 4:
+        return moe_rank(int(sys.argv[2]), sys.argv[3])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
     # phases 5-6 write the fit files here, and phases 13-14 read them again
@@ -3252,7 +3707,7 @@ def main() -> int:
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-18 (the module docstring), with the fit files in
+    """Phases 1-19 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -3505,6 +3960,12 @@ def smoke(fit_dir: str) -> int:
     recovery["seconds"] = time.perf_counter() - t0
     print(json.dumps({"recovery": recovery}), flush=True)
 
+    # ---- 19. expert-parallel MoE and the GPipe pipeline --------------------
+    t0 = time.perf_counter()
+    moe, pipeline = drive_moe(dev)
+    moe["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"moe_detail": moe}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -3567,6 +4028,8 @@ def smoke(fit_dir: str) -> int:
             b: d["crash_to_replay_s"] for b, d in
             recovery["device"].items() if isinstance(d, dict)},
         "phase_seconds": recovery["seconds"]}}))
+    print(json.dumps({"moe": moe_summary(card, moe)}))
+    print(json.dumps({"pipeline": dict(pipeline, card=card)}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
                       + [token_row, fm_row]}))

@@ -90,10 +90,8 @@ def on_membership_change(fn: Callable[[], None]) -> Callable[[], None]:
 def on_group_release(fn: Callable[[], None]) -> Callable[[], None]:
     """Register ``fn()`` to run when ``reinit_recover`` ends the device
     engine's process group, before it starts the new one: whoever holds
-    the old group, or a step built over it, drops it here. With a
-    ``tcp://`` coordinator rank 0's store server lives as long as any
-    reference to the old group, and torch's rendezvous reuses a live
-    server of the same port, old keys and all. Returns the callable that
+    the old group, or a step built over it, drops it here and takes the
+    new default group at its next use. Returns the callable that
     unregisters ``fn``."""
     return _register(_release_listeners, fn)
 
@@ -323,11 +321,11 @@ def reinit_recover() -> None:
     ``DeviceEngine`` over it. With a ``tcp://`` coordinator the store
     lives in rank 0's process: when rank 0 is the one that died, the
     survivors' new group waits (up to ``parallel.distributed.PG_TIMEOUT_S``)
-    until the launcher's relaunched rank 0 serves it again; when another
-    rank died, the surviving rank 0 serves a new store on the same port,
-    which needs the old server gone (no reference to the old group left:
-    else the re-init raises). Then every rank replays from the
-    checkpoint. Over gloo (PyTorch 2.11, two ranks on one H100:
+    until the launcher's relaunched rank 0 serves a new store; when
+    another rank died, the surviving rank 0 keeps serving its store and
+    the new group rendezvouses under the next generation's prefix, so it
+    never reads the old group's keys, whoever still holds the old group.
+    Then every rank replays from the checkpoint. Over gloo (PyTorch 2.11, two ranks on one H100:
     ``chip_smoke.py`` phase 18 (d), rank 0 and then rank 1 crashing) both
     routes run in process: the lost peer surfaces at once as a closed
     connection (a DMLCError from the engine or ``bucketed_all_reduce``),

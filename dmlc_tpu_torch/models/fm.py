@@ -22,8 +22,9 @@ Steps:
 
 :class:`FMLearner` trains over a csr ``DeviceFeed`` (libfm or libsvm
 files) with the preemption-proof job snapshots of ``collective.snapshot``.
-The reference's membership callback and its fit-loop observability are
-not ported yet.
+A learner built with a group re-places its params after a membership
+rebuild (``models.linear.listen_membership``, the reference's membership
+callback). The reference's fit-loop observability is not ported yet.
 """
 
 from __future__ import annotations

@@ -349,8 +349,8 @@ def listen_membership(learner) -> weakref.finalize:
     """Register ``learner.reshard()`` to run after every membership rebuild
     (``collective.on_membership_change``), and the release of the old
     group and step before a device re-init ends them
-    (``collective.on_group_release``: rank 0's store server lives as long
-    as the old group), while the learner lives: the listeners hold it by
+    (``collective.on_group_release``: the learner's next step takes the
+    new default group), while the learner lives: the listeners hold it by
     a weak reference and are dropped when the learner is collected, or
     when the returned finalizer is called (``close``)."""
     ref = weakref.ref(learner)

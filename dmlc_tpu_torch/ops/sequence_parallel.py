@@ -44,6 +44,7 @@ from dmlc_tpu_torch.parallel.axis import (
     all_to_all,
     axis_index,
     axis_size,
+    keep_in_graph,
     ppermute,
 )
 from dmlc_tpu_torch.utils.logging import check
@@ -134,23 +135,6 @@ def _hop_needed(idx, src, size, t_local, causal, window, zigzag) -> bool:
     return True
 
 
-class _KeepInGraph(torch.autograd.Function):
-    """Returns ``o``; gives ``kv`` a zero gradient. Ties the ring's last
-    K/V rotation into the backward graph on every rank, so each rank runs
-    every backward rotation, in the same order, even where its last hop was
-    skipped."""
-
-    @staticmethod
-    def forward(ctx, o, kv):
-        ctx.kv_meta = (kv.shape, kv.dtype, kv.device)
-        return o
-
-    @staticmethod
-    def backward(ctx, grad):
-        shape, dtype, device = ctx.kv_meta
-        return grad, torch.zeros(shape, dtype=dtype, device=device)
-
-
 def make_ring_attention(group=None, causal: bool = False, window: int = 0,
                         layout: str = "contiguous", remat: bool = False):
     """f(q, k, v) -> out for this rank's sequence shard of the group.
@@ -226,7 +210,7 @@ def make_ring_attention(group=None, causal: bool = False, window: int = 0,
             else:
                 m, l, o = _block_accumulate(*args)
         if size > 1:
-            o = _KeepInGraph.apply(o, kv)
+            o = keep_in_graph(o, kv)
         return o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
 
     return ring

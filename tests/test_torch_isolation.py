@@ -102,6 +102,21 @@ assert len(LinearLearner(device="cpu").fit_uri(
     sys.argv[1], batch_size=4, epochs=2, num_features=8,
     snapshot_uri=sys.argv[1] + ".snap", resume=True)) == 2
 resilience.preempt.uninstall()
+# the model-parallel layers at one rank, and the MoE-transformer example
+from dmlc_tpu_torch.ops import moe, pipeline_parallel as pp
+from dmlc_tpu_torch.examples import moe_transformer
+params = moe.init_moe_params(4, 8, 16, device="cpu")
+y, aux = moe.make_moe_layer(None, 4, capacity=6, top_k=2)(
+    moe.shard_moe_params(params), torch.randn(1, 6, 8, requires_grad=True))
+(y.square().sum() + aux).backward()
+import numpy as np
+stages = pp.pipeline_params_from_numpy({"w": np.full((1, 1, 1), 0.5)},
+                                       device="cpu")
+x = torch.ones(4, 1, requires_grad=True)
+pp.make_pipeline(None, lambda p, a: a @ p["w"], 2)(
+    pp.shard_pipeline_params(stages), x).sum().backward()
+assert x.grad.tolist() == [[0.5]] * 4
+assert moe_transformer.main(["--device", "cpu", "--world", "1"]) == 0
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

@@ -265,6 +265,7 @@ DEVICE_WORKER = textwrap.dedent("""
     EPOCHS = 4
     CRASH_RANK = int(sys.argv[2]) if sys.argv[2] != "none" else None
     FLAKY = sys.argv[3] == "flaky"  # the survivor's first re-init fails
+    HOLD = sys.argv[3] == "hold"  # rank 0 keeps its own old group
 
     rabit.init("device")
     rank = rabit.rank()
@@ -284,6 +285,10 @@ DEVICE_WORKER = textwrap.dedent("""
             return real_init(*args, **kwargs)
 
         dist.init_process_group = flaky_init
+    # a caller's own reference to the first group, which no release
+    # listener drops: rank 0 keeps serving the store all the same, and
+    # the new group must not read the old one's keys
+    held = [dist.group.WORLD] if HOLD and rank == 0 else []
     rebuilt = []
     rabit.on_membership_change(lambda: rebuilt.append(1))
 
@@ -330,15 +335,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _run_device_job(tmp_path, crash_rank=None, flaky=False, world=2):
+def _run_device_job(tmp_path, crash_rank=None, mode="steady", world=2):
     """A relaunch loop a task (up to 3 attempts; any non-zero exit, the
     crash or the re-init watchdog's 41, relaunches with the attempt
     number bumped), as a GPU launcher restarts its ranks. ``crash_rank``
-    exits hard at epoch 2 on its first attempt; ``flaky`` makes the
-    survivor's first ``init_process_group`` of its re-init raise."""
+    exits hard at epoch 2 on its first attempt; ``mode="flaky"`` makes
+    the survivor's first ``init_process_group`` of its re-init raise, and
+    ``mode="hold"`` has rank 0 keep a reference to its first group."""
     script = tmp_path / "device_worker.py"
     script.write_text(DEVICE_WORKER.format(root=str(ROOT)))
-    ckpt = tmp_path / f"dev_{crash_rank}_{flaky}.bin"
+    ckpt = tmp_path / f"dev_{crash_rank}_{mode}.bin"
     port = _free_port()
     outputs, codes = {}, {tid: [] for tid in range(world)}
 
@@ -351,8 +357,7 @@ def _run_device_job(tmp_path, crash_rank=None, flaky=False, world=2):
                        DMLC_TPU_RECOVER_TIMEOUT="30")
             proc = subprocess.run(
                 [sys.executable, str(script), str(ckpt),
-                 "none" if crash_rank is None else str(crash_rank),
-                 "flaky" if flaky else "steady"],
+                 "none" if crash_rank is None else str(crash_rank), mode],
                 capture_output=True, text=True, timeout=200, env=env)
             outputs[tid] = proc.stdout + proc.stderr
             codes[tid].append(proc.returncode)
@@ -409,25 +414,57 @@ def test_device_reinit_retried_after_a_failed_rendezvous(tmp_path):
     the retry starts the group with the job's backend and device (gloo,
     cpu), not the defaults, and the replay equals a clean run."""
     clean, _, _ = _run_device_job(tmp_path)
-    crashed, codes, rebuilt = _run_device_job(tmp_path, 0, flaky=True)
+    crashed, codes, rebuilt = _run_device_job(tmp_path, 0, mode="flaky")
     assert crashed == clean
     assert codes[1] == [0] and rebuilt[1] == 1, (codes, rebuilt)
 
 
-def test_store_port_probe_names_a_store_still_served():
-    """Rank 0's re-init refuses a store port that is still bound (a
-    reference to the old group keeps its server and its keys)."""
-    from dmlc_tpu_torch.parallel.distributed import _check_store_port_free
+def test_device_engine_rank_0_holding_its_old_group_replays_clean_run(
+        tmp_path):
+    """Rank 1 crashes while rank 0's worker keeps its own reference to the
+    old group: rank 0 keeps serving the store, the new group rendezvouses
+    under the next generation's prefix, and the job replays the clean
+    digest (or the survivor takes the fail-stop exit 41 and is
+    relaunched), within the relaunch loop's time limits."""
+    clean, _, _ = _run_device_job(tmp_path)
+    crashed, codes, rebuilt = _run_device_job(tmp_path, 1, mode="hold")
+    assert crashed == clean
+    assert codes[1][0] == 17
+    assert rebuilt[0] == 1 or codes[0][:-1] == [41] * (len(codes[0]) - 1), (
+        codes, rebuilt)
 
-    with socket.socket() as held:
-        held.bind(("127.0.0.1", 0))
-        held.listen(1)
-        port = held.getsockname()[1]
-        for coordinator in (f"127.0.0.1:{port}", f"tcp://127.0.0.1:{port}"):
-            with pytest.raises(DMLCError, match="still bound"):
-                _check_store_port_free(coordinator)
-    _check_store_port_free(f"127.0.0.1:{port}")  # closed: free again
-    _check_store_port_free("file:///no/such/store")  # no server
+
+def test_generations_are_agreed_on_the_store(monkeypatch):
+    """The generation protocol of ``parallel.distributed`` on one store:
+    rank 0 publishes a new generation at each initialization (none on a
+    retry before its group forms), and another rank, a relaunched one
+    too, takes the first published generation above the last it joined,
+    which the store remembers."""
+    from dmlc_tpu_torch.parallel import distributed as pd
+
+    address = ("127.0.0.1", _free_port())
+    for name in ("_store", "_store_address", "_pending_generation"):
+        monkeypatch.setattr(pd, name, None)
+    server, gen = pd._generation_store(address, 0)
+    assert gen == 1
+    assert pd._generation_store(address, 0) == (server, 1)  # a retry
+
+    def rank1():
+        store, generation = pd._generation_store(address, 1)
+        monkeypatch.setattr(pd, "_store", server)  # this process is rank 0
+        return store, generation
+
+    client, gen = rank1()
+    assert gen == 1
+    pd._joined(server, 0, 1)
+    pd._joined(client, 1, 1)
+    assert pd._generation_store(address, 0)[1] == 2  # rank 0's re-init
+    # a relaunched rank 1 remembers nothing: its last join is on the store
+    assert rank1()[1] == 2
+    pd._joined(client, 1, 2)
+    monkeypatch.setattr(pd, "PG_TIMEOUT_S", 0.2)
+    with pytest.raises(DMLCError, match="no generation above 2"):
+        rank1()
 
 
 def test_reinit_recover_without_launcher_env_raises(monkeypatch, tmp_path):

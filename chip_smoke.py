@@ -238,15 +238,47 @@ non-zero exit and no result line:
    in 8 microbatches, forward and gradients against ``pipeline_oracle``
    on the card (``MOE_REL``), ms a step and the bubble M / (M + N - 1).
    NCCL at world 2 needs a second card and is not run. No kernel of
-   ``KERNELS`` is on this path (the reference computes it with XLA ops).
+   ``KERNELS`` is on this path (the reference computes it with XLA ops);
+20. the observability layer on the card (``drive_obs``): (a) phase 5's
+   dense fit, phase 6's csr fit, phase 16's FM fit and phase 14's GBDT fit
+   (1,048,576 × 28, 20 trees), each once with every observability setting
+   off and once fully armed (``DMLC_TPU_TRACE``,
+   ``DMLC_TPU_METRICS_EXPORT`` as JSONL or Prometheus,
+   ``DMLC_TPU_FLIGHTREC``, ``DMLC_TPU_AUDIT=full``, a device-step sample
+   every ``OBS_SAMPLE_N`` steps; the cost records forgotten first, so
+   each site's first call is recorded under the dispatch mode), the
+   launch counts set to 0 before each: losses, params (trees) and
+   launches bit-identical; the kernel of the
+   path launched once a step; ``dmlc_fit_steps_total`` = the steps; one
+   goodput window an epoch with a binding (the linear and FM windows with
+   ``mfu`` and ``hbm_fraction``, whose unrounded values must lie in (0,
+   1]); the trace's flow of one chunk through io_read, parse, stage,
+   consume and train_step; the exports parse; the audit's epoch
+   self-check clean and the two epochs' io_read / parse / batch chains
+   equal; the card's chains equal a CPU-route fit's on the dense and csr
+   files; (b) ``dmlc_device_hbm_bytes`` = ``memory_allocated`` at the
+   sample, ``peak_hbm_bytes()`` > 0, one cost record a site and signature
+   and none more over a second epoch, the probed f32 matmul and memory
+   rates beside the data sheet's, ``dmlc_step_device_ms`` sampled at
+   least twice, one dense step under torch.profiler beside the feed's
+   consume time a batch (the goodput ledger's device_step), and a
+   ``capture_profile(1.0)`` during a fit whose trace holds CUDA kernels;
+   (c) the csr fit in a child process with ``OBS_FAULT`` injected and the
+   recorder armed must die and leave ``fault.injected`` in
+   ``flightrec-rank0.json``; (d) rows/s of the dense and csr fits and
+   rows·trees/s of the GBDT fit with the defaults, with
+   ``DMLC_TPU_METRICS=0`` and fully armed, the median of ``OBS_RUNS`` runs
+   each.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
-and ``pipeline`` lines (phase 19); the last lines are the ``kernels``
-line, the card line again, and ``{"ok": true, "device": {...}}``.
+and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20) and
+``phase_seconds`` (each phase's wall seconds); the last lines are the
+``kernels`` line, the card line again, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -254,6 +286,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -3621,6 +3654,588 @@ def drive_moe(dev) -> tuple:
     return moe, pipeline
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the observability layer on the card
+# ---------------------------------------------------------------------------
+
+#: every observability setting off (the reference's names)
+OBS_OFF = {"DMLC_TPU_METRICS": "0", "DMLC_TPU_DEVICE_TELEMETRY": "0",
+           "DMLC_TPU_AUDIT": "off", "DMLC_TPU_STEP_SAMPLE_N": "0",
+           "DMLC_TPU_TRACE": None, "DMLC_TPU_METRICS_EXPORT": None,
+           "DMLC_TPU_FLIGHTREC": None}
+#: the defaults: metrics and device telemetry on, trace, export, flight
+#: recorder and audit off
+OBS_DEFAULT = {k: None for k in OBS_OFF}
+#: a step sampled every 8th step: phase 5's 32 dense steps sample 4 times,
+#: phase 6's 16 csr and phase 16's 16 FM steps twice
+OBS_SAMPLE_N = 8
+OBS_RUNS = 3  # (d): the median of 3 runs a setting
+OBS_PROFILE_STEPS = 20  # (b): dense steps under torch.profiler
+#: (c): the csr fit's child dies at its 3rd chunk's parse
+OBS_FAULT = "parse.chunk:nth=3"
+_PROM_LINE = re.compile(
+    r'^[a-z_][a-z0-9_]*(\{([a-z_]+="([^"\\]|\\.)*",?)*\})? \S+$')
+
+
+def obs_armed(tmp: str, tag: str, export: str) -> dict:
+    """Every observability setting on, its files under ``tmp``."""
+    return {"DMLC_TPU_METRICS": "1", "DMLC_TPU_DEVICE_TELEMETRY": "1",
+            "DMLC_TPU_AUDIT": "full",
+            "DMLC_TPU_STEP_SAMPLE_N": str(OBS_SAMPLE_N),
+            "DMLC_TPU_TRACE": os.path.join(tmp, tag + ".trace.json"),
+            "DMLC_TPU_METRICS_EXPORT": os.path.join(tmp, tag + export),
+            "DMLC_TPU_FLIGHTREC": os.path.join(tmp, tag + ".rec")}
+
+
+@contextlib.contextmanager
+def obs_env(settings: dict):
+    """Run the block under ``settings`` (None unsets a name), with the
+    process's cached auditor, flight recorder and trace buffer reset so
+    they re-read them; the environment is restored after."""
+    from dmlc_tpu_torch.obs import audit, flight, trace
+
+    saved = {k: os.environ.get(k) for k in settings}
+
+    def apply(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        audit.reset_auditor()
+        flight.reset()
+        trace.clear()
+
+    apply(settings)
+    try:
+        yield
+    finally:
+        apply(saved)
+
+
+class ObsTap:
+    """Collects, while installed, the goodput windows the ledgers close,
+    each epoch's data chains as the auditor rolls them, and the cost
+    record each instrumented site of the fit runs under (a reading aid of
+    this script: the port's functions are wrapped, not changed)."""
+
+    def __init__(self):
+        from dmlc_tpu_torch.obs import audit, goodput, xla_cost
+
+        self.windows, self.epochs, self.costs = [], [], {}
+        self._orig = (goodput.GoodputLedger.tick, audit.Auditor.roll_epoch,
+                      xla_cost.note_compile)
+        tick, roll, note = self._orig
+        tap = self
+
+        def tapped_note(fn_name, *a, **k):
+            out, rec = note(fn_name, *a, **k)
+            tap.costs[fn_name] = rec
+            return out, rec
+
+        def tapped_tick(ledger, *a, **k):
+            win = tick(ledger, *a, **k)
+            tap.windows.append(win)
+            return win
+
+        def tapped_roll(auditor, epoch):
+            with auditor._lock:
+                tap.epochs.append({s: dict(auditor._chains.get(s, {}))
+                                   for s in audit.DATA_STAGES})
+            return roll(auditor, epoch)
+
+        goodput.GoodputLedger.tick = tapped_tick
+        audit.Auditor.roll_epoch = tapped_roll
+        xla_cost.note_compile = tapped_note
+
+    def close(self):
+        from dmlc_tpu_torch.obs import audit, goodput, xla_cost
+
+        (goodput.GoodputLedger.tick, audit.Auditor.roll_epoch,
+         xla_cost.note_compile) = self._orig
+
+
+def obs_linear_fit(path, layout, batch_size, nf, device=None, epochs=EPOCHS):
+    """(history, params as numpy, launches, seconds) of phase 5/6's fit,
+    the launch counts set to 0 just before it and read just after."""
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+    from dmlc_tpu_torch.ops import kernels
+
+    learner = LinearLearner(device=device, objective="logistic",
+                            learning_rate=0.1)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = learner.fit_uri(path, batch_size=batch_size, epochs=epochs,
+                              layout=layout, num_features=nf)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    return history, params_to_numpy(learner.params), launches, seconds
+
+
+def obs_fm_fit(path, start):
+    from dmlc_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    history, params, seconds = run_fm_fit(path, None, start)
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    return history, params, launches, seconds
+
+
+def obs_gbdt_fit(x, y, dev):
+    from dmlc_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    learner, history, seconds = gbdt_fit(x, y, dev)
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    return history, tree_bits(learner), launches, seconds
+
+
+def same_bits(what, off, armed) -> None:
+    """Phase 20 (a): the armed fit's losses, params and launches must be
+    the fit-with-everything-off's, bit for bit."""
+    h0, p0, l0, _ = off
+    h1, p1, l1, _ = armed
+    require(list(h0) == list(h1), "%s: loss history differs with the "
+            "observability layer armed: %s vs %s", what, h0, h1)
+    for k in p0:
+        require(np.asarray(p0[k]).tobytes() == np.asarray(p1[k]).tobytes(),
+                "%s: %s differs with the observability layer armed", what, k)
+    require(l0 == l1, "%s: launches differ with the layer armed: %s vs %s",
+            what, l0, l1)
+
+
+def flow_chain(events) -> list:
+    """The slice names one chunk's flow points sit in (a flow point binds
+    to the slice open on its thread at its time), for the first flow that
+    reaches a train_step."""
+    slices = [e for e in events if e.get("ph") == "X"]
+    flows = {}
+    for e in events:
+        if e.get("cat") == "dataflow":
+            flows.setdefault(e["id"], []).append(e)
+    best = []
+    for points in flows.values():
+        names = []
+        for p in sorted(points, key=lambda e: e["ts"]):
+            inside = [s for s in slices if s["tid"] == p["tid"]
+                      and s["ts"] <= p["ts"] <= s["ts"] + s["dur"]]
+            names += sorted({s["name"] for s in inside})
+        if "train_step" in names:
+            return names
+        best = best or names
+    return best
+
+
+def read_exports(path: str) -> int:
+    """Parse the metrics export (JSONL: every line an object with
+    ``metrics``; Prometheus: every line a comment or a sample); returns
+    the number of samples read."""
+    text = open(path).read()
+    if path.endswith(".prom"):
+        samples = [line for line in text.splitlines()
+                   if line and not line.startswith("#")]
+        for line in samples:
+            require(_PROM_LINE.match(line), "unparseable Prometheus line %r",
+                    line)
+            float(line.rsplit(" ", 1)[1])
+        return len(samples)
+    n = 0
+    for line in text.splitlines():
+        n += len(json.loads(line)["metrics"])
+    return n
+
+
+def hold_armed(what, model, steps, epochs, settings, tap, flat0,
+               feed=True) -> dict:
+    """Phase 20 (a): what an armed fit must leave: fit counters, one
+    goodput window an epoch with a binding (and mfu / hbm_fraction on the
+    step-instrumented fits), the flow chain in the trace, parseable
+    exports and a clean audit over equal epochs."""
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import audit, xla_cost
+
+    flat = obs.registry().flat_values()
+    delta = {k: v - flat0.get(k, 0.0) for k, v in flat.items()}
+    got = delta.get('dmlc_fit_steps_total{model="%s"}' % model)
+    require(got == steps, "%s: dmlc_fit_steps_total %s for %d steps", what,
+            got, steps)
+    wins = tap.windows
+    require(len(wins) == epochs and all(w.get("binding") for w in wins),
+            "%s: %d goodput windows for %d epochs", what, len(wins), epochs)
+    report = {"bindings": [w["binding"] for w in wins],
+              "goodput_ratio": [w["goodput"]["ratio"] for w in wins],
+              "budget_s": wins[-1]["budget_s"]}
+    consume = [sum(v for k, v in delta.items()
+                   if k.startswith("dmlc_feed_consume_ns{")
+                   and k.endswith(suffix)) for suffix in (":sum", ":count")]
+    if consume[1]:
+        # device_step's budget a batch: the consumer's host time
+        report["consume_ms_per_batch"] = consume[0] / consume[1] / 1e6
+    if model in ("linear", "fm"):
+        rec = tap.costs[model + ".step"]
+        peak = xla_cost.probed_peak_flops()
+        gbps = xla_cost.probed_hbm_gbps()
+        mfu, hbm = [], []
+        for w in wins:
+            require("mfu" in w and "hbm_fraction" in w and "compute" in w,
+                    "%s: a window lacks mfu / hbm_fraction: %s", what,
+                    sorted(w))
+            # the verdict takes the largest *.step site's costs in the
+            # registry (every model this process fitted) and rounds to 4
+            # places: the fractions of this fit's own step, unrounded
+            steps_w = w["counters"]["steps"]
+            mfu.append(steps_w * rec["flops"] / w["window_s"] / peak)
+            hbm.append(steps_w * rec["bytes_accessed"] / w["window_s"]
+                       / (gbps * 1e9))
+        require(all(0 < v <= 1 for v in mfu + hbm),
+                "%s: mfu %s / hbm_fraction %s outside (0, 1]", what, mfu,
+                hbm)
+        report.update(mfu=mfu, hbm_fraction=hbm,
+                      mfu_verdict=[w["mfu"] for w in wins],
+                      hbm_fraction_verdict=[w["hbm_fraction"] for w in wins],
+                      step_cost={k: rec[k] for k in
+                                 xla_cost.FIELDS + ("bucket", "extract_ms")})
+    obs.flush_trace()
+    events = json.load(open(settings["DMLC_TPU_TRACE"]))["traceEvents"]
+    names = {e["name"] for e in events if e.get("ph") == "X"}
+    if feed:
+        chain = flow_chain(events)
+        want = ["io_read", "parse", "stage", "consume", "train_step"]
+        require(all(n in chain for n in want),
+                "%s: one chunk's flow passes %s, not %s", what, chain, want)
+        report["flow_chain"] = chain
+    else:
+        require("fit" in names, "%s: no fit span in the trace", what)
+    report["trace_events"] = len(events)
+    report["export_samples"] = read_exports(
+        settings["DMLC_TPU_METRICS_EXPORT"])
+    snap = audit.auditor().snapshot()
+    require(not snap["divergences"], "%s: audit divergences %s", what,
+            snap["divergences"])
+    if feed:
+        require(len(tap.epochs) == epochs, "%s: %d audit rolls", what,
+                len(tap.epochs))
+        for stage in audit.DATA_STAGES:
+            require(tap.epochs[0][stage]
+                    and tap.epochs[0][stage] == tap.epochs[-1][stage],
+                    "%s: the %s chain differs between epochs", what, stage)
+        report["audit_chain_lengths"] = {
+            s: len(tap.epochs[0][s]) for s in audit.DATA_STAGES}
+    return report, tap.epochs
+
+
+def run_armed(what, model, steps, epochs, fit, tmp, tag, export,
+              feed=True):
+    """(fit result, report) of one fit with everything armed. The cost
+    records are forgotten first, so the fit's first call of each site is
+    recorded under the dispatch mode (its bits and launches are then held
+    against the fit with the layer off)."""
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import device_telemetry, xla_cost
+
+    settings = obs_armed(tmp, tag, export)
+    with obs_env(settings):
+        tap = ObsTap()
+        try:
+            device_telemetry.reset()
+            flat0 = obs.registry().flat_values()
+            result = fit()
+            recorded = xla_cost.extraction_count()
+            require(recorded >= len(tap.costs) > 0,
+                    "%s: %d cost recordings for the sites %s", what,
+                    recorded, sorted(tap.costs))
+            report, chains = hold_armed(what, model, steps, epochs,
+                                        settings, tap, flat0, feed=feed)
+            report["recorded_sites"] = sorted(tap.costs)
+        finally:
+            tap.close()
+    return result, report, chains
+
+
+def cpu_chains(path, layout, batch_size, nf, tmp) -> list:
+    """The data chains of a CPU-route fit of one epoch on ``path``."""
+    settings = dict(OBS_DEFAULT, DMLC_TPU_AUDIT="full")
+    with obs_env(settings):
+        tap = ObsTap()
+        try:
+            obs_linear_fit(path, layout, batch_size, nf, device="cpu",
+                           epochs=1)
+        finally:
+            tap.close()
+    return tap.epochs
+
+
+_FLIGHT_CHILD = r"""
+import sys
+from dmlc_tpu_torch import collective
+from dmlc_tpu_torch.models import LinearLearner
+collective.init()
+LinearLearner().fit_uri(sys.argv[1], batch_size=int(sys.argv[2]), epochs=1,
+                        layout="csr", num_features=int(sys.argv[3]))
+"""
+
+
+def drive_flight_child(csr_file, tmp) -> dict:
+    """Phase 20 (c): the csr fit in a child with ``OBS_FAULT`` injected
+    and the recorder armed must die and leave ``fault.injected`` in
+    ``flightrec-rank0.json``."""
+    out_dir = os.path.join(tmp, "flight_child")
+    env = dict(os.environ, DMLC_TPU_FLIGHTREC=out_dir,
+               DMLC_TPU_FAULTS=OBS_FAULT,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(os.path.abspath(__file__))]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _FLIGHT_CHILD, csr_file, str(CRITEO_BATCH),
+         str(CRITEO_DIM + 1)], env=env, capture_output=True, text=True,
+        timeout=RANK_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    require(proc.returncode != 0 and "InjectedFault" in proc.stderr,
+            "flight child: exit %d, no InjectedFault:\n%s", proc.returncode,
+            proc.stderr[-2000:])
+    path = os.path.join(out_dir, "flightrec-rank0.json")
+    require(os.path.exists(path), "flight child left no %s", path)
+    dump = json.load(open(path))
+    fired = [r for r in dump["records"] if r["kind"] == "fault.injected"]
+    require([(r["site"], r["n"]) for r in fired] == [("parse.chunk", 3)],
+            "flight dump: fault.injected records %s", fired)
+    return {"exit_code": proc.returncode, "reason": dump["reason"],
+            "records": len(dump["records"]),
+            "kinds": sorted({r["kind"] for r in dump["records"]}),
+            "seconds": seconds}
+
+
+def drive_obs(kernels, dev, fit_files, fm_file, fm_start, tmp) -> dict:
+    """Phase 20 (the module docstring): the observability layer on the
+    card."""
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import device_telemetry, xla_cost
+
+    out = {}
+    dense = (fit_files["dense"], "dense", HIGGS_BATCH, HIGGS_FEATURES + 1)
+    csr = (fit_files["csr"], "csr", CRITEO_BATCH, CRITEO_DIM + 1)
+    steps = {"dense": EPOCHS * (HIGGS_ROWS // HIGGS_BATCH),
+             "csr": EPOCHS * (CRITEO_ROWS // CRITEO_BATCH),
+             "fm": EPOCHS * (CRITEO_ROWS // CRITEO_BATCH),
+             "gbdt": GBDT_HYPER["num_trees"]}
+    path_kernel = {"dense": "fused_linear_grads", "csr": "coo_segment_sum",
+                   "fm": "coo_segment_sum"}
+
+    # (a) the four fits with everything off, then armed
+    t0 = time.perf_counter()
+    fits = {"dense": lambda: obs_linear_fit(*dense),
+            "csr": lambda: obs_linear_fit(*csr),
+            "fm": lambda: obs_fm_fit(fm_file, fm_start)}
+    exports = {"dense": ".jsonl", "csr": ".prom", "fm": ".jsonl",
+               "gbdt": ".prom"}
+    armed, card_chains = {}, {}
+    for name, fit in fits.items():
+        with obs_env(OBS_OFF):
+            off = fit()
+        model = "fm" if name == "fm" else "linear"
+        on, report, card_chains[name] = run_armed(
+            "phase 20 " + name, model, steps[name], EPOCHS, fit, tmp, name,
+            exports[name])
+        same_bits("phase 20 " + name, off, on)
+        launches = on[2]
+        # every libsvm read tokenizes on the card; FM reads libfm
+        require(launches[path_kernel[name]] == steps[name]
+                and (name == "fm") != (launches["tokenize_boundaries"] > 0),
+                "phase 20 %s: launches %s for %d steps", name, launches,
+                steps[name])
+        report.update(launches=launches, seconds_off=off[3],
+                      seconds_armed=on[3])
+        armed[name] = report
+    x, y = gbdt_data(GBDT_ROWS, seed=14)
+    with obs_env(OBS_OFF):
+        off = obs_gbdt_fit(x, y, dev)
+    on, report, _ = run_armed("phase 20 gbdt", "gbdt", steps["gbdt"], 1,
+                              lambda: obs_gbdt_fit(x, y, dev), tmp, "gbdt",
+                              exports["gbdt"], feed=False)
+    same_bits("phase 20 gbdt", off, on)
+    report.update(launches=on[2], seconds_off=off[3], seconds_armed=on[3])
+    armed["gbdt"] = report
+    # the armed card fits' first-epoch chains against a CPU-route fit's on
+    # the same files
+    for name, spec in (("dense", dense), ("csr", csr)):
+        card = card_chains[name][0]
+        cpu = cpu_chains(*spec, tmp)[0]
+        for stage in ("io_read", "parse", "batch"):
+            require(card[stage] and card[stage] == cpu[stage],
+                    "phase 20 %s: the card's %s chain differs from the CPU "
+                    "route's", name, stage)
+        armed[name]["cpu_chains_equal"] = True
+    out["fits"] = armed
+    out["a_seconds"] = time.perf_counter() - t0
+
+    # (b) device telemetry
+    t0 = time.perf_counter()
+    tele = {}
+    keep = torch.empty(1 << 24, device=dev)  # 64 MiB held across the read
+    torch.cuda.synchronize()
+    sampled = device_telemetry.sample()
+    allocated = torch.cuda.memory_allocated(dev)
+    label = "cuda:%d" % dev.index
+    require(sampled["hbm"].get(label) == allocated,
+            "dmlc_device_hbm_bytes %s != memory_allocated %d", sampled,
+            allocated)
+    require(device_telemetry.peak_hbm_bytes() > 0, "peak_hbm_bytes is 0")
+    del keep
+    tele.update(hbm_bytes=sampled["hbm"][label],
+                live_bytes=sampled["live"][label],
+                peak_hbm_bytes=device_telemetry.peak_hbm_bytes())
+    recs = xla_cost.records()
+    keys = [(r["fn"], r["bucket"]) for r in recs]
+    require(len(keys) == len(set(keys)) == xla_cost.extraction_count(),
+            "cost records are not one a site and signature: %s", keys)
+    # a second epoch records nothing: epoch 1 alone, then epoch 2 on the
+    # same learner (its steps' signatures are all seen)
+    from dmlc_tpu_torch.data import create_parser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner
+
+    with obs_env(dict(OBS_DEFAULT)):
+        device_telemetry.reset()
+        learner = LinearLearner(objective="logistic")
+        feed = DeviceFeed(create_parser(dense[0]), BatchSpec(
+            batch_size=HIGGS_BATCH, layout="dense",
+            num_features=HIGGS_FEATURES + 1))
+        try:
+            learner.fit_feed(feed, epochs=1)
+            first = xla_cost.extraction_count()
+            feed.before_first()
+            learner.fit_feed(feed, epochs=2, start_epoch=1)
+        finally:
+            feed.close()
+        require(first > 0 and xla_cost.extraction_count() == first,
+                "cost records: %d after epoch 1, %d after epoch 2", first,
+                xla_cost.extraction_count())
+    tele["records_after_epoch_1"] = first
+    tele["records"] = {f"{r['fn']}|{r['bucket']}": {
+        k: r[k] for k in xla_cost.FIELDS} for r in xla_cost.records()}
+    flops = xla_cost.probed_peak_flops()
+    gbps = xla_cost.probed_hbm_gbps()
+    tele["probed_peak_flops"] = flops
+    tele["probed_hbm_gbps"] = gbps
+    # beside the H100 SXM data sheet's f32 and memory rates
+    tele["sheet_f32_flops"] = PEAK_F32_FLOPS
+    tele["sheet_hbm_gbps"] = PEAK_BYTES_PER_S / 1e9
+    tele["probed_over_sheet"] = {"flops": flops / PEAK_F32_FLOPS,
+                                 "hbm": gbps * 1e9 / PEAK_BYTES_PER_S}
+    step_ms = {}
+    for model in ("linear", "fm"):
+        hist = obs.registry().histogram("dmlc_step_device_ms", model=model)
+        step_ms[model] = {"count": hist.count, "sum_ms": hist.sum,
+                          "p50_ms": hist.quantile(0.5)}
+    require(step_ms["linear"]["count"] >= 2 and step_ms["fm"]["count"] >= 2,
+            "dmlc_step_device_ms sampled %s", step_ms)
+    tele["step_device_ms"] = step_ms
+    # device_step books the consumer's host time; one dense step's device
+    # time under torch.profiler, beside it
+    from dmlc_tpu_torch.models import (init_linear_params,
+                                       make_linear_train_step)
+
+    step = make_linear_train_step(None, objective="logistic",
+                                  layout="dense",
+                                  num_features=HIGGS_FEATURES + 1)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    batch = {"x": torch.randn(HIGGS_BATCH, HIGGS_FEATURES + 1, device=dev,
+                              generator=gen),
+             "label": (torch.rand(HIGGS_BATCH, device=dev, generator=gen)
+                       > 0.5).float(),
+             "weight": torch.ones(HIGGS_BATCH, device=dev)}
+    params = init_linear_params(HIGGS_FEATURES + 1, dev)
+    velocity = {k: torch.zeros_like(v) for k, v in params.items()}
+    step(params, velocity, batch)
+    torch.cuda.synchronize()
+
+    def steps():
+        t = time.perf_counter()
+        for _ in range(OBS_PROFILE_STEPS):
+            step(params, velocity, batch)
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        return host_ms
+
+    prof = profile_call(steps)
+    tele["dense_step_profile"] = prof
+    tele["dense_step_host_ms"] = prof["wall_ms"] / OBS_PROFILE_STEPS
+    tele["dense_step_device_busy_ms"] = (
+        None if prof["device_busy_ms"] is None
+        else prof["device_busy_ms"] / OBS_PROFILE_STEPS)
+    prof_dir = os.path.join(tmp, "profile")
+    th = device_telemetry.capture_profile(1.0, out_dir=prof_dir)
+    obs_linear_fit(*dense, epochs=1)
+    th.join()
+    trace_path = os.path.join(prof_dir, "profile-rank0-req0", "trace.json")
+    require(os.path.exists(trace_path), "capture_profile wrote no trace")
+    captured = json.load(open(trace_path))
+    cuda_kernels = [e for e in captured.get("traceEvents", [])
+                    if e.get("cat") == "kernel"]
+    require(cuda_kernels, "capture_profile's trace holds no CUDA kernel")
+    tele["profile_kernels"] = len(cuda_kernels)
+    tele["profile_kernel_names"] = sorted(
+        {e["name"][:40] for e in cuda_kernels})[:12]
+    out["telemetry"] = tele
+    out["b_seconds"] = time.perf_counter() - t0
+
+    # (c) the flight recorder in a child
+    out["flight"] = drive_flight_child(fit_files["csr"], tmp)
+
+    # (d) what the layer costs: rows/s (GBDT: rows·trees/s), the median
+    # of OBS_RUNS runs
+    t0 = time.perf_counter()
+    cost = {}
+    for name, fit, rows in (
+            ("dense", lambda: obs_linear_fit(*dense), EPOCHS * HIGGS_ROWS),
+            ("csr", lambda: obs_linear_fit(*csr), EPOCHS * CRITEO_ROWS),
+            ("gbdt", lambda: obs_gbdt_fit(x, y, dev),
+             GBDT_ROWS * GBDT_HYPER["num_trees"])):
+        cost[name] = {}
+        for setting in ("default", "metrics_off", "armed"):
+            env = {"default": OBS_DEFAULT,
+                   "metrics_off": dict(OBS_DEFAULT, DMLC_TPU_METRICS="0"),
+                   "armed": obs_armed(tmp, "cost_" + name, ".jsonl")
+                   }[setting]
+            runs = []
+            for _ in range(OBS_RUNS):
+                with obs_env(env):
+                    runs.append(fit()[3])
+            cost[name][setting] = {
+                "rows_per_s": rows / statistics.median(runs),
+                "seconds": runs}
+    out["cost"] = cost
+    out["d_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def obs_summary(card, report) -> dict:
+    """The ``obs`` line: phase 20's numbers beside the card."""
+    fits = report["fits"]
+    tele = report["telemetry"]
+    return {
+        "card": card,
+        "bindings": {k: v["bindings"] for k, v in fits.items()},
+        "mfu": {k: v.get("mfu") for k, v in fits.items()},
+        "hbm_fraction": {k: v.get("hbm_fraction") for k, v in fits.items()},
+        "seconds_off_vs_armed": {k: [v["seconds_off"], v["seconds_armed"]]
+                                 for k, v in fits.items()},
+        "probed_peak_flops": tele["probed_peak_flops"],
+        "probed_hbm_gbps": tele["probed_hbm_gbps"],
+        "sheet_f32_flops": tele["sheet_f32_flops"],
+        "sheet_hbm_gbps": tele["sheet_hbm_gbps"],
+        "step_device_ms": tele["step_device_ms"],
+        "peak_hbm_bytes": tele["peak_hbm_bytes"],
+        "rows_per_s": {k: {s: v[s]["rows_per_s"] for s in v}
+                       for k, v in report["cost"].items()},
+        "flight": {k: report["flight"][k] for k in ("reason", "records")},
+        "phase_seconds": report["seconds"],
+    }
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -3707,17 +4322,27 @@ def main() -> int:
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-19 (the module docstring), with the fit files in
+    """Phases 1-20 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
     from dmlc_tpu_torch.utils.device import resolve_device
 
     started = time.perf_counter()
+    laps, last = {}, [started]
+
+    def lap(phase):
+        """Seconds since the last lap, as the given phase's."""
+        now = time.perf_counter()
+        laps[phase] = now - last[0]
+        last[0] = now
+
     dev = resolve_device(None)  # also turns TF32 off
     card = card_line()
     print("card:", card, flush=True)
     torch.cuda.synchronize()
+
+    lap("1")
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -3744,6 +4369,8 @@ def smoke(fit_dir: str) -> int:
             fused)
     torch.cuda.synchronize()
 
+    lap("2")
+
     # ---- 3. fused_linear_grads vs plain ------------------------------------
     fused_err = None
     main_args = None
@@ -3760,6 +4387,8 @@ def smoke(fit_dir: str) -> int:
         if (rows, features) == (16384, 29):
             fused_err, main_args = err, args
     torch.cuda.synchronize()
+
+    lap("3")
 
     # ---- 4. coo_segment_sum vs plain, spmv_transpose determinism -----------
     batch = criteo_batch(dev, 3)
@@ -3808,6 +4437,8 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"coo_segment_sum_float_max_abs_err": seg_err,
                       "spmv_transpose_same_bits_twice": True}), flush=True)
 
+    lap("4")
+
     # ---- 5./6. the main path, dense and csr --------------------------------
     paths, fit_params = {}, {}
     fit_files = {"dense": os.path.join(fit_dir, "higgs.svm"),
@@ -3824,6 +4455,8 @@ def smoke(fit_dir: str) -> int:
         CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)
     torch.cuda.synchronize()
     print(json.dumps({"csr": paths["csr"]}), flush=True)
+
+    lap("5-6")
 
     # ---- 7. timings ----------------------------------------------------------
     flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
@@ -3875,11 +4508,15 @@ def smoke(fit_dir: str) -> int:
     torch.cuda.synchronize()
     del flush
 
+    lap("7")
+
     # ---- 8. flash kernels vs plain -----------------------------------------
     for seed, case in enumerate(FLASH_CASES):
         report = flash_case(kernels, dev, *case, seed=40 + seed)
         print(json.dumps({"flash_vs_plain": report}), flush=True)
     torch.cuda.synchronize()
+
+    lap("8")
 
     # ---- 9. the long-context path --------------------------------------------
     import torch.distributed as dist
@@ -3894,11 +4531,15 @@ def smoke(fit_dir: str) -> int:
             dist.destroy_process_group()
     print(json.dumps({"attention": attention}), flush=True)
 
+    lap("9")
+
     # ---- 10. flash timings -----------------------------------------------------
     flash_rows, flash_extra = flash_timing_rows(
         kernels, dev, attention["path"]["launches"])
     torch.cuda.synchronize()
     print(json.dumps({"flash_timing_extra": flash_extra}), flush=True)
+
+    lap("10")
 
     # ---- 11./12. the tokenizer and the ingest path --------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3916,10 +4557,14 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"ingest": ingest}), flush=True)
     token_row["launches"] = ingest["launches"]
 
+    lap("11-12")
+
     # ---- 13. the distributed fit -------------------------------------------
     distributed = drive_distributed(kernels, dev, fit_files, fit_params)
     torch.cuda.synchronize()
     print(json.dumps({"distributed": distributed}), flush=True)
+
+    lap("13")
 
     # ---- 14. GBDT on the card ----------------------------------------------
     t0 = time.perf_counter()
@@ -3939,6 +4584,8 @@ def smoke(fit_dir: str) -> int:
     sharded["seconds"] = time.perf_counter() - t0
     print(json.dumps({"data_parallel_rest": sharded}), flush=True)
 
+    lap("14-15")
+
     # ---- 16. FM on the card ------------------------------------------------
     t0 = time.perf_counter()
     fm_file = os.path.join(fit_dir, "criteo.libfm")
@@ -3947,6 +4594,8 @@ def smoke(fit_dir: str) -> int:
     fm_out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"fm": fm_out}), flush=True)
 
+    lap("16")
+
     # ---- 17. snapshots and resume ------------------------------------------
     t0 = time.perf_counter()
     snaps = drive_snapshots(fit_files["csr"], fm_file, fm_start, fit_dir)
@@ -3954,17 +4603,32 @@ def smoke(fit_dir: str) -> int:
     snaps["seconds"] = time.perf_counter() - t0
     print(json.dumps({"snapshots": snaps}), flush=True)
 
+    lap("17")
+
     # ---- 18. fault-tolerant distributed training ---------------------------
     t0 = time.perf_counter()
     recovery = drive_recovery(fit_files["csr"], fit_dir)
     recovery["seconds"] = time.perf_counter() - t0
     print(json.dumps({"recovery": recovery}), flush=True)
 
+    lap("18")
+
     # ---- 19. expert-parallel MoE and the GPipe pipeline --------------------
     t0 = time.perf_counter()
     moe, pipeline = drive_moe(dev)
     moe["seconds"] = time.perf_counter() - t0
     print(json.dumps({"moe_detail": moe}), flush=True)
+
+    lap("19")
+
+    # ---- 20. the observability layer on the card --------------------------
+    t0 = time.perf_counter()
+    obs_report = drive_obs(kernels, dev, fit_files, fm_file, fm_start,
+                           fit_dir)
+    torch.cuda.synchronize()
+    obs_report["seconds"] = time.perf_counter() - t0
+    lap("20")
+    print(json.dumps({"obs_detail": obs_report}), flush=True)
 
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
@@ -4030,6 +4694,8 @@ def smoke(fit_dir: str) -> int:
         "phase_seconds": recovery["seconds"]}}))
     print(json.dumps({"moe": moe_summary(card, moe)}))
     print(json.dumps({"pipeline": dict(pipeline, card=card)}))
+    print(json.dumps({"obs": obs_summary(card, obs_report)}))
+    print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
                       + [token_row, fm_row]}))

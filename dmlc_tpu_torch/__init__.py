@@ -5,9 +5,9 @@ counterpart sits at the same path:
 
 - ``dmlc_tpu_torch.utils``  — DMLCError/check logging layer, device rule,
   the threefry copy behind GBDT's masks and FM's init (``utils.prng``),
-  the threaded iterator
+  the threaded iterator, the stopwatch (``utils.timer``)
 - ``dmlc_tpu_torch.params`` — the Parameter/field subset the learners use,
-  the parser registry
+  the parser registry, typed environment reads (``params.env``)
 - ``dmlc_tpu_torch.io``     — URISpec, the byte-range InputSplit (local
   files), streams, the serializer, the ordered read-ahead window
 - ``dmlc_tpu_torch.data``   — RowBlock, the libsvm / libfm / csv parsers
@@ -32,7 +32,12 @@ counterpart sits at the same path:
 - ``dmlc_tpu_torch.resilience`` — fault injection, preemption notices and
   the retry policy
 - ``dmlc_tpu_torch.models`` — the allreduce-SGD linear learner,
-  factorization machines and histogram GBDT
+  factorization machines and histogram GBDT, with the shared fit-loop
+  observability (``models.fitloop.FitLoopObs``)
+- ``dmlc_tpu_torch.obs`` — metrics, spans and flows, exporters, the
+  flight recorder, cross-host snapshots, the goodput ledger and SLO
+  watchdog, device telemetry and step cost records, and the determinism
+  audit (``DMLC_TPU_METRICS``, ``DMLC_TPU_TRACE``, ``DMLC_TPU_AUDIT``, ...)
 - ``dmlc_tpu_torch.examples`` — the MoE-transformer block over process
   groups (``python -m dmlc_tpu_torch.examples.moe_transformer``)
 - ``dmlc_tpu_torch.tools``  — the parity tool (``python -m

@@ -168,8 +168,13 @@ def _spare_wait(kwargs) -> dict:
 def init(engine: str = "auto", **kwargs) -> None:
     """Start this process's engine (rabit.init); a no-op when one runs.
     ``kwargs`` go to the engine's constructor. A socket-engine process
-    launched as a warm spare parks here first (``_spare_wait``)."""
+    launched as a warm spare parks here first (``_spare_wait``). Also arms
+    the crash flight recorder (obs/flight.py) when ``DMLC_TPU_FLIGHTREC``
+    names a directory."""
     global _engine
+    from dmlc_tpu_torch.obs import flight
+
+    flight.install_if_armed()
     with _engine_lock:
         if _engine is not None:
             return
@@ -463,6 +468,10 @@ def reenter_elastic() -> int:
             connect_retry=old.connect_retry)
         eng = _engine
     _notify_membership()
+    from dmlc_tpu_torch.obs import flight
+
+    flight.record_event("collective.elastic", generation=eng.generation,
+                        rank=eng.rank, world=eng.world_size)
     log_info("elastic re-entry: generation %d, rank %d of %d",
              eng.generation, eng.rank, eng.world_size)
     return eng.generation
@@ -538,8 +547,15 @@ def run_with_recovery(round_fn: Callable[[], Any], max_attempts: int = 3,
                     recoverable = multiprocess_env()
                 else:
                     recoverable = False
+            from dmlc_tpu_torch.obs import flight
+
             if not recoverable or attempt >= max_attempts:
+                flight.record_event("collective.recover", attempt=attempt,
+                                    outcome="giveup", error=str(err))
+                flight.dump_if_injected(err)
                 raise
+            flight.record_event("collective.recover", attempt=attempt,
+                                outcome="retry", error=str(err))
             log_info("collective failure (%s); recovering, attempt %d/%d",
                      err, attempt, max_attempts)
         try:

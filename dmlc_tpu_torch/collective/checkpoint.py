@@ -136,6 +136,10 @@ class CheckpointManager:
                 raise
             log_warning("checkpoint v%d commit to %s failed (%s); degrading "
                         "to fallback %s", version, self.uri, err, fb.uri)
+            from dmlc_tpu_torch.obs import flight
+
+            flight.record_event("ckpt.fallback", version=version,
+                                uri=self.uri, error=str(err))
             fb._version = version - 1  # keep the numbering aligned
             fb._commit(version, state)
         self._version = version
@@ -282,7 +286,10 @@ class JobSnapshot(CheckpointManager):
         try:
             self._commit_snapshot(version, state, meta)
         except SnapshotSuperseded as err:
+            from dmlc_tpu_torch.obs import flight
+
             log_warning("%s", err)
+            flight.record_event("snap.superseded", version=version)
         except (DMLCError, OSError) as err:
             fb = self._fallback_manager()
             if fb is None or _config_error(err):
@@ -290,6 +297,10 @@ class JobSnapshot(CheckpointManager):
             log_warning("job snapshot v%d commit to %s failed (%s); "
                         "degrading to fallback %s", version, self.uri, err,
                         fb.uri)
+            from dmlc_tpu_torch.obs import flight
+
+            flight.record_event("ckpt.fallback", version=version,
+                                uri=self.uri, error=str(err))
             fb._version = version - 1
             fb._commit_snapshot(version, state, meta)
             self.last_part_bytes = fb.last_part_bytes
@@ -314,6 +325,12 @@ class JobSnapshot(CheckpointManager):
         head = b"%08x\n" % (zlib.crc32(body) & 0xFFFFFFFF)
         atomic_write(self._manifest_uri(version), head + body)
         self._write_latest(version)
+        from dmlc_tpu_torch.obs import flight
+
+        flight.record_event(
+            "snap.commit", version=version, parts=len(parts),
+            bytes=sum(p["size"] for p in parts),
+        )
 
     def _write_part(self, version: int, state: Any) -> bytes:
         buf = MemoryStream()

@@ -16,16 +16,30 @@ surfaces from both as :class:`DMLCError`, the error
 ``collective.run_with_recovery`` recovers from; recovery aborts the
 group, starts a new default group and builds a new ``DeviceEngine`` over
 it (``collective.reinit_recover``).
+
+Observability, on the reference's names: each engine op counts
+``dmlc_collective_ops_total`` / ``dmlc_collective_moved_bytes_total`` and
+times ``dmlc_collective_op_ns`` (the goodput ledger's collective stage)
+inside an ``allreduce`` / ``broadcast`` / ``barrier`` span that steps
+the in-flight chunk's flow; the engine's staging copies are metered
+(``dmlc_feed_h2d_*{feed="collective"}``, ``dmlc_collective_d2h_bytes_total``);
+the reduction is the ``collective.reduce`` instrumented site; and both
+the engine and :func:`bucketed_all_reduce` add the bytes they move to a
+step-cost recording (``obs.xla_cost.note_collective``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlc_tpu_torch import obs
+from dmlc_tpu_torch.obs.device_telemetry import h2d_meter, instrumented_step
+from dmlc_tpu_torch.obs.xla_cost import note_collective
 from dmlc_tpu_torch.utils.logging import DMLCError
 
 _REDUCE_OPS = {
@@ -50,6 +64,7 @@ def bucketed_all_reduce(tensors: Sequence[torch.Tensor],
         by_dtype.setdefault(t.dtype, []).append(i)
     for idxs in by_dtype.values():
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        note_collective(flat.numel() * flat.element_size())
         try:
             dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
         except RuntimeError as err:
@@ -91,6 +106,66 @@ class DeviceEngine:
                       if nccl else torch.device("cpu"))
         self.device = torch.device(device)
         self._aborted = False
+        self._reduce_fns: dict = {}
+        # host-array staging accounting: None when device telemetry is
+        # off (then no timing and no byte walk)
+        self._h2d = (h2d_meter(feed="collective")
+                     if self.device.type == "cuda" else None)
+        self._m_d2h = (
+            obs.registry().counter(
+                "dmlc_collective_d2h_bytes_total",
+                "device->host result bytes copied back by host-path "
+                "collectives (the copy the in-graph SPMD path eliminates)",
+                op="allreduce",
+            )
+            if self._h2d is not None
+            else None
+        )
+
+    def _reduce_fn(self, op: str):
+        """The in-place reduction of one staged tensor over the group, as
+        the ``collective.reduce`` instrumented site (the reference's
+        jitted reduction)."""
+        fn = self._reduce_fns.get(op)
+        if fn is None:
+            group = self.group
+            if op == "bitor":
+                def reduce_fn(t):
+                    parts = [torch.empty_like(t)
+                             for _ in range(self.world_size)]
+                    note_collective(t.numel() * t.element_size()
+                                    * self.world_size)
+                    dist.all_gather(parts, t, group=group)
+                    out = parts[0]
+                    for part in parts[1:]:
+                        out = torch.bitwise_or(out, part)
+                    return out
+            else:
+                reduce_op = _REDUCE_OPS[op]
+
+                def reduce_fn(t):
+                    note_collective(t.numel() * t.element_size())
+                    dist.all_reduce(t, op=reduce_op, group=group)
+                    return t
+            fn = instrumented_step(reduce_fn, "collective.reduce")
+            self._reduce_fns[op] = fn
+        return fn
+
+    @staticmethod
+    def _record(what: str, nbytes: int, t0: int) -> None:
+        """Count a completed host collective in the obs registry (per
+        call: the registry hands back the same child for a repeated
+        (name, labels) pair)."""
+        reg = obs.registry()
+        reg.counter(
+            "dmlc_collective_ops_total", "host collectives completed",
+            op=what).inc()
+        reg.counter(
+            "dmlc_collective_moved_bytes_total",
+            "payload bytes through host collectives", op=what).inc(nbytes)
+        reg.histogram(
+            "dmlc_collective_op_ns", "per-op host collective latency",
+            op=what).observe(time.monotonic_ns() - t0)
 
     def _check_live(self) -> None:
         if self._aborted:
@@ -127,19 +202,25 @@ class DeviceEngine:
             raise ValueError(f"unknown op {op!r}")
         if op == "bitor" and arr.dtype.kind not in "iub":
             raise TypeError(f"bitor needs an integer dtype, got {arr.dtype}")
+        t0 = time.monotonic_ns()
         if self.world_size == 1:
+            self._record("allreduce", int(arr.nbytes), t0)
             return arr
         try:
+            t_h2d = time.monotonic_ns()
             t = self._tensor(arr)
-            if op == "bitor":
-                parts = [torch.empty_like(t) for _ in range(self.world_size)]
-                dist.all_gather(parts, t, group=self.group)
-                t = parts[0]
-                for part in parts[1:]:
-                    t = torch.bitwise_or(t, part)
-            else:
-                dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.group)
-            return t.cpu().numpy()
+            if self._h2d is not None:
+                self._h2d.note(int(arr.nbytes), time.monotonic_ns() - t_h2d)
+            with obs.span("allreduce", op=op, nbytes=int(arr.nbytes)):
+                # mark the in-flight chunk (set by DeviceFeed around the
+                # consume yield) so the op slice joins its arrow chain
+                obs.flow_step(obs.current_flow(), "chunk")
+                t = self._reduce_fn(op)(t)
+            res = t.cpu().numpy()
+            if self._m_d2h is not None:
+                self._m_d2h.inc(int(res.nbytes))
+            self._record("allreduce", int(arr.nbytes), t0)
+            return res
         except RuntimeError as err:
             raise self._fail(err, "allreduce") from err
 
@@ -152,10 +233,13 @@ class DeviceEngine:
         waiting in the collective."""
         self._check_live()
         is_root = self.rank == root
+        t0 = time.monotonic_ns()
         if self.world_size == 1:
             if array is None:
                 raise TypeError("broadcast root must supply data")
-            return self._validate(array)
+            arr = self._validate(array)
+            self._record("broadcast", int(arr.nbytes), t0)
+            return arr
         header = np.zeros(self._HDR_SLOTS, dtype=np.int64)
         arr = None
         root_err: Optional[Exception] = None
@@ -190,9 +274,13 @@ class DeviceEngine:
             shape = tuple(int(d) for d in header[1:1 + int(header[0])])
             arr = np.zeros(shape, dtype=self._DTYPES[int(header[-1])])
         try:
-            t = self._tensor(arr)
-            dist.broadcast(t, src=self._global(root), group=self.group)
-            return t.cpu().numpy()
+            with obs.span("broadcast", root=root, nbytes=int(arr.nbytes)):
+                obs.flow_step(obs.current_flow(), "chunk")
+                t = self._tensor(arr)
+                dist.broadcast(t, src=self._global(root), group=self.group)
+                out = t.cpu().numpy()
+            self._record("broadcast", int(arr.nbytes), t0)
+            return out
         except RuntimeError as err:
             raise self._fail(err, "broadcast") from err
 
@@ -212,15 +300,18 @@ class DeviceEngine:
         """Wait for every rank: a one-element all_reduce on the engine's
         device (NCCL's own barrier guesses a device)."""
         self._check_live()
-        if self.world_size == 1:
-            return
-        try:
-            dist.all_reduce(torch.zeros(1, device=self.device),
-                            group=self.group)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        except RuntimeError as err:
-            raise self._fail(err, "barrier") from err
+        t0 = time.monotonic_ns()
+        if self.world_size > 1:
+            try:
+                with obs.span("barrier"):
+                    obs.flow_step(obs.current_flow(), "chunk")
+                    dist.all_reduce(torch.zeros(1, device=self.device),
+                                    group=self.group)
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+            except RuntimeError as err:
+                raise self._fail(err, "barrier") from err
+        self._record("barrier", 0, t0)
 
     def abort(self) -> None:
         """Mark the engine dead: collectives raise DMLCError until a new

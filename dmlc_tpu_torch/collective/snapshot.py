@@ -4,9 +4,10 @@ port of ``dmlc_tpu/collective/snapshot.py``).
 - :meth:`Snapshotter.capture` runs at an epoch boundary on the training
   thread: it makes a host copy of the state tree (``_to_host``: the copy
   the next epoch's in-place steps may not touch) and hands it to the
-  writer. Its time is ``stats()["capture_ns"]``.
+  writer. Its time is ``stats()["capture_ns"]`` and
+  ``dmlc_snap_capture_ns`` (the goodput ledger's checkpoint stage).
 - A writer thread serializes and two-phase-commits the snapshot
-  (``stats()["write_ns"]``), off the step path.
+  (``stats()["write_ns"]``, ``dmlc_snap_write_ns``), off the step path.
 
 The writer holds one *newest-wins* slot, not a queue: if epoch N's
 snapshot is still waiting when N+1's capture lands, N+1 replaces it
@@ -29,6 +30,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.collective.checkpoint import JobSnapshot, _to_host
 from dmlc_tpu_torch.resilience import preempt
 from dmlc_tpu_torch.utils.logging import log_info, log_warning
@@ -56,6 +58,24 @@ class Snapshotter:
         self._stats: Dict[str, Any] = {"capture_ns": [], "write_ns": [],
                                        "commits": 0, "skipped": 0,
                                        "bytes": 0}
+        reg = obs.registry()
+        self._h_capture = reg.histogram(
+            "dmlc_snap_capture_ns",
+            "per-snapshot device->host state capture on the training "
+            "thread (the goodput ledger's checkpoint stage)")
+        self._h_write = reg.histogram(
+            "dmlc_snap_write_ns",
+            "per-snapshot serialize + two-phase commit on the writer "
+            "thread (off the step path)")
+        self._m_commits = reg.counter(
+            "dmlc_snap_commits_total", "job snapshots committed")
+        self._m_skipped = reg.counter(
+            "dmlc_snap_skipped_total",
+            "captured snapshots superseded before the writer started "
+            "them (newest-wins slot)")
+        self._m_bytes = reg.counter(
+            "dmlc_snap_bytes_total",
+            "serialized snapshot part bytes written by this rank")
         self._cond = threading.Condition()
         self._slot: Optional[Tuple[int, Any, Optional[Dict]]] = None
         self._pending: Optional[Tuple[int, Any, Optional[Dict]]] = None
@@ -81,8 +101,10 @@ class Snapshotter:
         enqueued."""
         t0 = time.monotonic_ns()
         host = _to_host(state() if callable(state) else state)
+        capture_ns = time.monotonic_ns() - t0
+        self._h_capture.observe(capture_ns)
         with self._cond:
-            self._stats["capture_ns"].append(time.monotonic_ns() - t0)
+            self._stats["capture_ns"].append(capture_ns)
             self._pending = (epoch, host, meta)
             if force or self._due_locked(epoch):
                 self._enqueue_locked()
@@ -163,6 +185,7 @@ class Snapshotter:
     def _enqueue_locked(self) -> None:
         if self._slot is not None:
             self._stats["skipped"] += 1
+            self._m_skipped.inc()
         self._slot = self._pending
         self._cond.notify_all()
 
@@ -181,8 +204,12 @@ class Snapshotter:
                 t0 = time.monotonic_ns()
                 self._snap.commit(state, meta=dict(meta or {}, epoch=epoch),
                                   version=version)
+                write_ns = time.monotonic_ns() - t0
+                self._h_write.observe(write_ns)
+                self._m_commits.inc()
+                self._m_bytes.inc(self._snap.last_part_bytes)
                 with self._cond:
-                    self._stats["write_ns"].append(time.monotonic_ns() - t0)
+                    self._stats["write_ns"].append(write_ns)
                     self._stats["commits"] += 1
                     self._stats["bytes"] += self._snap.last_part_bytes
                     self._committed_epoch = max(self._committed_epoch, epoch)
@@ -199,16 +226,32 @@ class Snapshotter:
 
 
 def load_snapshot(snap: JobSnapshot):
-    """Restore the newest committed snapshot: ``(version, state, meta)``,
-    ``(0, None, {})`` when none is committed. The port has no audit plane
-    yet: a state tree written by the JAX package carries its digest-chain
-    heads under ``audit``, which are read and ignored."""
+    """Restore the newest committed snapshot and re-arm the audit:
+    ``(version, state, meta)``, ``(0, None, {})`` when none is committed.
+    A state tree carrying an ``audit`` section (exported digest-chain
+    state, of either package) is re-injected into the process auditor, so
+    the resumed run's chains extend the interrupted run's; a
+    ``resume.verified`` flight event records the resume."""
+    t0 = time.monotonic_ns()
     version, state, meta = snap.restore()
+    obs.registry().histogram(
+        "dmlc_snap_restore_ns",
+        "manifest + part read and state restore on resume",
+    ).observe(time.monotonic_ns() - t0)
     if not version or state is None:
         return version, state, meta
-    if isinstance(state, dict) and state.get("audit"):
-        log_info("job snapshot v%d carries audit chain heads; the port has "
-                 "no audit plane, so they are ignored", version)
-    log_info("resumed from job snapshot v%d (epoch %s)", version,
-             (meta or {}).get("epoch", "?"))
+    audit_restored = False
+    audit_state = state.get("audit") if isinstance(state, dict) else None
+    if audit_state:
+        from dmlc_tpu_torch.obs.audit import auditor
+
+        audit_restored = auditor().restore_state(audit_state)
+    from dmlc_tpu_torch.obs import flight
+
+    flight.record_event("resume.verified", version=version,
+                        epoch=(meta or {}).get("epoch", -1),
+                        audit=audit_restored)
+    log_info("resumed from job snapshot v%d (epoch %s, audit %s)", version,
+             (meta or {}).get("epoch", "?"),
+             "re-armed" if audit_restored else "fresh")
     return version, state, meta

@@ -19,10 +19,13 @@ the port of ``dmlc_tpu/data/parsers.py``'s Python stack.
   (src/data.cc:62-85); with ``threaded=True`` a ``Parser`` comes wrapped in
   the cross-chunk ``data/pipeline.PipelinedParser``.
 
-Every parser takes ``device`` (None means cuda, see utils/device.py). The
-JAX package's native C++ core, audit hooks, shards and RecordIO are not
-ported, and it has knobs (``DMLC_TPU_PARSE_BACKEND``, ``DMLC_TPU_NTHREAD``)
-that have no counterpart here.
+Every parser takes ``device`` (None means cuda, see utils/device.py).
+``create_parser`` stamps the audit's shard signature
+(``obs.audit.Auditor.set_shard``); the chunk and parse digests are taken
+in ``data/pipeline.PipelinedParser``. The JAX package's native C++ core,
+shards and RecordIO are not ported, and it has knobs
+(``DMLC_TPU_PARSE_BACKEND``, ``DMLC_TPU_NTHREAD``) that have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -320,6 +323,12 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         raise DMLCError(
             f"unknown data format {data_format!r}; known: "
             f"{PARSER_REGISTRY.list_all_names()}")
+    # stamp the determinism auditor's shard signature so digest chains
+    # only compare across runs and ranks reading the same (uri, part)
+    # slice (obs/audit.py; the no-op child when DMLC_TPU_AUDIT is off)
+    from dmlc_tpu_torch.obs import audit
+
+    audit.auditor().set_shard(uri, part_index, num_parts)
     source = create_input_split(uri, part_index, num_parts, "text")
     base = entry(source, args, nthread, device)
     if not threaded:

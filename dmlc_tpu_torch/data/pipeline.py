@@ -15,21 +15,57 @@ Each worker calls the base's ``parse_chunk``: a libsvm chunk is tokenized
 by the ``tokenize_boundaries`` kernel on the parser's device, from several
 threads at once.
 
-The JAX package's process pool (``DMLC_TPU_PARSE_PROCS``), its audit
-chain and its flow tracing are not ported; ``stats()`` keeps the stage
-counters as plain numbers.
+Stage accounting lives in the obs registry under the reference's names:
+``dmlc_pipeline_chunks_total``, the worker parse time
+``dmlc_pipeline_parse_ns`` and the consumer's wait on the window's head
+``dmlc_pipeline_consumer_wait_ns``; ``stats()`` reads them back (chunks
+off the in-order seq, so it stays live under ``DMLC_TPU_METRICS=0``).
+
+When tracing is armed each chunk gets a flow id (``obs.new_flow``) at
+read time: the ``io_read`` span starts the flow, the worker's ``parse``
+span steps it — the id rides the task, since ``current_flow`` is per
+thread — and the id rides the emitted RowBlock (``block.flow_id``) so the
+DeviceFeed extends the chain. The determinism auditor digests each
+chunk's bytes at read (``io_read``) and its parsed container on the
+worker (``parse``), keyed by the epoch-relative chunk seq; the
+``audit.corrupt`` faultpoint flips one digit after the io_read digest, so
+only the parse chain forks.
+
+The JAX package's process pool (``DMLC_TPU_PARSE_PROCS``) is not ported.
 """
 
 from __future__ import annotations
 
-import threading
+import itertools
 import time
 from typing import Iterator, Optional
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.data.parsers import DEFAULT_NTHREAD, Parser
 from dmlc_tpu_torch.data.row_block import RowBlock
 from dmlc_tpu_torch.io.readahead import OrderedWindow
+from dmlc_tpu_torch.obs import audit
+from dmlc_tpu_torch.resilience import InjectedFault, faultpoint
 from dmlc_tpu_torch.utils.logging import check
+
+_PIPE_IDS = itertools.count()  # per-instance obs label (pipe="c0")
+
+
+def _corrupt_chunk(chunk):
+    """``audit.corrupt`` payload: nudge the first ASCII digit so the chunk
+    stays parseable but its content forks — the parse-stage digest
+    diverges while the io_read digest (taken before this point) stays
+    clean, localizing the fault to ``parse``."""
+    text = isinstance(chunk, str)
+    try:
+        buf = bytearray(chunk.encode() if text else chunk)
+    except (TypeError, ValueError):
+        return chunk
+    for i, c in enumerate(buf):
+        if 0x30 <= c <= 0x38:  # '0'..'8': +1 keeps it a digit
+            buf[i] = c + 1
+            return buf.decode() if text else bytes(buf)
+    return chunk
 
 
 class PipelinedParser:
@@ -54,13 +90,26 @@ class PipelinedParser:
         self._nthread = max(1, DEFAULT_NTHREAD if nthread is None
                             else nthread)
         self._window_arg = window
-        # lifetime stage counters (ns): parse time summed over the workers
-        # (it can exceed wall time), and the time next_block waited on the
-        # window's head
-        self._lock = threading.Lock()
-        self._chunks = 0
-        self._parse_ns = 0
-        self._wait_ns = 0
+        # stage counters in the obs registry (docs/observability.md);
+        # parse time is summed across workers (it can exceed wall time),
+        # consumer_wait is time next_block blocked on the window's head
+        pid = "c%d" % next(_PIPE_IDS)
+        reg = obs.registry()
+        self._m_chunks = reg.counter(
+            "dmlc_pipeline_chunks_total", "chunks submitted to the window",
+            pipe=pid)
+        self._h_parse = reg.histogram(
+            "dmlc_pipeline_parse_ns", "per-chunk worker parse time",
+            pipe=pid)
+        self._h_wait = reg.histogram(
+            "dmlc_pipeline_consumer_wait_ns",
+            "per-pop consumer wait on the queue head", pipe=pid)
+        self._seq = 0  # in-order chunk id (span labels, audit keys)
+        # the auditor keys chunk digests on the epoch-relative seq
+        # (self._seq - _epoch_base) so chains line up across epochs and
+        # ranks; the no-op child when DMLC_TPU_AUDIT is off
+        self._audit = audit.auditor()
+        self._epoch_base = 0
         self._win: Optional[OrderedWindow] = None
         self._eof = False
         self._closed = False
@@ -72,25 +121,43 @@ class PipelinedParser:
                                   name="pipelined-parse")
         self._eof = False
 
-    def _parse_timed(self, chunk: bytes):
+    def _parse_timed(self, task):
+        seq, fid, chunk = task
         t0 = time.monotonic_ns()
         try:
-            return self._base.parse_chunk(chunk)
+            with obs.span("parse", chunk=seq, flow=fid):
+                obs.flow_step(fid, "chunk")
+                faultpoint("parse.chunk")
+                # audit fault: flip one byte AFTER the io_read digest so
+                # only the parse chain forks (localization)
+                try:
+                    faultpoint("audit.corrupt")
+                except InjectedFault:
+                    chunk = _corrupt_chunk(chunk)
+                container = self._base.parse_chunk(chunk)
+            container.flow_id = fid
+            self._audit.note_parse(seq - self._epoch_base, container)
+            return container
         finally:
-            with self._lock:
-                self._parse_ns += time.monotonic_ns() - t0
+            self._h_parse.observe(time.monotonic_ns() - t0)
 
     def _fill(self) -> None:
         """Top the window up with fresh chunks (the producer half; it runs
         on the consumer's thread, so a full window simply stops the
         chunk reads)."""
         while not self._eof and self._win.free_slots > 0:
-            chunk = self._base.next_chunk()
+            fid = obs.new_flow()
+            with obs.span("io_read", chunk=self._seq, flow=fid):
+                chunk = self._base.next_chunk()
+                if chunk is not None:
+                    obs.flow_start(fid, "chunk")
             if chunk is None:
                 self._eof = True
                 return
-            self._chunks += 1
-            self._win.submit(chunk)
+            self._m_chunks.inc()
+            self._audit.note_chunk(self._seq - self._epoch_base, chunk)
+            self._win.submit((self._seq, fid, chunk))
+            self._seq += 1
 
     # ---- Parser surface -------------------------------------------------
     @property
@@ -111,9 +178,13 @@ class PipelinedParser:
             try:
                 container = self._win.pop()
             finally:
-                self._wait_ns += time.monotonic_ns() - t0
+                self._h_wait.observe(time.monotonic_ns() - t0)
             if len(container):
-                return container.to_block()
+                block = container.to_block()
+                fid = getattr(container, "flow_id", 0)
+                if fid:
+                    block.flow_id = fid
+                return block
             # empty chunk (blank lines): keep pulling
 
     def __iter__(self) -> Iterator[RowBlock]:
@@ -131,14 +202,16 @@ class PipelinedParser:
         self._win.close()
         self._base.before_first()
         self._open()
+        self._epoch_base = self._seq
 
     def stats(self) -> dict:
-        """Stage counters over the parser's lifetime: chunks submitted,
-        worker parse ns (summed over workers), consumer wait ns."""
-        with self._lock:
-            parse_ns = self._parse_ns
-        return {"chunks": self._chunks, "parse_ns": parse_ns,
-                "consumer_wait_ns": self._wait_ns,
+        """Stage counters over the parser's lifetime, shaped like the
+        reference's (ns): chunks submitted, worker parse ns (summed over
+        workers), consumer wait ns — timings read off the obs registry
+        children, chunks off the in-order seq."""
+        return {"chunks": int(self._seq),
+                "parse_ns": int(self._h_parse.sum),
+                "consumer_wait_ns": int(self._h_wait.sum),
                 "nthread": self._nthread, "window": self._win.window}
 
     def close(self) -> None:

@@ -131,6 +131,36 @@ class RowBlock:
         """max feature index + 1 (basic_row_iter.h:46)."""
         return int(self.index.max()) + 1 if len(self.index) else 0
 
+    def audit_arrays(self):
+        """Canonical field-major array stream for the determinism-audit
+        digest (obs/audit.py): ``[(tag, [array, ...]), ...]``, the JAX
+        package's stream byte for byte.
+
+        Defined over the block's *logical* content — per-row lengths
+        instead of cumulative offsets (slice-rebase invariant), and the
+        reference's NULL-pointer defaults materialized (missing
+        value/weight → ones, missing qid → zeros, data.h:120-158) — so a
+        :class:`RowBlockContainer` hashes byte-identically to the
+        ``to_block()`` it would produce, and two pipelines that deliver
+        the same rows digest equal however the rows were chunked or
+        sliced."""
+        n = len(self.label)
+        nnz = len(self.index)
+        out = [
+            (b"label", [self.label]),
+            (b"counts", [np.diff(self.offset)]),
+            (b"index", [self.index]),
+            (b"value", [np.ones(nnz, dtype=REAL_DTYPE)
+                        if self.value is None else self.value]),
+            (b"weight", [np.ones(n, dtype=REAL_DTYPE)
+                         if self.weight is None else self.weight]),
+            (b"qid", [np.zeros(n, dtype=np.int64)
+                      if self.qid is None else self.qid]),
+        ]
+        if self.field is not None:
+            out.append((b"field", [self.field]))
+        return out
+
     def to_dense(self, num_col: Optional[int] = None) -> np.ndarray:
         """A dense [rows, num_col] f32 copy (for tests and small data)."""
         ncol = num_col if num_col is not None else self.num_col()
@@ -245,6 +275,34 @@ class RowBlockContainer:
             qid=block.qid,
             field=block.field,
         )
+
+    def audit_arrays(self):
+        """The container twin of :meth:`RowBlock.audit_arrays`: the same
+        canonical stream walked part by part, *without* ``to_block``'s
+        concatenation — field-major over parts, neutral defaults filled
+        per part. Parts hash back to back within a field, so this is
+        byte-identical to ``self.to_block().audit_arrays()``."""
+        out = [
+            (b"label", list(self._label_parts)),
+            (b"counts", list(self._count_parts)),
+            (b"index", list(self._index_parts)),
+            (b"value", [
+                np.ones(len(idx), dtype=REAL_DTYPE) if v is None else v
+                for v, idx in zip(self._value_parts, self._index_parts)
+            ]),
+            (b"weight", [
+                np.ones(len(lbl), dtype=REAL_DTYPE) if w is None else w
+                for w, lbl in zip(self._weight_parts, self._label_parts)
+            ]),
+            (b"qid", [
+                np.zeros(len(lbl), dtype=np.int64) if q is None else q
+                for q, lbl in zip(self._qid_parts, self._label_parts)
+            ]),
+        ]
+        fields_present = [f for f in self._field_parts if f is not None]
+        if fields_present:
+            out.append((b"field", fields_present))
+        return out
 
     @staticmethod
     def _cat(parts, empty_dtype):

@@ -25,12 +25,20 @@ import os
 import re
 from typing import List, Optional, Tuple
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.io.filesystem import local_path
 from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 
 # 8 MiB chunk buffer (kBufferSize, src/io/input_split_base.h)
 DEFAULT_CHUNK_BYTES = (2 << 20) * 4
+
+
+# process-wide ingest byte counter (docs/observability.md); every split's
+# raw reads funnel through it
+_M_READ = obs.registry().counter(
+    "dmlc_io_read_bytes_total", "payload bytes ingested by source",
+    source="input_split")
 
 
 def _expand_patterns(uri: str) -> List[str]:
@@ -205,6 +213,7 @@ class InputSplitBase:
             self._file_ptr += 1
             self._close_stream()
             self._stream = self._open(self._file_ptr)
+        _M_READ.inc(size - nleft)
         if len(parts) == 1:
             return parts[0]
         return b"".join(parts)

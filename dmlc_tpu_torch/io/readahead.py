@@ -4,9 +4,10 @@
 Work fans out over ``workers`` threads and comes back strictly in
 submission order behind a window of at most ``window`` items in flight or
 buffered, so memory stays at ~window × item size. The pipelined chunk
-parser (``data/pipeline.PipelinedParser``) is built on it. The JAX
+parser (``data/pipeline.PipelinedParser``) is built on it, and it counts
+``dmlc_readahead_{submitted,completed,cancelled}_total``. The JAX
 package's remote range reader (``RemotePartitionReader``) waits for the
-remote filesystems, and its obs counters for the port's obs layer.
+remote filesystems.
 """
 
 from __future__ import annotations
@@ -43,6 +44,20 @@ class OrderedWindow:
             max_workers=self.workers, thread_name_prefix=name)
         self._pending: deque = deque()
         self._closed = False
+        # process-wide stage counters (all windows share them: windows are
+        # transient, and totals are what skew reports want)
+        from dmlc_tpu_torch import obs  # deferred: io is a low layer
+
+        reg = obs.registry()
+        self._m_submitted = reg.counter(
+            "dmlc_readahead_submitted_total",
+            "items submitted to ordered windows")
+        self._m_completed = reg.counter(
+            "dmlc_readahead_completed_total",
+            "items delivered in order from ordered windows")
+        self._m_cancelled = reg.counter(
+            "dmlc_readahead_cancelled_total",
+            "pending items cancelled at window close")
 
     def __len__(self) -> int:
         return len(self._pending)
@@ -53,6 +68,7 @@ class OrderedWindow:
 
     def submit(self, item) -> None:
         check(not self._closed, "OrderedWindow is closed")
+        self._m_submitted.inc()
         self._pending.append(self._pool.submit(self._fn, item))
 
     def pop(self):
@@ -62,10 +78,12 @@ class OrderedWindow:
         out-of-order survivors."""
         fut = self._pending.popleft()
         try:
-            return fut.result()
+            out = fut.result()
         except BaseException:
             self.close()
             raise
+        self._m_completed.inc()
+        return out
 
     def close(self) -> None:
         """Cancel pending work and release the pool (idempotent). Work
@@ -73,6 +91,8 @@ class OrderedWindow:
         if self._closed:
             return
         self._closed = True
+        if self._pending:
+            self._m_cancelled.inc(len(self._pending))
         for fut in self._pending:
             fut.cancel()
         self._pending.clear()

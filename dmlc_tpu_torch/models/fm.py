@@ -24,20 +24,26 @@ Steps:
 files) with the preemption-proof job snapshots of ``collective.snapshot``.
 A learner built with a group re-places its params after a membership
 rebuild (``models.linear.listen_membership``, the reference's membership
-callback). The reference's fit-loop observability is not ported yet.
+callback). The fit loop carries the reference's observability: the
+``fm.step`` instrumented site, ``epoch`` / ``train_step`` spans on the
+chunks' flows, and ``models.fitloop.FitLoopObs`` at each epoch boundary.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.collective.device import bucketed_all_reduce
 from dmlc_tpu_torch.models.linear import (EpochMetrics, current_group,
                                           listen_membership, step_batch)
+from dmlc_tpu_torch.obs import audit
+from dmlc_tpu_torch.obs.device_telemetry import instrumented_step
 from dmlc_tpu_torch.ops.kernels import coo_segment_sum
 from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
 from dmlc_tpu_torch.ops.spmv import (expand_row_ids, feature_segment_sum,
@@ -164,7 +170,7 @@ def make_fm_train_step(group=None, num_features: int = 0,
         params = _apply(params, gw, gb, gv, wsum)
         return params, {"loss_sum": loss_sum, "weight_sum": wsum}
 
-    return step
+    return instrumented_step(step, "fm.step")
 
 
 class FMLearner:
@@ -229,7 +235,7 @@ class FMLearner:
         self._step = None
 
     def fit_feed(self, feed, epochs: int = 1, snapshotter=None,
-                 start_epoch: int = 0, history=None):
+                 start_epoch: int = 0, history=None, log_every: int = 0):
         """Train over a csr DeviceFeed; returns the per-epoch mean losses.
 
         With ``snapshotter`` (a ``collective.Snapshotter``) each epoch
@@ -239,48 +245,62 @@ class FMLearner:
         snapshot within the grace window and raises ``Preempted`` (exit
         75). ``start_epoch`` / ``history`` continue a resumed run, from
         ``collective.load_snapshot``'s state; the returned history covers
-        every epoch, the restored ones too."""
+        every epoch, the restored ones too. ``log_every`` > 0 logs the
+        unified epoch line every that many epochs."""
+        from dmlc_tpu_torch.models.fitloop import FitLoopObs
+
         check(feed.spec.layout == "csr", "FM consumes csr batches")
         check(feed.device == self.device,
               "feed device %s and learner device %s differ", feed.device,
               self.device)
+        fl = FitLoopObs("fm")
         history = list(history) if history else []
         for epoch in range(start_epoch, epochs):
             acc = EpochMetrics()
             nstep = 0
             preempted = False
-            for batch in feed:
-                self._ensure(self.param.num_features)
-                self.params, metrics = self._step(self.params,
-                                                  step_batch(batch, "csr"))
-                acc.add(metrics)
-                nstep += 1
-                if snapshotter is not None and preempt.poll():
-                    preempted = True
-                    break
+            t0 = time.monotonic_ns()
+            with obs.span("epoch", model="fm", epoch=epoch):
+                for batch in feed:
+                    self._ensure(self.param.num_features)
+                    with obs.span("train_step", model="fm", step=nstep):
+                        obs.flow_step(obs.current_flow(), "chunk")
+                        self.params, metrics = self._step(
+                            self.params, step_batch(batch, "csr"))
+                    acc.add(metrics)
+                    fl.note_step()
+                    fl.sample_latency(metrics)
+                    nstep += 1
+                    if snapshotter is not None and preempt.poll():
+                        preempted = True
+                        break
             if preempted:
                 snapshotter.finalize()
                 raise Preempted(
                     "preempted in epoch %d after %d steps; last committed "
                     "snapshot epoch %d"
                     % (epoch, nstep, snapshotter.committed_epoch))
-            history.append(acc.mean_loss())
-            if snapshotter is not None:
-                snapshotter.capture(
-                    epoch, self._snapshot_state(feed, epoch, history))
+            loss = acc.mean_loss()
+            history.append(loss)
+            fl.end_epoch(
+                epoch, nstep, t0, loss, feed=feed, log_every=log_every,
+                params=self.params, snapshotter=snapshotter,
+                snap_state=(None if snapshotter is None else
+                            lambda e=epoch: self._snapshot_state(
+                                feed, e, history)))
             if epoch + 1 < epochs:
                 feed.before_first()
         return history
 
     def _snapshot_state(self, feed, epoch: int, history) -> Dict:
         """The job-snapshot state tree at one epoch boundary (FM has no
-        velocity). ``audit`` is None: the port has no audit plane yet."""
+        velocity), with the audit's resumable chain state."""
         state = {
             "model": {"params": dict(self.params)},
             "epoch": int(epoch),
             "history": [float(x) for x in history],
             "rng": None,
-            "audit": None,
+            "audit": audit.auditor().export_state(),
         }
         parser = getattr(feed, "_parser", None)
         if hasattr(parser, "snapshot_state"):

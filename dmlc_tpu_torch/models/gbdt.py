@@ -38,20 +38,30 @@ in one copy.
 Absent sparse entries densify to 0.0 and bin like any value; a NaN lands
 in the last bin (the reference's semantics, not xgboost's missing-value
 direction).
+
+Observability follows the reference: the forest, each tree build, the
+gradient and the margin update are instrumented sites (``gbdt.forest``,
+``gbdt.build_tree``, ``gbdt.grad``, ``gbdt.margin_update``), ``fit_uri``
+bins each chunk in a ``bin_block`` span that ends its flow, and one fit
+is one ``FitLoopObs`` epoch whose trees are its steps (the epoch
+histogram is the goodput ledger's device_step for a feed-less fit).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.collective.device import DeviceEngine, \
     bucketed_all_reduce
 from dmlc_tpu_torch.io.filesystem import create_stream
 from dmlc_tpu_torch.io.serializer import load_obj, save_obj
+from dmlc_tpu_torch.obs.device_telemetry import instrumented_step
 from dmlc_tpu_torch.params.parameter import Parameter, field
 from dmlc_tpu_torch.utils import prng
 from dmlc_tpu_torch.utils.device import resolve_device
@@ -504,7 +514,7 @@ def make_tree_builder(max_depth: int, num_bins: int, reg_lambda: float,
             group=group,
             feat_mask=maybe_mask[0] if with_feat_mask else None)
 
-    return build
+    return instrumented_step(build, "gbdt.build_tree")
 
 
 def make_forest_builder(
@@ -542,6 +552,16 @@ def make_forest_builder(
           "replicated model after fit")
     offsets = _tree_level_offsets(max_depth)
     rank = None if group is None else dist.get_rank(group)
+    build = make_tree_builder(max_depth, num_bins, reg_lambda,
+                              min_child_weight, group,
+                              with_feat_mask=colsample < 1.0)
+    grad = instrumented_step(
+        lambda margin, y, w: _grad_loss_core(objective, margin, y, w, group),
+        "gbdt.grad")
+    margin_update = instrumented_step(
+        lambda margin, leaf, node: _margin_update_core(
+            margin, leaf, node, learning_rate),
+        "gbdt.margin_update")
 
     def forest(xb, y, *rest):
         i = 0
@@ -568,17 +588,16 @@ def make_forest_builder(
         vmargin = zero_margin(xe.shape[0]) if with_eval else None
         feats, bins, gains, leaves, losses, vlosses = [], [], [], [], [], []
         for t in range(num_trees):
-            g, h, loss = _grad_loss_core(objective, margin, y, w, group)
+            g, h, loss = grad(margin, y, w)
             row_mask = masks[t][0]
             if row_mask is not None:
                 rexp = row_mask if g.ndim == 1 else row_mask[:, None]
                 g = g * rexp
                 h = h * rexp
-            feature, split_bin, gain, leaf, node = _build_tree_core(
-                xb, g, h, max_depth, num_bins, reg_lambda, min_child_weight,
-                group,
-                feat_mask=None if feat_masks is None else feat_masks[t])
-            margin = _margin_update_core(margin, leaf, node, learning_rate)
+            mask_args = () if feat_masks is None else (feat_masks[t],)
+            feature, split_bin, gain, leaf, node = build(xb, g, h,
+                                                         *mask_args)
+            margin = margin_update(margin, leaf, node)
             if with_eval:
                 vnode = _descend_tree(xe, feature, split_bin, max_depth,
                                       offsets)
@@ -598,7 +617,9 @@ def make_forest_builder(
             return trees, torch.stack(losses), torch.stack(vlosses)
         return trees, torch.stack(losses)
 
-    return forest
+    # its body is the gbdt.grad / build_tree / margin_update sites: its
+    # record is theirs summed, and the trees never run under the cost mode
+    return instrumented_step(forest, "gbdt.forest", composite=True)
 
 
 def _tree_level_offsets(max_depth: int) -> np.ndarray:
@@ -812,8 +833,14 @@ class GBDTLearner:
             xb_parts, y_parts, w_parts = [], [], []
             any_weight = False
             for block in parser:
-                xb_parts.append(_apply_bins_np(
-                    block.to_dense(num_features), self.edges, p.num_bins))
+                # no DeviceFeed here: the binning slice ends each
+                # pipelined chunk's flow
+                fid = getattr(block, "flow_id", 0)
+                with obs.span("bin_block", rows=len(block), flow=fid):
+                    obs.flow_end(fid, "chunk")
+                    xb_parts.append(_apply_bins_np(
+                        block.to_dense(num_features), self.edges,
+                        p.num_bins))
                 y_parts.append(np.asarray(block.label, dtype=np.float32))
                 # libsvm label:weight rows carry instance weights
                 if block.weight is not None:
@@ -845,7 +872,14 @@ class GBDTLearner:
     def _fit_binned(self, xb, y: np.ndarray, log_every: int,
                     weight: Optional[np.ndarray] = None,
                     eval_xb=None, eval_y=None):
+        from dmlc_tpu_torch.models.fitloop import FitLoopObs
+
         p = self.param
+        # one fit = one FitLoopObs "epoch" whose trees are the steps: the
+        # same metrics, goodput window and watchdog pass as the
+        # feed-driven learners
+        fl = FitLoopObs("gbdt")
+        t_fit = time.monotonic_ns()
         if p.objective == "softmax":
             # out-of-range ids would one-hot to nonsense: clean errors here
             check(p.num_class >= 2,
@@ -876,7 +910,8 @@ class GBDTLearner:
             weighted=weighted, num_class=p.num_class, with_eval=with_eval,
             subsample=p.subsample, colsample=p.colsample_bytree,
             seed=p.seed, log_every=log_every)
-        out = forest(*args)
+        with obs.span("fit", model="gbdt", trees=p.num_trees):
+            out = forest(*args)
         self.eval_history = None
         self.best_iteration = None
         if with_eval:
@@ -884,7 +919,11 @@ class GBDTLearner:
             self._set_eval_history(vlosses.cpu().numpy())
         else:
             self.trees, losses = out
-        return [float(v) for v in losses.cpu().numpy()]
+        history = [float(v) for v in losses.cpu().numpy()]
+        fl.note_step(len(history))
+        fl.end_epoch(0, len(history), t_fit,
+                     history[-1] if history else None)
+        return history
 
     # ---- predict -------------------------------------------------------
     def predict_margin(self, x: np.ndarray) -> np.ndarray:

@@ -32,6 +32,7 @@ stable sort (``ops/spmv.py``). So a run repeats its bits on either route.
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Dict, Optional
 
@@ -39,10 +40,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from dmlc_tpu_torch import collective
+from dmlc_tpu_torch import collective, obs
 from dmlc_tpu_torch.collective.device import bucketed_all_reduce
 from dmlc_tpu_torch.io.filesystem import create_stream
 from dmlc_tpu_torch.io.serializer import load_obj, save_obj
+from dmlc_tpu_torch.obs import audit
+from dmlc_tpu_torch.obs.device_telemetry import instrumented_step
 from dmlc_tpu_torch.ops.kernels import fused_linear_grads
 from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
 from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_kernel, \
@@ -227,7 +230,7 @@ def make_linear_train_step(
         params, velocity = _apply(params, velocity, gw, gb, wsum)
         return params, velocity, {"loss_sum": loss_sum, "weight_sum": wsum}
 
-    return step
+    return instrumented_step(step, "linear.step")
 
 
 def make_hostsync_train_step(
@@ -261,7 +264,7 @@ def make_hostsync_train_step(
         return params, velocity, {"loss_sum": reduced[n + 1],
                                   "weight_sum": reduced[n + 2]}
 
-    return step
+    return instrumented_step(step, "linear.step")
 
 
 def make_feature_sharded_train_step(
@@ -308,7 +311,7 @@ def make_feature_sharded_train_step(
         }
         return new_params, {"loss_sum": loss_sum, "weight_sum": wsum}
 
-    return step
+    return instrumented_step(step, "linear.step_mp")
 
 
 class EpochMetrics:
@@ -494,6 +497,7 @@ class LinearLearner:
         snapshot_uri: Optional[str] = None,
         resume: bool = False,
         snap_every_epochs: int = 1,
+        log_every: int = 0,
     ):
         """One call from data uri to fitted params: InputSplit part →
         parser (tokenizing on the learner's device) → DeviceFeed →
@@ -509,7 +513,10 @@ class LinearLearner:
         and a SIGTERM mid-epoch commits the last boundary's state and
         exits with code 75. ``resume=True`` first loads the newest
         committed snapshot and continues at the next epoch: the result is
-        bit-identical to a run that was never stopped."""
+        bit-identical to a run that was never stopped. ``log_every`` > 0
+        logs the running loss every that many steps and the unified epoch
+        line (stall breakdown, goodput, binding stage) every that many
+        epochs."""
         from dmlc_tpu_torch.data.parsers import create_parser
         from dmlc_tpu_torch.device.feed import BatchSpec, DeviceFeed
 
@@ -529,7 +536,8 @@ class LinearLearner:
         )
         try:
             if snapshot_uri is None:
-                return self.fit_feed(feed, epochs=epochs)
+                return self.fit_feed(feed, epochs=epochs,
+                                     log_every=log_every)
             snap = collective.JobSnapshot(
                 snapshot_uri, rank=collective.rank(),
                 world_size=collective.world_size())
@@ -547,14 +555,14 @@ class LinearLearner:
                 return self.fit_feed(feed, epochs=epochs,
                                      snapshotter=snapshotter,
                                      start_epoch=start_epoch,
-                                     history=history)
+                                     history=history, log_every=log_every)
             finally:
                 snapshotter.close()
         finally:
             feed.close()
 
     def fit_feed(self, feed, epochs: int = 1, snapshotter=None,
-                 start_epoch: int = 0, history=None):
+                 start_epoch: int = 0, history=None, log_every: int = 0):
         """Train over a DeviceFeed for N epochs; returns per-epoch losses.
 
         With ``snapshotter`` (a ``collective.Snapshotter``) each epoch
@@ -565,50 +573,77 @@ class LinearLearner:
         the relaunch bit-identical), finalizes the freshest boundary
         snapshot within the grace window and raises ``Preempted`` (exit
         75). ``start_epoch`` / ``history`` continue a resumed run; the
-        returned history covers every epoch, the restored ones too."""
+        returned history covers every epoch, the restored ones too.
+
+        Each epoch is an ``epoch`` span and each step a ``train_step``
+        span that steps the in-flight chunk's flow; ``FitLoopObs`` closes
+        the epoch (metrics, goodput window, watchdog, audit, export)."""
+        from dmlc_tpu_torch.models.fitloop import FitLoopObs
+        from dmlc_tpu_torch.utils.logging import log_info
+
         check(feed.device == self.device,
               "feed device %s and learner device %s differ", feed.device,
               self.device)
         layout = feed.spec.layout
+        fl = FitLoopObs("linear")
         history = list(history) if history else []
         for epoch in range(start_epoch, epochs):
             acc = EpochMetrics()
             nstep = 0
             preempted = False
-            for batch in feed:
-                self._ensure(feed.spec.num_features, layout)
-                self.params, self.velocity, metrics = self._step(
-                    self.params, self.velocity, step_batch(batch, layout))
-                acc.add(metrics)
-                nstep += 1
-                if snapshotter is not None and preempt.poll():
-                    preempted = True
-                    break
+            t0 = time.monotonic_ns()
+            with obs.span("epoch", model="linear", epoch=epoch):
+                for batch in feed:
+                    self._ensure(feed.spec.num_features, layout)
+                    # train_step marks the chunk: the feed set the
+                    # thread's current flow around this yield
+                    with obs.span("train_step", model="linear", step=nstep):
+                        obs.flow_step(obs.current_flow(), "chunk")
+                        self.params, self.velocity, metrics = self._step(
+                            self.params, self.velocity,
+                            step_batch(batch, layout))
+                    acc.add(metrics)
+                    fl.note_step()
+                    # every DMLC_TPU_STEP_SAMPLE_N-th step: one timed
+                    # stream sync -> dmlc_step_device_ms
+                    fl.sample_latency(metrics)
+                    nstep += 1
+                    if log_every and nstep % log_every == 0:
+                        log_info("epoch %d step %d loss %.6f", epoch, nstep,
+                                 acc.mean_loss())
+                    if snapshotter is not None and preempt.poll():
+                        preempted = True
+                        break
             if preempted:
                 snapshotter.finalize()
                 raise Preempted(
                     "preempted in epoch %d after %d steps; last committed "
                     "snapshot epoch %d"
                     % (epoch, nstep, snapshotter.committed_epoch))
-            history.append(acc.mean_loss())
-            if snapshotter is not None:
-                snapshotter.capture(
-                    epoch, self._snapshot_state(feed, epoch, history))
+            loss = acc.mean_loss()
+            history.append(loss)
+            fl.end_epoch(
+                epoch, nstep, t0, loss, feed=feed, log_every=log_every,
+                params=self.params, snapshotter=snapshotter,
+                snap_state=(None if snapshotter is None else
+                            lambda e=epoch: self._snapshot_state(
+                                feed, e, history)))
             if epoch + 1 < epochs:
                 feed.before_first()
         return history
 
     def _snapshot_state(self, feed, epoch: int, history) -> Dict:
-        """The job-snapshot state tree at one epoch boundary: the JAX
-        package's layout, with ``audit`` None (the port has no audit plane
-        yet). The snapshotter host-copies it before the next step."""
+        """The job-snapshot state tree at one epoch boundary, the JAX
+        package's layout (the audit's resumable chain state under
+        ``audit``). The snapshotter host-copies it before the next
+        step."""
         state = {
             "model": {"params": dict(self.params),
                       "velocity": dict(self.velocity or {})},
             "epoch": int(epoch),
             "history": [float(x) for x in history],
             "rng": None,  # the SGD path draws no step-time randomness
-            "audit": None,
+            "audit": audit.auditor().export_state(),
         }
         parser = getattr(feed, "_parser", None)
         if hasattr(parser, "snapshot_state"):

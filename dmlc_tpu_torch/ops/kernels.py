@@ -22,6 +22,12 @@ that its main path went through the kernel; :func:`count_launch` adds one
 under a lock, since the parsers launch from several threads at once.
 Kernels launch on the current CUDA stream and allocate nothing: the wrapper
 allocates outputs and scratch.
+
+The kernels are ctypes calls no ``TorchDispatchMode`` can see, so the
+wrappers on the training path (fused_linear_grads, coo_segment_sum,
+tokenize_boundaries) are ``obs.xla_cost.costed``: inside a step-cost
+recording each adds its own flops and bytes (the formulas of PERF.md's
+kernel bounds) on either route, and hides its own torch ops.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import threading
 
 import torch
 
+from dmlc_tpu_torch.obs.xla_cost import costed
 from dmlc_tpu_torch.ops import _build
 from dmlc_tpu_torch.ops.attention import (
     full_attention,
@@ -130,6 +137,15 @@ def _arrival_counter(dev, stream):
     return counter
 
 
+def _fused_cost(x, label, weight, w, b, objective="logistic"):
+    """(flops, bytes): 4 operations an element of x; x, label, weight, w,
+    b read once, gw and the 3 scalars written once."""
+    rows, features = x.shape
+    return (4 * rows * features,
+            4 * (rows * features + 2 * rows + 2 * features + 4))
+
+
+@costed(_fused_cost)
 def fused_linear_grads(x, label, weight, w, b, objective="logistic"):
     """(gw [F], gb, loss_sum, weight_sum) for a dense batch in one kernel.
 
@@ -194,6 +210,17 @@ def coo_segment_sum_plain(contrib, row_ids, num_rows: int):
         torch.where(keep_entries, contrib, torch.zeros_like(contrib)))
 
 
+def _seg_sum_cost(contrib, row_ids, num_rows: int):
+    """(flops, bytes): one add an entry and column; contrib and the int32
+    row ids read once, the [rows, C] sums written once (E·C·4 + E·4 +
+    rows·C·4)."""
+    entries = contrib.shape[0]
+    cols = 1 if contrib.dim() == 1 else contrib.shape[1]
+    return (entries * cols,
+            entries * cols * 4 + entries * 4 + num_rows * cols * 4)
+
+
+@costed(_seg_sum_cost)
 def coo_segment_sum(contrib, row_ids, num_rows: int):
     """``y[r] = Σ_{e: row_ids[e]==r} contrib[e]`` for r in [0, num_rows).
 
@@ -402,6 +429,12 @@ def tokenize_boundaries_plain(a):
     return starts, ends
 
 
+def _token_cost(a):
+    """(flops, bytes): n bytes read, two n-byte masks written (3n)."""
+    return 0, 3 * a.shape[0]
+
+
+@costed(_token_cost)
 def tokenize_boundaries(a):
     """(starts, ends) bool [n]: the token start and end masks of the uint8
     chunk ``a`` [n], as :func:`tokenize_boundaries_plain` defines them.

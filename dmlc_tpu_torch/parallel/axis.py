@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from dmlc_tpu_torch.obs.xla_cost import note_collective
 from dmlc_tpu_torch.utils.logging import check
 
 
@@ -85,6 +86,8 @@ def _permute(x: torch.Tensor, group, perm) -> torch.Tensor:
     recv = torch.empty_like(send)
     ops = []
     if dst:
+        # the bytes this rank sends, for a step-cost recording
+        note_collective(send.numel() * send.element_size())
         ops.append(dist.P2POp(dist.isend, send, _global_rank(group, dst[0]),
                               group=group))
     if src:
@@ -227,6 +230,7 @@ def _exchange(x: torch.Tensor, group, split_dim: int,
           split_dim, tuple(x.shape), n)
     send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
     recv = torch.empty_like(send)
+    note_collective(send.numel() * send.element_size())
     dist.all_to_all_single(recv, send, group=group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 

@@ -131,6 +131,14 @@ def faultpoint(site: str) -> None:
             return
         _fired.append((site, rule.passes))
         passes = rule.passes
+    # deferred imports: only on the (rare) fire path
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import flight
+
+    obs.registry().counter(
+        "dmlc_fault_injected_total",
+        "faults fired by the injection harness", site=site).inc()
+    flight.record_event("fault.injected", site=site, n=passes)
     raise InjectedFault(f"injected fault at {site} (pass {passes})")
 
 

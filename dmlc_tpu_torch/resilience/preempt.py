@@ -19,7 +19,9 @@ This module turns that into a cooperative protocol:
 ``faults.configure``) turns the K-th poll into a notice without a signal.
 The grace window is ``install``'s ``deadline_s`` or the job's
 ``DMLC_TPU_PREEMPT_DEADLINE_S`` setting (default 30 s). Notices are
-counted in :func:`stats`.
+counted in :func:`stats` and ``dmlc_preempt_notices_total``, and each
+leaves a ``preempt.notice`` flight event. A flight recorder installed
+after this handler chains to it (obs/flight.py).
 """
 
 from __future__ import annotations
@@ -103,6 +105,17 @@ def notice(source: str) -> None:
     _notice_at = time.monotonic()
     _notices += 1
     _requested.set()
+    # signal-safe enough: counters are a lock-and-add, and the flight
+    # recorder appends to a deque
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import flight
+
+    obs.registry().counter(
+        "dmlc_preempt_notices_total",
+        "preemption notices received (SIGTERM or injected)",
+    ).inc()
+    flight.record_event("preempt.notice", source=source,
+                        deadline_s=deadline_s())
     log_info("preemption notice (%s): snapshot deadline %.1fs", source,
              deadline_s())
 

@@ -95,6 +95,19 @@ _giveups: Dict[str, int] = {}
 def _count(table: Dict[str, int], site: str) -> None:
     with _stats_lock:
         table[site] = table.get(site, 0) + 1
+    # the registry mirror (the reference's names); deferred: resilience
+    # is below obs's dependencies
+    from dmlc_tpu_torch import obs
+
+    if table is _attempts:
+        obs.registry().counter(
+            "dmlc_retry_attempts_total", "retries performed, by call site",
+            site=site).inc()
+    else:
+        obs.registry().counter(
+            "dmlc_retry_giveups_total",
+            "operations abandoned after exhausting retries",
+            site=site).inc()
 
 
 def stats() -> Dict[str, Dict[str, int]]:
@@ -127,6 +140,13 @@ class RetryState:
 
     def _give_up(self, err: BaseException, why: str):
         _count(_giveups, self.site)
+        # flight-recorder tail: the give-up is the moment whose preceding
+        # seconds a post-mortem wants; an injected fault also dumps
+        from dmlc_tpu_torch.obs import flight
+
+        flight.record_event("retry.giveup", site=self.site, why=why,
+                            error=str(err))
+        flight.dump_if_injected(err)
         raise DMLCError(f"{self.display}: gave up after "
                         f"{self.total_attempts} attempt(s) ({why}): "
                         f"{err}") from err

@@ -55,6 +55,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from dmlc_tpu_torch.obs import flight
 from dmlc_tpu_torch.resilience.faults import InjectedFault, faultpoint
 from dmlc_tpu_torch.resilience.retry import RetryPolicy
 from dmlc_tpu_torch.utils.logging import DMLCError
@@ -425,6 +426,8 @@ class RabitTracker:
             logger.warning("evicting rank %d: no heartbeat for more than "
                            "%.1fs", rank, self.evict_after)
             self._note_membership("evict", rank=rank)
+            flight.record_event("member.evict", rank=rank,
+                                after_s=self.evict_after)
         if evicted and self._target_version == self.world_version:
             self._target_version = self.world_version + 1
         return evicted
@@ -522,6 +525,9 @@ class RabitTracker:
             self._evicted_ranks.clear()
             self._note_membership("rebuild", world_version=self.world_version,
                                   world=new_world)
+            flight.record_event("member.rebuild",
+                                world_version=self.world_version,
+                                world=new_world)
             logger.info("@tracker generation %d committed: world=%d",
                         self.world_version, new_world)
 
@@ -596,6 +602,8 @@ class RabitTracker:
                         self._target_version = self.world_version + 1
                     self._note_membership("join", jobid=worker.jobid,
                                           spare=is_spare)
+                    flight.record_event("member.join", jobid=worker.jobid,
+                                        spare=is_spare)
                     logger.info("parked %s joiner %s",
                                 "spare" if is_spare else "grow",
                                 worker.jobid)
@@ -729,6 +737,9 @@ class RabitTracker:
             self._target_version = self.world_version + 1
         self._note_membership("rebuild", world_version=self.world_version,
                               world=num_workers)
+        flight.record_event("member.rebuild",
+                            world_version=self.world_version,
+                            world=num_workers)
 
     def start(self, num_workers: Optional[int] = None) -> None:
         n = num_workers if num_workers is not None else self.num_workers

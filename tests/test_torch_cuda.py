@@ -540,3 +540,91 @@ def test_crash_recover_csr_fit_through_the_launcher(cuda, tmp_path):
     for rep in out["crash"]["ranks"].values():
         assert rep["launches"]["coo_segment_sum"] == rep["steps"] > 0
     assert out["crash"]["ranks"][1]["attempt"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the observability layer on the card
+# ---------------------------------------------------------------------------
+
+
+def test_probed_peaks_are_positive_on_the_card(cuda):
+    from dmlc_tpu_torch.obs import xla_cost
+
+    xla_cost.reset()
+    # cuBLAS's workspace, which a process keeps from its first matmul on,
+    # is made before the reading
+    torch.ones(8, 8, device=cuda) @ torch.ones(8, 8, device=cuda)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(cuda)
+    try:
+        assert xla_cost.probed_peak_flops() > 1e12
+        assert xla_cost.probed_hbm_gbps() > 100
+    finally:
+        xla_cost.reset()
+    # the probes' private pool is released: the allocator keeps none of it
+    assert torch.cuda.memory_reserved(cuda) == reserved
+
+
+def test_hbm_gauge_equals_memory_allocated(cuda):
+    from dmlc_tpu_torch.obs import device_telemetry
+    from dmlc_tpu_torch.obs.metrics import Registry
+
+    keep = torch.empty(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    reg = Registry()
+    out = device_telemetry.sample(reg)
+    label = "cuda:%d" % torch.cuda.current_device()
+    assert out["hbm"][label] == torch.cuda.memory_allocated(cuda)
+    flat = reg.flat_values()
+    assert flat['dmlc_device_hbm_bytes{device="%s"}' % label] == \
+        torch.cuda.memory_allocated(cuda)
+    assert flat['dmlc_device_hbm_limit_bytes{device="%s"}' % label] == \
+        torch.cuda.mem_get_info(cuda)[1]
+    assert device_telemetry.peak_hbm_bytes() >= keep.numel() * 4
+
+
+def test_capture_profile_writes_cuda_kernels(cuda, tmp_path):
+    import json
+
+    from dmlc_tpu_torch.obs import device_telemetry
+
+    x = torch.randn(2048, 2048, device=cuda)
+    th = device_telemetry.capture_profile(1.0, out_dir=str(tmp_path))
+    for _ in range(200):
+        x = x @ x * 1e-3
+    torch.cuda.synchronize()
+    th.join()
+    events = json.loads(
+        (tmp_path / "profile-rank0-req0" / "trace.json").read_text())
+    kernels_seen = [e for e in events.get("traceEvents", [])
+                    if e.get("cat") == "kernel"]
+    assert kernels_seen
+
+
+def test_capture_profile_raises_its_error_on_the_card(cuda, tmp_path):
+    from dmlc_tpu_torch.obs import device_telemetry
+
+    blocker = tmp_path / "not_a_dir"
+    blocker.write_text("")
+    with pytest.raises(OSError):
+        device_telemetry.capture_profile(0.1, out_dir=str(blocker))
+
+
+def test_a_recording_reads_the_peak_and_keeps_the_callers(cuda):
+    from dmlc_tpu_torch.obs import device_telemetry, xla_cost
+    from dmlc_tpu_torch.obs.metrics import Registry
+
+    xla_cost.reset()
+    torch.cuda.synchronize()
+    big = torch.empty(1 << 26, device=cuda)  # 256 MiB, then freed
+    del big
+    high = torch.cuda.max_memory_allocated(cuda)
+    x = torch.ones(1 << 20, device=cuda)
+    step = device_telemetry.InstrumentedStep(
+        lambda t: (t * 2 + 1).sum(), "t.card", reg=Registry())
+    step(x)
+    rec = xla_cost.per_fn()["t.card"]
+    # t * 2 and + 1 are 4 MiB each, alive together for the add
+    assert rec["peak_bytes"] >= 2 * x.numel() * 4
+    assert torch.cuda.max_memory_allocated(cuda) == high
+    xla_cost.reset()

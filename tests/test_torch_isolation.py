@@ -142,6 +142,68 @@ def test_import_and_cpu_fit_load_no_jax_and_no_reference(tmp_path):
     assert "LOADED []" in out.stdout, out.stdout
 
 
+_ARMED_FIT = """
+import sys
+import dmlc_tpu_torch.obs
+from dmlc_tpu_torch import collective, obs
+from dmlc_tpu_torch.models import GBDTLearner, LinearLearner
+from dmlc_tpu_torch.models.fitloop import FitLoopObs
+from dmlc_tpu_torch.obs import (aggregate, audit, device_telemetry,
+                                exporters, flight, goodput, sentry,
+                                watchdog, xla_cost)
+collective.init()
+for layout in ("dense", "csr"):
+    LinearLearner(device="cpu").fit_uri(sys.argv[1], batch_size=4, epochs=2,
+                                        layout=layout, num_features=8,
+                                        log_every=1)
+GBDTLearner(device="cpu", num_trees=2, max_depth=2,
+            num_bins=4).fit_uri(sys.argv[1], num_features=8)
+device_telemetry.sample()
+device_telemetry.capture_profile(0.05, block=True)
+assert xla_cost.probed_peak_flops() > 0
+assert sentry.gate(sentry.record_values(sentry.smoke_degraded()),
+                   sentry.metric_series(sentry.SMOKE_HISTORY))
+assert audit.auditor().snapshot()["chains"]["model"] == 2
+obs.flush_trace()
+collective.finalize()
+loaded = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "dmlc_tpu")
+    or m.startswith(("jax.", "jaxlib.", "dmlc_tpu."))
+)
+print("LOADED", loaded)
+"""
+
+
+def test_fit_with_the_observability_layer_armed_loads_no_jax(tmp_path):
+    """The subprocess fits again with every observability setting on: the
+    layer's modules load neither JAX nor the reference package either."""
+    data = tmp_path / "tiny.svm"
+    data.write_text("".join(
+        f"{i % 2} 1:{i * 0.1:.2f} {2 + i % 5}:1.5 7:0.25\n" for i in range(11)
+    ))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    env.update({
+        "DMLC_TPU_METRICS": "1", "DMLC_TPU_DEVICE_TELEMETRY": "1",
+        "DMLC_TPU_TRACE": str(tmp_path / "trace.json"),
+        "DMLC_TPU_METRICS_EXPORT": str(tmp_path / "m.prom"),
+        "DMLC_TPU_FLIGHTREC": str(tmp_path / "rec"),
+        "DMLC_TPU_AUDIT": "full", "DMLC_TPU_STEP_SAMPLE_N": "1",
+        "DMLC_TPU_HBM_POLL_S": "0.05",
+    })
+    out = subprocess.run(
+        [sys.executable, "-c", _ARMED_FIT, str(data)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert (tmp_path / "trace.json").exists()
+    assert "dmlc_fit_steps_total" in (tmp_path / "m.prom").read_text()
+    assert list((tmp_path / "rec").glob("profile-rank0-req0/trace.json"))
+
+
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
     from dmlc_tpu_torch.models import (GBDTLearner, LinearLearner,

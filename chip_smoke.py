@@ -268,15 +268,36 @@ non-zero exit and no result line:
    ``flightrec-rank0.json``; (d) rows/s of the dense and csr fits and
    rows·trees/s of the GBDT fit with the defaults, with
    ``DMLC_TPU_METRICS=0`` and fully armed, the median of ``OBS_RUNS`` runs
-   each.
+   each;
+21. the binary ingest formats on the card (``drive_formats``): (a) phase
+   12's file converted on the card by ``convert_to_recordio`` (row groups
+   of ``REC_ROWS`` rows, then ``build_index``) and by ``bake_dataset``
+   (``BAKE_PARTS`` shard files, windows of ``SHARD_ROWS`` rows), one
+   tokenizer launch a chunk part, each file byte-equal to the same
+   conversion on the CPU route; (b) ``create_row_block_iter`` on the card
+   over the text, the ``.rec`` (``?format=recordio``), the ``.dtsh`` parts
+   (mmap, then ``DMLC_TPU_SHARD_MMAP=0``) and a ``shuffle_chunks`` text
+   read, and ``create_parser`` over a text ``#cachefile``
+   (``CachedInputSplit``) cold and warm: every unshuffled route's rows
+   equal the text route's bit for bit, the shuffled read holds the same
+   rows in another order, the binary routes launch the tokenizer 0
+   times; (c) phase 6's csr fit from its ``.rec`` and ``.dtsh``: losses
+   and params bit-identical to phase 6's text fit on the card,
+   ``coo_segment_sum`` once a step, no tokenizer launch; (d) the shuffled
+   shard fit (``RESUME_EPOCHS`` epochs) in a ``--snap-rank`` child that
+   takes a SIGTERM as it enters epoch ``SIGNAL_AT_EPOCH`` and exits 75,
+   relaunched with ``resume=True``: its saved model equals the
+   uninterrupted shuffled fit's byte for byte. Seconds of each
+   conversion, MB/s and rows/s of each route, rows/s of each fit.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
-and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20) and
-``phase_seconds`` (each phase's wall seconds); the last lines are the
+and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
+``formats`` line (phase 21) and ``phase_seconds`` (each phase's wall
+seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -439,6 +460,13 @@ MOE_REL = FIT_PARAM_REL
 # the 2-stage pipeline of tests/test_pipeline_parallel.py's _mlp_stage at
 # D = 4096, batch 4096 in 8 microbatches
 PIPE_D, PIPE_BATCH, PIPE_M, PIPE_STAGES = 4096, 4096, 8, 2
+# phase 21: phase 12's file converted to row groups of REC_ROWS rows and
+# baked to BAKE_PARTS shard files of windows of SHARD_ROWS rows (the JAX
+# package's defaults); the shuffled reads' seed; the resumed shard fit's
+# epochs, the child paused (then signalled) as it enters SIGNAL_AT_EPOCH
+REC_ROWS, SHARD_ROWS, BAKE_PARTS = 1024, 4096, 2
+SHUFFLE_SEED = 7
+RESUME_EPOCHS, SIGNAL_AT_EPOCH = 3, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -2645,6 +2673,8 @@ def snap_rank(spec_path: str) -> int:
     ends it with exit code 75 once the last boundary is committed."""
     with open(spec_path) as fh:
         spec = json.load(fh)
+    if spec.get("pause_epoch"):
+        pause_feed_at(spec["pause_epoch"], spec["marker"])
     learner = snap_linear_fit(spec["file"], spec["epochs"],
                               snapshot_uri=spec["snap"],
                               resume=spec["resume"])[2]
@@ -2652,10 +2682,34 @@ def snap_rank(spec_path: str) -> int:
     return 0
 
 
+def pause_feed_at(epoch: int, marker: str) -> None:
+    """In a ``--snap-rank`` child: the feed, entering ``epoch``, writes
+    ``marker`` and waits for ``marker + ".sent"`` (the parent's SIGTERM has
+    been sent by then), so that the signal lands in that epoch while the
+    fit still runs."""
+    from dmlc_tpu_torch.device import DeviceFeed
+
+    real, calls = DeviceFeed.before_first, [0]
+
+    def before_first(self):
+        real(self)
+        calls[0] += 1
+        if calls[0] == epoch:
+            open(marker, "w").close()
+            deadline = time.monotonic() + RANK_TIMEOUT_S
+            while not os.path.exists(marker + ".sent"):
+                require(time.monotonic() < deadline, "no signal in %d s",
+                        RANK_TIMEOUT_S)
+                time.sleep(0.01)
+
+    DeviceFeed.before_first = before_first
+
+
 def run_snap_child(spec: dict, tmp: str, signal_after_commit: bool):
     """Start a ``--snap-rank`` child; with ``signal_after_commit``, send it
-    SIGTERM once its first manifest has committed (it must still be
-    running then). Returns (exit code, seconds, the log's tail)."""
+    SIGTERM once its first manifest has committed, or, when the spec names
+    a ``marker``, once the child has written it (it must still be running
+    then). Returns (exit code, seconds, the log's tail)."""
     import signal
 
     path = os.path.join(tmp, "snap_spec.json")
@@ -2669,16 +2723,19 @@ def run_snap_child(spec: dict, tmp: str, signal_after_commit: bool):
     try:
         deadline = time.monotonic() + RANK_TIMEOUT_S
         if signal_after_commit:
-            manifest = os.path.join(spec["snap"], "snap_v1.manifest")
-            while not os.path.exists(manifest):
+            wait_for = spec.get("marker") or os.path.join(
+                spec["snap"], "snap_v1.manifest")
+            while not os.path.exists(wait_for):
                 require(proc.poll() is None, "snapshot child exited with %s "
-                        "before its first manifest", proc.returncode)
-                require(time.monotonic() < deadline, "no manifest in %d s",
-                        RANK_TIMEOUT_S)
+                        "before %s", proc.returncode, wait_for)
+                require(time.monotonic() < deadline, "no %s in %d s",
+                        wait_for, RANK_TIMEOUT_S)
                 time.sleep(0.01)
             require(proc.poll() is None, "the snapshot child finished "
                     "before the signal: give it more epochs")
             proc.send_signal(signal.SIGTERM)
+            if spec.get("marker"):
+                open(spec["marker"] + ".sent", "w").close()
         proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     finally:
         if proc.poll() is None:
@@ -4236,6 +4293,257 @@ def obs_summary(card, report) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the binary ingest formats on the card
+# ---------------------------------------------------------------------------
+
+
+def row_fingerprints(block) -> np.ndarray:
+    """One uint64 a row of (label, ids, values), sorted: equal for two
+    blocks holding the same rows in any order."""
+    ids = block.index.astype(np.uint64)
+    vals = block.value.view(np.uint32).astype(np.uint64)
+    mixed = (ids * np.uint64(0x9E3779B97F4A7C15)) ^ (
+        vals * np.uint64(0xBF58476D1CE4E5B9))
+    rows = np.zeros(len(block), dtype=np.uint64)
+    nonempty = np.diff(block.offset) > 0
+    starts = block.offset[:-1][nonempty]
+    rows[nonempty] = np.add.reduceat(mixed, starts)
+    return np.sort(rows ^ block.label.view(np.uint32).astype(np.uint64))
+
+
+def files_equal(a: str, b: str) -> bool:
+    import filecmp
+
+    return filecmp.cmp(a, b, shallow=False)
+
+
+def drive_formats(kernels, dev, ingest_file, csr_file, csr_path, csr_params,
+                  tmp) -> dict:
+    """Phase 21 (the module docstring)."""
+    from dmlc_tpu_torch.collective import JobSnapshot
+    from dmlc_tpu_torch.data import (RowBlockContainer, convert_to_recordio,
+                                     create_parser, create_row_block_iter)
+    from dmlc_tpu_torch.io import build_index
+    from dmlc_tpu_torch.tools.bake import bake_dataset, part_path
+
+    report = {"file_bytes": os.path.getsize(ingest_file)}
+    card_dir, cpu_dir = os.path.join(tmp, "card"), os.path.join(tmp, "cpu")
+    os.makedirs(card_dir)
+    os.makedirs(cpu_dir)
+
+    def tokenized(what, fn, binary=False):
+        """(fn's result, seconds, tokenizer launches); the launches must
+        equal the non-empty chunk parts handed to the libsvm parser, and
+        be 0 on a binary route."""
+        kernels.reset_launch_counts()
+        with count_parts() as parts:
+            t0 = time.perf_counter()
+            out = fn()
+            seconds = time.perf_counter() - t0
+        launches = kernels.tokenize_boundaries.launches
+        require(launches == len(parts) and (launches > 0) != binary,
+                "%s: %d tokenizer launches for %d chunk parts", what,
+                launches, len(parts))
+        return out, seconds, launches
+
+    # (a) text -> .rec (+ index) and .dtsh on the card, byte-equal to the
+    # CPU route's files
+    rec = os.path.join(card_dir, "criteo.rec")
+    dtsh = os.path.join(card_dir, "criteo.dtsh")
+    rows, rec_s, rec_launches = tokenized(
+        "convert_to_recordio", lambda: convert_to_recordio(
+            ingest_file, rec, rows_per_group=REC_ROWS, device=dev))
+    require(rows == INGEST_ROWS, "convert_to_recordio wrote %d rows", rows)
+    t0 = time.perf_counter()
+    groups = build_index(rec, rec + ".idx")
+    index_s = time.perf_counter() - t0
+    # a group never spans two parsed blocks (chunks): at least one a
+    # REC_ROWS rows
+    require(groups >= -(-INGEST_ROWS // REC_ROWS), "build_index: %d records",
+            groups)
+    baked, bake_s, bake_launches = tokenized(
+        "bake", lambda: bake_dataset(ingest_file, dtsh, nparts=BAKE_PARTS,
+                                     rows_per_window=SHARD_ROWS, device=dev))
+    require(baked["rows"] == INGEST_ROWS and not baked["skipped"],
+            "bake: %s", baked)
+    cpu_rec = os.path.join(cpu_dir, "criteo.rec")
+    cpu_dtsh = os.path.join(cpu_dir, "criteo.dtsh")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    convert_to_recordio(ingest_file, cpu_rec, rows_per_group=REC_ROWS,
+                        device="cpu")
+    cpu_rec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bake_dataset(ingest_file, cpu_dtsh, nparts=BAKE_PARTS,
+                 rows_per_window=SHARD_ROWS, device="cpu")
+    cpu_bake_s = time.perf_counter() - t0
+    require(kernels.tokenize_boundaries.launches == 0,
+            "the CPU route's conversions launched a kernel")
+    require(files_equal(rec, cpu_rec),
+            "the card's .rec differs from the CPU route's")
+    dtsh_files = [part_path(dtsh, k, BAKE_PARTS) for k in range(BAKE_PARTS)]
+    for k, path in enumerate(dtsh_files):
+        require(files_equal(path, part_path(cpu_dtsh, k, BAKE_PARTS)),
+                "the card's shard part %d differs from the CPU route's", k)
+    mb = report["file_bytes"] / 1e6
+    report["convert"] = {
+        "rec": {"seconds": rec_s, "text_mb_per_s": mb / rec_s,
+                "tokenize_launches": rec_launches, "groups": groups,
+                "index_seconds": index_s, "cpu_seconds": cpu_rec_s,
+                "bytes": os.path.getsize(rec), "byte_equal_to_cpu": True},
+        "dtsh": {"seconds": bake_s, "text_mb_per_s": mb / bake_s,
+                 "tokenize_launches": bake_launches, "parts": BAKE_PARTS,
+                 "cpu_seconds": cpu_bake_s, "bytes": baked["bytes"],
+                 "byte_equal_to_cpu": True}}
+    print(json.dumps({"formats_convert": report["convert"]}), flush=True)
+
+    # (b) every route through create_row_block_iter / create_parser on the
+    # card
+    def read_iter(uri):
+        return read_all(create_row_block_iter(uri, device=dev))[0]
+
+    def read_parser(uri):
+        parser = create_parser(uri, device=dev)
+        cont = RowBlockContainer()
+        try:
+            for block in parser:
+                cont.push_block(block)
+        finally:
+            parser.close()
+        return cont.to_block()
+
+    dtsh_uri = os.path.join(card_dir, r"criteo-.*\.dtsh")
+    cache = os.path.join(tmp, "criteo.chunks")
+    routes = (
+        ("text", lambda: read_iter(ingest_file), ingest_file, False),
+        ("rec", lambda: read_iter(rec + "?format=recordio"), rec, True),
+        ("dtsh_mmap", lambda: read_iter(dtsh_uri), dtsh_files, True),
+        ("dtsh_read", lambda: read_iter(dtsh_uri), dtsh_files, True),
+        ("text_shuffle_chunks", lambda: read_iter(
+            "%s?shuffle_chunks=%d" % (ingest_file, SHUFFLE_SEED)),
+         ingest_file, False),
+        ("text_cachefile_cold", lambda: read_parser(ingest_file + "#" + cache),
+         ingest_file, False),
+        ("text_cachefile_warm", lambda: read_parser(ingest_file + "#" + cache),
+         cache, False),
+    )
+    ingest, text = {}, None
+    for name, read, files, binary in routes:
+        if name == "dtsh_read":
+            os.environ["DMLC_TPU_SHARD_MMAP"] = "0"
+        try:
+            block, seconds, launches = tokenized(name, read, binary)
+        finally:
+            os.environ.pop("DMLC_TPU_SHARD_MMAP", None)
+        nbytes = sum(os.path.getsize(f) for f in
+                     ([files] if isinstance(files, str) else files))
+        if text is None:
+            text = block
+        elif name == "text_shuffle_chunks":
+            require(len(block) == len(text) and not (
+                np.array_equal(block.offset, text.offset)
+                and np.array_equal(block.index, text.index)),
+                "the shuffled read kept the text order (%d rows)",
+                len(block))
+            require(np.array_equal(row_fingerprints(block),
+                                   row_fingerprints(text)),
+                    "the shuffled read holds other rows than the text's")
+        else:
+            same_blocks("ingest from %s (against the text route)" % name,
+                        block, text)
+        ingest[name] = {"seconds": seconds, "bytes": nbytes,
+                        "mb_per_s": nbytes / 1e6 / seconds,
+                        "rows_per_s": len(block) / seconds,
+                        "tokenize_launches": launches}
+        del block
+    require(len(text) == INGEST_ROWS, "the text route read %d rows",
+            len(text))
+    del text
+    report["ingest"] = ingest
+    print(json.dumps({"formats_ingest": ingest}), flush=True)
+
+    # (c) phase 6's csr fit from .rec and .dtsh: phase 6's bits
+    fit_rec = os.path.join(card_dir, "criteo_fit.rec")
+    fit_dtsh = os.path.join(card_dir, "criteo_fit.dtsh")
+    convert_to_recordio(csr_file, fit_rec, rows_per_group=REC_ROWS,
+                        device=dev)
+    bake_dataset(csr_file, fit_dtsh, rows_per_window=SHARD_ROWS, device=dev)
+    steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
+    fits = {"text_rows_per_s": csr_path["rows_per_s"]}
+    for name, uri in (("rec", fit_rec + "?format=recordio"),
+                      ("dtsh", fit_dtsh)):
+        kernels.reset_launch_counts()
+        history, params, seconds = run_fit(uri, "csr", CRITEO_BATCH,
+                                           CRITEO_DIM + 1, None)
+        seg = kernels.coo_segment_sum.launches
+        tok = kernels.tokenize_boundaries.launches
+        require(seg == steps and tok == 0, "%s fit: coo_segment_sum %d for "
+                "%d steps, tokenizer %d", name, seg, steps, tok)
+        same_fit("%s fit vs phase 6's text fit" % name, (history, params),
+                 (csr_path["loss_history"], csr_params))
+        fits[name] = {"seconds": seconds, "steps": steps,
+                      "rows_per_s": EPOCHS * CRITEO_ROWS / seconds,
+                      "coo_segment_sum_launches": seg,
+                      "bit_identical_to_text": True}
+    report["fit"] = fits
+    print(json.dumps({"formats_fit": fits}), flush=True)
+
+    # (d) a shuffled shard fit SIGTERM'd in a child as it enters epoch
+    # SIGNAL_AT_EPOCH, resumed in another: the uninterrupted run's bits
+    uri = "%s?shuffle_chunks=%d" % (fit_dtsh, SHUFFLE_SEED)
+    t0 = time.perf_counter()
+    whole = snap_linear_fit(uri, RESUME_EPOCHS)
+    whole_s = time.perf_counter() - t0
+    plain = snap_linear_fit(fit_dtsh, RESUME_EPOCHS)
+    require(whole[0] != plain[0], "the shuffled fit's losses equal the "
+            "unshuffled fit's: the shuffle did not move a window")
+    model = os.path.join(tmp, "shuffled.model")
+    whole[2].save(model)
+    spec = {"file": uri, "epochs": RESUME_EPOCHS,
+            "snap": os.path.join(tmp, "shuffle_snap"),
+            "model": os.path.join(tmp, "shuffle_resumed.model"),
+            "resume": False, "pause_epoch": SIGNAL_AT_EPOCH,
+            "marker": os.path.join(tmp, "shuffle_epoch%d" % SIGNAL_AT_EPOCH)}
+    rc, first_s, tail = run_snap_child(spec, tmp, True)
+    require(rc == 75, "the signalled shard child exited with %s, not 75:\n%s",
+            rc, tail)
+    meta = JobSnapshot(spec["snap"]).restore()[2]
+    require(meta.get("epoch") == SIGNAL_AT_EPOCH - 1, "the shard child "
+            "committed epoch %s, not %d", meta.get("epoch"),
+            SIGNAL_AT_EPOCH - 1)
+    resumed = dict(spec, resume=True, pause_epoch=0)
+    rc, second_s, tail = run_snap_child(resumed, tmp, False)
+    require(rc == 0, "the resumed shard child exited with %s:\n%s", rc, tail)
+    require(files_equal(model, spec["model"]), "the resumed shuffled shard "
+            "fit's model differs from the uninterrupted run's")
+    report["resume"] = {"epochs": RESUME_EPOCHS, "exit_code": 75,
+                        "manifest_epoch": meta["epoch"],
+                        "uninterrupted_s": whole_s,
+                        "first_child_s": first_s, "resumed_child_s": second_s,
+                        "model_bytes_equal": True}
+    print(json.dumps({"formats_resume": report["resume"]}), flush=True)
+    return report
+
+
+def formats_summary(card, report) -> dict:
+    """The ``formats`` line: phase 21's seconds, MB/s and rows/s."""
+    conv, fit = report["convert"], report["fit"]
+    return {
+        "card": card,
+        "convert_seconds": {k: v["seconds"] for k, v in conv.items()},
+        "convert_cpu_seconds": {k: v["cpu_seconds"] for k, v in conv.items()},
+        "ingest_mb_per_s": {k: v["mb_per_s"]
+                            for k, v in report["ingest"].items()},
+        "ingest_rows_per_s": {k: v["rows_per_s"]
+                              for k, v in report["ingest"].items()},
+        "fit_rows_per_s": {"text": fit["text_rows_per_s"],
+                           "rec": fit["rec"]["rows_per_s"],
+                           "dtsh": fit["dtsh"]["rows_per_s"]},
+        "resume_bit_identical": report["resume"]["model_bytes_equal"],
+        "phase_seconds": report["seconds"]}
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -4316,13 +4624,14 @@ def main() -> int:
         return moe_rank(int(sys.argv[2]), sys.argv[3])
     require(not sys.argv[1:], "unknown arguments %s (only --times)",
             sys.argv[1:])
-    # phases 5-6 write the fit files here, and phases 13-14 read them again
+    # phases 5-6 and 12 write their files here, and phases 13-21 read
+    # them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-20 (the module docstring), with the fit files in
+    """Phases 1-21 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -4543,7 +4852,8 @@ def smoke(fit_dir: str) -> int:
 
     # ---- 11./12. the tokenizer and the ingest path --------------------------
     with tempfile.TemporaryDirectory() as tmp:
-        ingest_file = os.path.join(tmp, "criteo_ingest.svm")
+        # in fit_dir: phase 21 converts it again
+        ingest_file = os.path.join(fit_dir, "criteo_ingest.svm")
         t0 = time.perf_counter()
         write_criteo(ingest_file, INGEST_ROWS, seed=13)
         write_seconds = time.perf_counter() - t0
@@ -4630,6 +4940,15 @@ def smoke(fit_dir: str) -> int:
     lap("20")
     print(json.dumps({"obs_detail": obs_report}), flush=True)
 
+    # ---- 21. the binary ingest formats on the card ---------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        formats = drive_formats(kernels, dev, ingest_file, fit_files["csr"],
+                                paths["csr"], fit_params["csr"], tmp)
+    torch.cuda.synchronize()
+    formats["seconds"] = time.perf_counter() - t0
+    lap("21")
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -4695,6 +5014,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"moe": moe_summary(card, moe)}))
     print(json.dumps({"pipeline": dict(pipeline, card=card)}))
     print(json.dumps({"obs": obs_summary(card, obs_report)}))
+    print(json.dumps({"formats": formats_summary(card, formats)}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

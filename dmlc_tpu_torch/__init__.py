@@ -8,12 +8,14 @@ counterpart sits at the same path:
   the threaded iterator, the stopwatch (``utils.timer``)
 - ``dmlc_tpu_torch.params`` — the Parameter/field subset the learners use,
   the parser registry, typed environment reads (``params.env``)
-- ``dmlc_tpu_torch.io``     — URISpec, the byte-range InputSplit (local
-  files), streams, the serializer, the ordered read-ahead window
+- ``dmlc_tpu_torch.io``     — URISpec, the InputSplits (local files:
+  text, recordio, indexed recordio, stdin; prefetch, cache and shuffle),
+  RecordIO, the ``.dtsh`` shards, streams, the serializer, the ordered
+  read-ahead window
 - ``dmlc_tpu_torch.data``   — RowBlock, the libsvm / libfm / csv parsers
-  (libsvm tokenized by a CUDA kernel on the card), ``PipelinedParser``,
-  the row-block iterators with the ``#cachefile`` disk pages, and
-  ``reshard_split``
+  (libsvm tokenized by a CUDA kernel on the card), the RecordIO row
+  groups, ``PipelinedParser``, the row-block iterators with the
+  ``#cachefile`` disk pages, and ``reshard_split``
 - ``dmlc_tpu_torch.device`` — static-shape padding, the sharded csr batch
   and the pinned-memory DeviceFeed
 - ``dmlc_tpu_torch.ops``    — objectives, SpMV, the long-context attention
@@ -40,8 +42,8 @@ counterpart sits at the same path:
   audit (``DMLC_TPU_METRICS``, ``DMLC_TPU_TRACE``, ``DMLC_TPU_AUDIT``, ...)
 - ``dmlc_tpu_torch.examples`` — the MoE-transformer block over process
   groups (``python -m dmlc_tpu_torch.examples.moe_transformer``)
-- ``dmlc_tpu_torch.tools``  — the parity tool (``python -m
-  dmlc_tpu_torch.tools.parity``)
+- ``dmlc_tpu_torch.tools``  — ``python -m dmlc_tpu_torch.tools <cmd>``:
+  ``bake``, ``parity``, ``recordio``, ``rowrec``
 
 The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``dmlc_tpu``. Entry points take ``device=None``, which means ``cuda``; with

@@ -15,17 +15,27 @@ the port of ``dmlc_tpu/data/parsers.py``'s Python stack.
 - ``ThreadedParser``: background-thread prefetch of parsed blocks
   (parser.h:70-126).
 - ``PARSER_REGISTRY`` / ``register_parser`` and ``create_parser(uri, part,
-  nparts, format)``, resolving "auto" through the ``format=`` uri arg
-  (src/data.cc:62-85); with ``threaded=True`` a ``Parser`` comes wrapped in
-  the cross-chunk ``data/pipeline.PipelinedParser``.
+  nparts, format)``, resolving "auto" through the ``format=`` uri arg, or
+  a ``.dtsh`` suffix, else libsvm (src/data.cc:62-85); with
+  ``threaded=True`` a ``Parser`` comes wrapped in the cross-chunk
+  ``data/pipeline.PipelinedParser``.
+- the binary formats: ``recordio`` (row groups, ``data/rowrec.py``, over
+  a recordio InputSplit) and ``shard`` (``io/shard.ShardParser``); neither
+  runs the tokenizer.
+- a ``shuffle_chunks=SEED`` uri arg reads the part's text or recordio
+  chunks through ``InputSplitShuffle`` (16 sub-splits, a new order each
+  epoch) and seeds a shard's window shuffle; a ``#cachefile`` uri reads
+  through ``CachedInputSplit`` (the chunks of the first epoch replayed
+  from the file afterwards).
 
 Every parser takes ``device`` (None means cuda, see utils/device.py).
 ``create_parser`` stamps the audit's shard signature
-(``obs.audit.Auditor.set_shard``); the chunk and parse digests are taken
-in ``data/pipeline.PipelinedParser``. The JAX package's native C++ core,
-shards and RecordIO are not ported, and it has knobs
-(``DMLC_TPU_PARSE_BACKEND``, ``DMLC_TPU_NTHREAD``) that have no
-counterpart here.
+(``obs.audit.Auditor.set_shard``; a ``ShardParser`` stamps its own); the
+chunk and parse digests are taken in ``data/pipeline.PipelinedParser``.
+The JAX package's native C++ core and its all-native routes (the native
+pipeline, the row-group ``#cachefile`` cache) are not ported, and it has
+knobs (``DMLC_TPU_PARSE_BACKEND``, ``DMLC_TPU_NTHREAD``) that have no
+counterpart here: this is its Python stack (``DMLC_TPU_NATIVE=0``).
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from dmlc_tpu_torch.data.row_block import (
     RowBlock,
     RowBlockContainer,
 )
-from dmlc_tpu_torch.io.input_split import InputSplitBase, create_input_split
+from dmlc_tpu_torch.io.input_split import InputSplit, create_input_split
 from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.params.parameter import Parameter, field
 from dmlc_tpu_torch.params.registry import Registry
@@ -62,7 +72,7 @@ class Parser:
 
     ``device`` (None means cuda) is where the parser's kernels run."""
 
-    def __init__(self, source: InputSplitBase, nthread: int = DEFAULT_NTHREAD,
+    def __init__(self, source: InputSplit, nthread: int = DEFAULT_NTHREAD,
                  device=None):
         self._source = source
         self.device = resolve_device(device)
@@ -189,7 +199,7 @@ class CSVParserParam(Parameter):
 class CSVParser(Parser):
     """Dense CSV → CSR with running column indices (csv_parser.h:63-104)."""
 
-    def __init__(self, source: InputSplitBase, args: Dict[str, str] = None,
+    def __init__(self, source: InputSplit, args: Dict[str, str] = None,
                  nthread: int = DEFAULT_NTHREAD, device=None):
         super().__init__(source, nthread, device)
         self.param = CSVParserParam()
@@ -274,6 +284,51 @@ class ThreadedParser:
         self._base.close()
 
 
+class ThreadedShardParser(ThreadedParser):
+    """A :class:`ThreadedParser` over an ``io/shard.ShardParser`` that
+    passes its read plan through, so that ``fit_uri(resume=True)``
+    restores it: ``snapshot_state``, and ``restore_state``, which stops
+    the prefetch, moves the plan and starts the prefetch again at the
+    restored epoch."""
+
+    def snapshot_state(self) -> dict:
+        return self._base.snapshot_state()
+
+    def restore_state(self, st: dict) -> None:
+        self._iter.close()
+        self._base.restore_state(st)
+        self._iter.before_first()
+
+
+def _mix_epoch_seed(seed: int, epoch: int) -> int:
+    """(base seed, epoch) -> a decorrelated seed for that epoch (the
+    splitmix64 finalizer, masked to a non-negative int64): plain
+    ``seed + epoch`` would give adjacent seeds the same permutations one
+    epoch apart."""
+    mask = (1 << 64) - 1
+    x = (seed * 0x9E3779B97F4A7C15 + epoch + 1) & mask
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & mask
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & mask
+    x ^= x >> 31
+    return x & ((1 << 62) - 1)
+
+
+def _shuffle_seed_arg(spec: URISpec) -> int:
+    """The ``shuffle_chunks=SEED`` uri arg as an int, -1 when absent."""
+    raw = spec.args.get("shuffle_chunks")
+    if raw is None:
+        return -1
+    try:
+        seed = int(raw)
+    except ValueError:
+        raise DMLCError(
+            f"shuffle_chunks must be an integer seed, got {raw!r}") from None
+    check(seed >= 0, "shuffle_chunks seed must be >= 0, got %d", seed)
+    return seed
+
+
 # ---------------------------------------------------------------------------
 # Registry + factory (src/data.cc:62-85,150-158; data.h:317-350)
 # ---------------------------------------------------------------------------
@@ -283,7 +338,8 @@ PARSER_REGISTRY: Registry = Registry.get("parser")
 
 def register_parser(name: str, factory=None):
     """DMLC_REGISTER_DATA_PARSER: ``factory(source, args, nthread,
-    device)`` → a Parser, where ``source`` is the part's text InputSplit,
+    device)`` → a Parser, where ``source`` is the part's InputSplit (text
+    unless ``_SPLIT_TYPE`` names another record type),
     ``args`` the uri's ``?key=value`` args and ``device`` a resolved
     ``torch.device``. Usable as a decorator."""
     if factory is None:
@@ -299,25 +355,53 @@ register_parser("csv", lambda source, args, nthread, device:
                 CSVParser(source, args, nthread, device))
 
 
+def _make_recordio_parser(source, args, nthread, device):
+    from dmlc_tpu_torch.data.rowrec import RecordIORowParser
+
+    return RecordIORowParser(source, args, nthread, device)
+
+
+register_parser("recordio", _make_recordio_parser)
+
+# the InputSplit record type of a format ("text" unless named here): the
+# recordio parser reads whole framed records, not lines
+_SPLIT_TYPE = {"recordio": "recordio"}
+
+
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   data_format: str = "auto", nthread: Optional[int] = None,
                   threaded: bool = True, device=None):
     """Parser<I>::Create (src/data.cc:62-85,132-138).
 
-    "auto" resolves through the ``format=`` uri arg, defaulting to libsvm.
-    ``nthread=None`` means :data:`DEFAULT_NTHREAD`. ``threaded=True`` wraps
-    a :class:`Parser` in a ``PipelinedParser`` over ``nthread`` workers
-    (each chunk parsed whole by one worker, blocks delivered in chunk
-    order), and any other registered parser in a :class:`ThreadedParser`,
-    as the JAX package does. ``device`` (None means cuda) is where the
-    parser's kernels run. A ``#cachefile`` uri raises:
-    ``data.row_iter.create_row_block_iter`` serves cache files.
+    "auto" resolves through the ``format=`` uri arg, else ``shard`` for a
+    ``.dtsh`` uri, else libsvm. ``nthread=None`` means
+    :data:`DEFAULT_NTHREAD`. ``threaded=True`` wraps a :class:`Parser` in
+    a ``PipelinedParser`` over ``nthread`` workers (each chunk parsed
+    whole by one worker, blocks delivered in chunk order), a shard parser
+    in a :class:`ThreadedShardParser` and any other parser in a
+    :class:`ThreadedParser`, as the JAX package does. ``device`` (None
+    means cuda) is where the parser's kernels run. A ``#cachefile`` uri
+    reads through ``CachedInputSplit``; ``shuffle_chunks=SEED`` through
+    ``InputSplitShuffle`` (16 sub-splits).
     """
     device = resolve_device(device)
     nthread = DEFAULT_NTHREAD if nthread is None else nthread
-    args = URISpec(uri, part_index, num_parts).args
+    spec = URISpec(uri, part_index, num_parts)
+    args = spec.args
     if data_format == "auto":
-        data_format = args.get("format", "libsvm")
+        data_format = args.get("format")
+        if data_format is None:
+            from dmlc_tpu_torch.io.shard import is_shard_uri
+
+            data_format = "shard" if is_shard_uri(spec.uri) else "libsvm"
+    if data_format == "shard":
+        # baked shards: no parse stage to fan out; the ShardParser takes
+        # its own audit digests and shard signature
+        from dmlc_tpu_torch.io.shard import ShardParser
+
+        shard = ShardParser(spec.uri, part_index, num_parts, args=args,
+                            nthread=nthread, device=device)
+        return ThreadedShardParser(shard) if threaded else shard
     entry = PARSER_REGISTRY.find(data_format)
     if entry is None:
         raise DMLCError(
@@ -329,7 +413,11 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     from dmlc_tpu_torch.obs import audit
 
     audit.auditor().set_shard(uri, part_index, num_parts)
-    source = create_input_split(uri, part_index, num_parts, "text")
+    shuffle_seed = _shuffle_seed_arg(spec)
+    source = create_input_split(
+        uri, part_index, num_parts, _SPLIT_TYPE.get(data_format, "text"),
+        num_shuffle_parts=16 if shuffle_seed >= 0 else 0,
+        seed=max(shuffle_seed, 0))
     base = entry(source, args, nthread, device)
     if not threaded:
         return base

@@ -7,8 +7,8 @@ imported so that this package loads nothing of ``dmlc_tpu``):
    are per-byte compares with a neighbour; :func:`parse_libsvm_vector`
    takes them precomputed (the parsers make them on their device with the
    ``tokenize_boundaries`` kernel, :func:`kernel_token_masks`) or makes
-   them in numpy (:func:`token_boundary_masks`). Token offsets fall out of
-   the masks.
+   them on the host with the kernel's plain version
+   (:func:`token_boundary_masks`). Token offsets fall out of the masks.
 2. **Convert grouped by width.** Tokens of equal byte length gather into an
    exact-width ``(n, l)`` matrix; digits become an exact float64 mantissa
    and one correctly-rounded divide by 10^decimals lands the value —
@@ -532,17 +532,15 @@ def parse_csv_vector_table(chunk: bytes) -> np.ndarray:
 
 
 def token_boundary_masks(a: np.ndarray):
-    """(starts_mask, ends_mask) bool arrays for the libsvm tokens of the
-    uint8 chunk ``a``, in numpy: the reference the device route
+    """(starts_mask, ends_mask) bool numpy arrays for the libsvm tokens of
+    the uint8 chunk ``a``: ``ops.kernels.tokenize_boundaries_plain`` on
+    the host, the one CPU definition of the masks, which the device route
     (:func:`kernel_token_masks`) is held to."""
-    sep = ((a == 0x20) | (a == 0x09) | (a == _COLON)
-           | (a == _NL) | (a == _CR))
-    nonsep = ~sep
-    starts = nonsep.copy()
-    starts[1:] &= sep[:-1]
-    ends = nonsep.copy()
-    ends[:-1] &= sep[1:]
-    return starts, ends
+    a = np.asarray(a, dtype=np.uint8)
+    if not a.flags.writeable:
+        a = a.copy()  # torch.from_numpy wants a writeable array
+    starts, ends = kernels.tokenize_boundaries_plain(torch.from_numpy(a))
+    return starts.numpy(), ends.numpy()
 
 
 def kernel_token_masks(a: np.ndarray, device=None):

@@ -1,8 +1,9 @@
 """URI "sugar" parsing: ``path?key=val&...#cachefile`` (``dmlc::io::URISpec``).
 
-The ``?args`` and ``#cachefile`` split is kept. The InputSplit (and so the
-parser) raises on a cache file; ``data/row_iter.create_row_block_iter``
-strips it and caches the parsed pages there.
+A ``#cachefile`` selects the InputSplit's chunk cache
+(``io/input_split.CachedInputSplit``, and so the parser's);
+``data/row_iter.create_row_block_iter`` strips it and caches parsed pages
+there instead.
 """
 
 from __future__ import annotations

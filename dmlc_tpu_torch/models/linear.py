@@ -512,8 +512,9 @@ class LinearLearner:
         and the loss history through the async two-phase-commit writer,
         and a SIGTERM mid-epoch commits the last boundary's state and
         exits with code 75. ``resume=True`` first loads the newest
-        committed snapshot and continues at the next epoch: the result is
-        bit-identical to a run that was never stopped. ``log_every`` > 0
+        committed snapshot (the model, and the parser's read plan where
+        the parser has one) and continues at the next epoch: the result
+        is bit-identical to a run that was never stopped. ``log_every`` > 0
         logs the running loss every that many steps and the unified epoch
         line (stall breakdown, goodput, binding stage) every that many
         epochs."""
@@ -551,6 +552,12 @@ class LinearLearner:
                         self._restore_snapshot_model(state["model"])
                         start_epoch = int(state.get("epoch", -1)) + 1
                         history = list(state.get("history", ()))
+                        # the read plan: a shuffled shard parser goes on
+                        # at the epoch after the snapshotted one
+                        pst = (state.get("data") or {}).get("parser")
+                        parser = getattr(feed, "_parser", None)
+                        if pst and hasattr(parser, "restore_state"):
+                            parser.restore_state(pst)
                         snapshotter.mark_restored(start_epoch - 1)
                 return self.fit_feed(feed, epochs=epochs,
                                      snapshotter=snapshotter,

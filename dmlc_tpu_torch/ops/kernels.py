@@ -418,8 +418,9 @@ TOKEN_SEPARATORS = (0x20, 0x09, 0x3A, 0x0A, 0x0D)
 def tokenize_boundaries_plain(a):
     """(starts, ends) bool [n] in plain PyTorch ops: a byte starts (ends)
     a token when it is no separator and the byte before (after) it is one;
-    the byte before the chunk and the byte after it count as separators
-    (``vparse.token_boundary_masks``)."""
+    the byte before the chunk and the byte after it count as separators.
+    The one CPU definition of the masks (``vparse.token_boundary_masks``
+    calls it on the host)."""
     sep = torch.zeros_like(a, dtype=torch.bool)
     for code in TOKEN_SEPARATORS:
         sep |= a == code

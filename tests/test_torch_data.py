@@ -14,7 +14,7 @@ from dmlc_tpu.io.input_split import create_input_split as ref_create_split
 from dmlc_tpu_torch.data import RowBlock, RowBlockContainer, create_parser
 from dmlc_tpu_torch.data import vparse
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed, csr
-from dmlc_tpu_torch.io import create_input_split
+from dmlc_tpu_torch.io import CachedInputSplit, create_input_split
 from dmlc_tpu_torch.utils import DMLCError
 
 
@@ -92,8 +92,17 @@ def test_input_split_small_chunks_and_directory(tmp_path):
 
 
 def test_input_split_rejects_cache_file_and_remote(svm_file):
+    # a #cachefile selects CachedInputSplit (tests/test_torch_input_split.py
+    # holds its frames against the JAX package's); it refuses a new
+    # partition and the chunk shuffle
+    split = create_input_split(svm_file + "#" + svm_file + ".cache", 0, 1)
+    assert isinstance(split, CachedInputSplit)
+    with pytest.raises(DMLCError, match="repartition after caching"):
+        split.reset_partition(0, 2)
+    split.close()
     with pytest.raises(DMLCError, match="cache"):
-        create_input_split(svm_file + "#cache.bin", 0, 1)
+        create_input_split(svm_file + "#" + svm_file + ".cache", 0, 1,
+                           num_shuffle_parts=2)
     with pytest.raises(DMLCError, match="local"):
         create_input_split("s3://bucket/data.svm", 0, 1)
 

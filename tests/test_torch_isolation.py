@@ -117,6 +117,30 @@ pp.make_pipeline(None, lambda p, a: a @ p["w"], 2)(
     pp.shard_pipeline_params(stages), x).sum().backward()
 assert x.grad.tolist() == [[0.5]] * 4
 assert moe_transformer.main(["--device", "cpu", "--world", "1"]) == 0
+# the binary formats: RecordIO row groups, a baked shard, the indexed,
+# cached and shuffled splits, and a csr fit from each format
+from dmlc_tpu_torch import tools
+from dmlc_tpu_torch.data import convert_to_recordio
+from dmlc_tpu_torch.io import build_index, create_input_split, shard
+from dmlc_tpu_torch.tools import bake, recordio, rowrec
+rec, dtsh = sys.argv[1] + ".rec", sys.argv[1] + ".dtsh"
+assert convert_to_recordio(sys.argv[1], rec, device="cpu") == 11
+assert build_index(rec, rec + ".idx") == 1
+assert bake.bake_dataset(sys.argv[1], dtsh, device="cpu")["rows"] == 11
+for uri in (rec + "?format=recordio", dtsh,
+            dtsh + "?shuffle_chunks=1", sys.argv[1] + "?shuffle_chunks=1",
+            sys.argv[1] + "#" + sys.argv[1] + ".chunks"):
+    parser = create_parser(uri, device="cpu")
+    assert sum(len(b) for b in parser) == 11, uri
+    parser.close()
+    assert len(LinearLearner(device="cpu").fit_uri(
+        uri, batch_size=4, epochs=2, layout="csr", num_features=8)) == 2
+split = create_input_split(rec, 0, 1, "indexed_recordio",
+                           index_uri=rec + ".idx", shuffle=True)
+assert len(list(split.records())) == 1
+split.close()
+assert shard.cache_token(dtsh, "shard")[0] == shard.SHARD_FORMAT_VERSION
+assert sorted(tools._COMMANDS) == ["bake", "parity", "recordio", "rowrec"]
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

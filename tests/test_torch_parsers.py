@@ -6,6 +6,7 @@ comparison is equality (same dtype, same values): no tolerance anywhere.
 """
 
 import random
+import struct
 
 import numpy as np
 import pytest
@@ -25,7 +26,8 @@ from dmlc_tpu_torch.data import (PARSER_REGISTRY, DiskRowIter, LibSVMParser,
                                  create_parser, create_row_block_iter,
                                  register_parser, vparse)
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
-from dmlc_tpu_torch.io import (MemoryStream, create_input_split,
+from dmlc_tpu_torch.io import (CachedInputSplit, MemoryStream,
+                               create_input_split,
                                create_stream, load_obj, save_obj)
 from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
 from dmlc_tpu_torch.ops import kernels
@@ -264,9 +266,32 @@ def test_unknown_format_and_cache_file_raise(tmp_path):
         create_parser(uri, data_format="svmlight", device="cpu")
     with pytest.raises(DMLCError, match="unknown data format"):
         create_parser(uri + "?format=svmlight", device="cpu")
-    # the parser reads text only; the row iterator serves cache files
+    # a #cachefile uri reads through CachedInputSplit, as the JAX
+    # package's Python stack does: the first epoch writes the chunks as
+    # [u64 size][bytes] frames, the second replays them; the cache bytes
+    # and both epochs' blocks equal the JAX package's
+    caches = {"port": tmp_path / "port.cache", "ref": tmp_path / "ref.cache"}
+    port = create_parser(uri + "#" + str(caches["port"]), threaded=False,
+                         device="cpu")
+    ref = ref_create_parser(uri + "#" + str(caches["ref"]), threaded=False)
+    try:
+        assert isinstance(port._source, CachedInputSplit)
+        text = open(uri, "rb").read()
+        for epoch in range(2):
+            assert_blocks_equal(_concat(list(port)), _concat(list(ref)))
+            frames = caches["port"].read_bytes()
+            assert frames == caches["ref"].read_bytes()
+            assert frames == struct.pack("<Q", len(text)) + text
+            port.before_first()
+            ref.before_first()
+        assert port.bytes_read == ref.bytes_read == 2 * len(text)
+    finally:
+        port.close()
+        ref.close()
+    # a cache file does not combine with the chunk shuffle
     with pytest.raises(DMLCError, match="cache"):
-        create_parser(uri + "#" + str(tmp_path / "c.bin"), device="cpu")
+        create_parser(uri + "?shuffle_chunks=3#" + str(tmp_path / "c.bin"),
+                      device="cpu")
 
 
 class _SemicolonParser(Parser):

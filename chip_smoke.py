@@ -10,7 +10,12 @@ it only builds the kernels and prints one ``{"times": ...}`` line: each
 kernel's cold-L2 CUDA-event time at the main path's shapes beside its
 yardstick, and the launch floor (``launch_floor_ms``: one and two launches
 of an empty kernel, timed the same way), to compare two checkouts in turns
-on one card. Phases, each
+on one card. With ``--remote-read`` it only builds the kernels and prints
+one ``{"remote_read": ...}`` line: phase 12's file read
+``REMOTE_READ_REPS`` times from the fake ``s3://`` and from the local
+disk, in turns, through the InputSplit alone and through
+``create_row_block_iter`` on the card (MB/s of each), to compare the
+remote read route of two checkouts in turns on one card. Phases, each
 ending in ``torch.cuda.synchronize()``; any failure ends the run with a
 non-zero exit and no result line:
 
@@ -290,14 +295,41 @@ non-zero exit and no result line:
    uninterrupted shuffled fit's byte for byte. Seconds of each
    conversion, MB/s and rows/s of each route, rows/s of each fit.
 
+22. remote filesystems on the card (``drive_remote``): the repo's fake
+   servers (``tests/fake_object_store.py`` for ``s3://`` and ``gs://``,
+   ``tests/fake_webhdfs.py``, ``tests/fake_azure.py``) on 127.0.0.1,
+   the port's backends pointed at them through their environment names
+   (``no_proxy`` covers the fakes; each must have served requests), the
+   files of phases 5, 6 and 12 uploaded, phase 6's and phase 5's as two
+   part objects under one prefix: (a) phase 12's file read from
+   ``s3://`` by ``create_row_block_iter`` on the card, its rows' digest
+   and tokenizer launches equal to phase 12's, and phase 6's file read
+   from ``s3://``, ``hdfs://`` and ``azure://``, rows equal to the local
+   read's bit for bit, launches equal; (b) phase 6's csr fit from the
+   three and phase 5's dense fit from ``gs://``: losses and params
+   bit-identical to phases 6 and 5, ``coo_segment_sum`` /
+   ``fused_linear_grads`` once a step, the tokenizer as in phases 5-6;
+   (c) the ``s3://`` csr fit again with every response over
+   ``REMOTE_FAIL_AFTER`` bytes cut (a dropped connection) and
+   ``REMOTE_FAULTS`` armed through ``DMLC_TPU_FAULTS``: the same bits,
+   ``io.read`` retries above 0; (d) the csr fit's first epoch committed
+   as a job snapshot to ``s3://`` and to a local directory (the parts,
+   manifest and LATEST byte-equal), ``fit_uri(resume=True)`` from the
+   ``s3://`` snapshot equal to phase 6's fit bit for bit, a
+   ``CheckpointManager`` round trip through ``mem://``, and
+   ``LinearLearner.save`` to ``s3://`` byte-equal to the local save, its
+   ``load`` the same params. MB/s of each read beside phase 12's, rows/s
+   of each fit beside the local one, seconds of a commit and a restore,
+   the retries of (c).
+
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
-``formats`` line (phase 21) and ``phase_seconds`` (each phase's wall
-seconds); the last lines are the
+``formats`` line (phase 21), the ``remote`` line (phase 22) and
+``phase_seconds`` (each phase's wall seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -467,6 +499,12 @@ PIPE_D, PIPE_BATCH, PIPE_M, PIPE_STAGES = 4096, 4096, 8, 2
 REC_ROWS, SHARD_ROWS, BAKE_PARTS = 1024, 4096, 2
 SHUFFLE_SEED = 7
 RESUME_EPOCHS, SIGNAL_AT_EPOCH = 3, 2
+# phase 22: each response of the faulted fit longer than REMOTE_FAIL_AFTER
+# bytes is cut there (the ranged reader reconnects from the byte where it
+# stopped), and one range-read attempt in ten fails by injection
+REMOTE_FAIL_AFTER = 6 << 20
+REMOTE_FAULTS = "io.read:p=0.1:seed=5"
+REMOTE_READ_REPS = 3  # --remote-read: reads of each route, in turns
 
 
 class SmokeFailure(RuntimeError):
@@ -886,15 +924,18 @@ def hold_seg_sum(kernels, dev, name, row_ids, num_rows):
 
 
 def run_fit(path, layout, batch_size, num_features, device,
-            learning_rate=0.1, group=None):
+            learning_rate=0.1, group=None, epochs=EPOCHS, **fit):
+    """The linear fit of phases 5-6 (``fit``: more ``fit_uri`` arguments,
+    such as a snapshot uri): (history, params as numpy, seconds)."""
     from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
 
     learner = LinearLearner(device=device, group=group, objective="logistic",
                             learning_rate=learning_rate)
     t0 = time.perf_counter()
-    history = learner.fit_uri(path, batch_size=batch_size, epochs=EPOCHS,
-                              layout=layout, num_features=num_features)
-    if device != "cpu":
+    history = learner.fit_uri(path, batch_size=batch_size, epochs=epochs,
+                              layout=layout, num_features=num_features,
+                              **fit)
+    if str(device) != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return history, params_to_numpy(learner.params), seconds
@@ -1554,6 +1595,22 @@ def same_blocks(where, got, want) -> None:
             "%s: %s differs from the CPU route's", where, name)
 
 
+def block_digest(block) -> str:
+    """sha256 over a block's arrays (dtype, shape and bytes, in a fixed
+    order): equal digests are equal blocks, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("offset", "label", "index", "value", "weight", "qid",
+                 "field"):
+        a = getattr(block, name)
+        h.update(name.encode())
+        if a is not None:
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def read_all(it):
     from dmlc_tpu_torch.data import RowBlockContainer
 
@@ -1590,6 +1647,7 @@ def drive_ingest(kernels, dev, path, tmp):
     cpu, cpu_ncol, cpu_sec, _, cpu_launches = timed(path, "cpu")
     require(cpu_launches == 0, "ingest: the CPU route launched a kernel")
     same_blocks("ingest on the card", card, cpu)
+    result["card_digest"] = block_digest(card)
     require(ncol == cpu_ncol and len(card) == INGEST_ROWS,
             "ingest: num_col %d/%d, %d rows", ncol, cpu_ncol, len(card))
     result.update({"rows": len(card), "nnz": card.num_nonzero,
@@ -4544,6 +4602,349 @@ def formats_summary(card, report) -> dict:
         "phase_seconds": report["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: remote filesystems on the card
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def remote_fakes():
+    """The repo's fake servers on 127.0.0.1 (``s3://`` and ``gs://`` each
+    on its own ``fake_object_store``, ``hdfs://``, ``azure://``), the
+    port's backends pointed at them through their environment names and
+    registered again (each cached instance reads its environment once).
+    Yields {"s3": store, "gs": store, "hdfs": fake, "azure": store,
+    "hdfs_root": uri}; restores the environment after."""
+    sys.path.insert(0, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import fake_azure
+    import fake_object_store
+    import fake_webhdfs
+
+    from dmlc_tpu_torch.io import filesystem
+    from dmlc_tpu_torch.io.azure import AzureBlobFileSystem
+    from dmlc_tpu_torch.io.object_store import GCSFileSystem, S3FileSystem
+    from dmlc_tpu_torch.io.webhdfs import _factory as hdfs_factory
+
+    s3_server, s3, s3_base = fake_object_store.serve()
+    gs_server, gs, gs_base = fake_object_store.serve()
+    az_server, az, az_base = fake_azure.serve()
+    hdfs = fake_webhdfs.FakeWebHDFS()
+    hosts = "127.0.0.1,localhost"
+    env = {"S3_ENDPOINT": s3_base, "GCS_ENDPOINT_URL": gs_base,
+           "AZURE_STORAGE_ENDPOINT": az_base,
+           "no_proxy": ",".join(filter(None, [os.environ.get("no_proxy"),
+                                              hosts])),
+           "NO_PROXY": ",".join(filter(None, [os.environ.get("NO_PROXY"),
+                                              hosts]))}
+    cleared = ("AWS_ENDPOINT_URL", "AWS_ACCESS_KEY_ID",
+               "AWS_SECRET_ACCESS_KEY", "S3_ACCESS_KEY", "S3_SECRET_KEY",
+               "GCS_OAUTH_TOKEN", "AZURE_STORAGE_ACCOUNT",
+               "AZURE_STORAGE_ACCESS_KEY", "AZURE_STORAGE_KEY",
+               "AZURE_STORAGE_SAS_TOKEN", "DMLC_WEBHDFS_ENDPOINT",
+               "HADOOP_USER_NAME", "DMLC_TPU_FAULTS")
+    saved = {k: os.environ.get(k) for k in list(env) + list(cleared)}
+    os.environ.update(env)
+    for k in cleared:
+        os.environ.pop(k, None)
+    backends = {"s3://": lambda uri: S3FileSystem(),
+                "gs://": lambda uri: GCSFileSystem(),
+                "hdfs://": hdfs_factory,
+                "azure://": lambda uri: AzureBlobFileSystem()}
+    for proto, factory in backends.items():
+        filesystem.register_filesystem(proto, factory)
+    try:
+        yield {"s3": s3, "gs": gs, "azure": az, "hdfs": hdfs,
+               "hdfs_root": f"hdfs://127.0.0.1:{hdfs.port}"}
+    finally:
+        for server in (s3_server, gs_server, az_server):
+            server.shutdown()
+            server.server_close()
+        hdfs.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for proto, factory in backends.items():
+            filesystem.register_filesystem(proto, factory)
+
+
+def halves(path: str):
+    """The file's bytes cut in two at the line break nearest its middle."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    cut = data.index(b"\n", len(data) // 2) + 1
+    return data[:cut], data[cut:]
+
+
+def drive_remote(kernels, dev, ingest_file, ingest, fit_files, paths,
+                 fit_params, tmp) -> dict:
+    """Phase 22 (the module docstring)."""
+    from dmlc_tpu_torch import resilience
+    from dmlc_tpu_torch.collective import CheckpointManager, JobSnapshot
+    from dmlc_tpu_torch.data import create_row_block_iter
+    from dmlc_tpu_torch.models import (LinearLearner, params_from_numpy,
+                                       params_to_numpy)
+    from dmlc_tpu_torch.resilience import preempt, retry
+
+    report = {}
+    csr_fit = ("csr", CRITEO_BATCH, CRITEO_DIM + 1)
+    dense_fit = ("dense", HIGGS_BATCH, HIGGS_FEATURES + 1)
+    with remote_fakes() as fakes:
+        root = {"s3": "s3://bkt", "gs": "gs://bkt",
+                "azure": "azure://cont", "hdfs": fakes["hdfs_root"]}
+        with open(ingest_file, "rb") as fh:
+            fakes["s3"].objects[("bkt", "ingest/criteo.svm")] = fh.read()
+        for i, part in enumerate(halves(fit_files["csr"])):
+            fakes["s3"].objects[("bkt", f"csr/part-{i}")] = part
+            fakes["azure"].blobs[("cont", f"csr/part-{i}")] = part
+            fakes["hdfs"].files[f"/csr/part-{i}"] = part
+        for i, part in enumerate(halves(fit_files["dense"])):
+            fakes["gs"].objects[("bkt", f"higgs/part-{i}")] = part
+
+        def read(uri):
+            """(block, seconds, tokenizer launches) of one read on the
+            card; the launches must equal the chunk parts."""
+            kernels.reset_launch_counts()
+            with count_parts() as parts:
+                t0 = time.perf_counter()
+                block = read_all(create_row_block_iter(uri, device=dev))[0]
+                seconds = time.perf_counter() - t0
+            launches = kernels.tokenize_boundaries.launches
+            require(launches == len(parts) > 0, "%s: %d tokenizer launches "
+                    "for %d chunk parts", uri, launches, len(parts))
+            return block, seconds, launches
+
+        # (a) reads, each against the local read of the same bytes
+        nbytes = os.path.getsize(ingest_file)
+        block, seconds, launches = read("s3://bkt/ingest/criteo.svm")
+        require(block_digest(block) == ingest["card_digest"]
+                and launches == ingest["launches"],
+                "the s3:// read of phase 12's file: rows or launches "
+                "(%d, phase 12 %d) differ", launches, ingest["launches"])
+        reads = {"ingest_s3": {"mb_per_s": nbytes / 1e6 / seconds,
+                               "seconds": seconds, "launches": launches,
+                               "local_mb_per_s": ingest["card_mb_per_s"]}}
+        del block
+        nbytes = os.path.getsize(fit_files["csr"])
+        local, seconds, local_launches = read(fit_files["csr"])
+        reads["csr_local"] = {"mb_per_s": nbytes / 1e6 / seconds,
+                              "seconds": seconds, "launches": local_launches}
+        for scheme in ("s3", "hdfs", "azure"):
+            block, seconds, launches = read(f"{root[scheme]}/csr")
+            same_blocks(f"the {scheme}:// read of phase 6's two parts "
+                        "(against the local read)", block, local)
+            require(launches == local_launches, "%s:// read: %d tokenizer "
+                    "launches, the local read %d", scheme, launches,
+                    local_launches)
+            reads[f"csr_{scheme}"] = {"mb_per_s": nbytes / 1e6 / seconds,
+                                      "seconds": seconds,
+                                      "launches": launches}
+        del local, block
+        report["reads"] = reads
+        print(json.dumps({"remote_reads": reads}), flush=True)
+
+        # (b) the fits, phases 5 and 6's bits
+        def held_fit(what, uri, fit, kernel_name, rows, want_path,
+                     want_params):
+            steps = EPOCHS * (-(-rows // fit[1]))
+            kernels.reset_launch_counts()
+            history, params, seconds = run_fit(uri, *fit, dev)
+            launches = kernels.KERNELS[kernel_name].launches
+            tokens = kernels.tokenize_boundaries.launches
+            require(launches == steps and
+                    tokens == want_path["tokenize_launches"],
+                    "%s: %s %d times in %d steps, tokenizer %d (local %d)",
+                    what, kernel_name, launches, steps, tokens,
+                    want_path["tokenize_launches"])
+            same_fit(what, (history, params),
+                     (want_path["loss_history"], want_params))
+            return {"seconds": seconds,
+                    "rows_per_s": EPOCHS * rows / seconds,
+                    "local_rows_per_s": want_path["rows_per_s"],
+                    kernel_name + "_launches": launches,
+                    "tokenize_launches": tokens, "bit_identical": True}
+
+        fits = {}
+        for scheme in ("s3", "hdfs", "azure"):
+            fits[f"csr_{scheme}"] = held_fit(
+                f"the csr fit from {scheme}://", f"{root[scheme]}/csr",
+                csr_fit, "coo_segment_sum", CRITEO_ROWS, paths["csr"],
+                fit_params["csr"])
+        fits["dense_gs"] = held_fit(
+            "the dense fit from gs://", f"{root['gs']}/higgs", dense_fit,
+            "fused_linear_grads", HIGGS_ROWS, paths["dense"],
+            fit_params["dense"])
+        report["fits"] = fits
+        print(json.dumps({"remote_fits": fits}), flush=True)
+
+        # (c) the s3:// fit through dropped connections and injected
+        # read faults
+        before = dict(retry.stats()["attempts"])
+        fakes["s3"].fail_after_bytes = REMOTE_FAIL_AFTER
+        os.environ["DMLC_TPU_FAULTS"] = REMOTE_FAULTS
+        resilience.reset()  # the faultpoints read DMLC_TPU_FAULTS again
+        try:
+            fired0 = len(resilience.faults.stats()["fired"])
+            faulted = held_fit("the faulted csr fit from s3://",
+                               f"{root['s3']}/csr", csr_fit,
+                               "coo_segment_sum", CRITEO_ROWS, paths["csr"],
+                               fit_params["csr"])
+            injected = len(resilience.faults.stats()["fired"]) - fired0
+        finally:
+            fakes["s3"].fail_after_bytes = None
+            os.environ.pop("DMLC_TPU_FAULTS", None)
+            resilience.reset()
+        after = retry.stats()["attempts"]
+        retries = after.get("io.read", 0) - before.get("io.read", 0)
+        require(retries > 0 and injected > 0, "the faulted fit retried %d "
+                "reads, %d faults injected", retries, injected)
+        faulted.update(io_read_retries=retries, injected_faults=injected,
+                       giveups=retry.stats()["giveups"].get("io.read", 0))
+        report["faulted"] = faulted
+        print(json.dumps({"remote_faulted": faulted}), flush=True)
+
+        # (d) snapshots, checkpoints and saved models
+        snap_uri = f"{root['s3']}/snap"
+        local_snap = os.path.join(tmp, "remote_local_snap")
+        try:
+            run_fit(f"{root['s3']}/csr", *csr_fit, dev, epochs=1,
+                    snapshot_uri=snap_uri)
+            run_fit(fit_files["csr"], *csr_fit, dev, epochs=1,
+                    snapshot_uri=local_snap)
+            for name in ("snap_v1.rank0", "snap_v1.manifest", "LATEST"):
+                with open(os.path.join(local_snap, name), "rb") as fh:
+                    want = fh.read()
+                require(fakes["s3"].objects.get(("bkt", f"snap/{name}"))
+                        == want, "the s3:// snapshot's %s differs from the "
+                        "local commit's", name)
+            kernels.reset_launch_counts()
+            history, params, resume_s = run_fit(
+                f"{root['s3']}/csr", *csr_fit, dev, snapshot_uri=snap_uri,
+                resume=True)
+        finally:
+            preempt.uninstall()
+        same_fit("the csr fit resumed from the s3:// snapshot",
+                 (history, params), (paths["csr"]["loss_history"],
+                                     fit_params["csr"]))
+        require(kernels.coo_segment_sum.launches == CRITEO_ROWS
+                // CRITEO_BATCH, "the resumed fit stepped %d times",
+                kernels.coo_segment_sum.launches)
+        t0 = time.perf_counter()
+        version, state, meta = JobSnapshot(snap_uri).restore()
+        restore_s = time.perf_counter() - t0
+        require(version == 2 and meta.get("epoch") == 1,
+                "the s3:// snapshot restored v%d epoch %s", version,
+                meta.get("epoch"))
+        t0 = time.perf_counter()
+        JobSnapshot(f"{root['s3']}/snap_copy").commit(state, meta=meta)
+        commit_s = time.perf_counter() - t0
+        mgr = CheckpointManager("mem://ckpt/phase22")
+        mgr.checkpoint(fit_params["csr"])
+        got = CheckpointManager("mem://ckpt/phase22").load_checkpoint()[1]
+        require(all(got[k].tobytes() == fit_params["csr"][k].tobytes()
+                    for k in ("w", "b")),
+                "the mem:// checkpoint changed the params")
+        learner = LinearLearner(device=dev, objective="logistic")
+        learner.params = params_from_numpy(params, dev)
+        learner.save(f"{root['s3']}/model/csr.model")
+        local_model = os.path.join(tmp, "remote_local.model")
+        learner.save(local_model)
+        with open(local_model, "rb") as fh:
+            require(fakes["s3"].objects[("bkt", "model/csr.model")]
+                    == fh.read(), "the s3:// model differs from the local "
+                    "save")
+        back = LinearLearner(device=dev)
+        back.load(f"{root['s3']}/model/csr.model")
+        same_fit("the model loaded from s3://",
+                 (history, params_to_numpy(back.params)), (history, params))
+        report["checkpoints"] = {
+            "resume_seconds": resume_s, "restore_seconds": restore_s,
+            "commit_seconds": commit_s,
+            "part_bytes": len(fakes["s3"].objects[("bkt",
+                                                   "snap/snap_v2.rank0")]),
+            "bytes_equal_to_local": True, "resume_bit_identical": True}
+        print(json.dumps({"remote_checkpoints": report["checkpoints"]}),
+              flush=True)
+        served = {"s3": fakes["s3"].request_count,
+                  "gs": fakes["gs"].request_count,
+                  "azure": fakes["azure"].request_count,
+                  "hdfs": len(fakes["hdfs"].open_requests)}
+        require(all(served.values()), "a fake served no request (a proxy "
+                "in the way?): %s", served)
+        report["requests_served"] = served
+    return report
+
+
+def remote_summary(card, report) -> dict:
+    """The ``remote`` line: phase 22's MB/s, rows/s, seconds and
+    retries."""
+    reads, fits = report["reads"], report["fits"]
+    return {
+        "card": card,
+        "read_mb_per_s": {k: v["mb_per_s"] for k, v in reads.items()},
+        "phase12_local_card_mb_per_s": reads["ingest_s3"]["local_mb_per_s"],
+        "fit_rows_per_s": {k: v["rows_per_s"] for k, v in fits.items()},
+        "local_fit_rows_per_s": {"csr": fits["csr_s3"]["local_rows_per_s"],
+                                 "dense": fits["dense_gs"]
+                                 ["local_rows_per_s"]},
+        "faulted_rows_per_s": report["faulted"]["rows_per_s"],
+        "io_read_retries": report["faulted"]["io_read_retries"],
+        "injected_faults": report["faulted"]["injected_faults"],
+        "commit_seconds": report["checkpoints"]["commit_seconds"],
+        "restore_seconds": report["checkpoints"]["restore_seconds"],
+        "resume_seconds": report["checkpoints"]["resume_seconds"],
+        "phase_seconds": report["seconds"]}
+
+
+def remote_read_times(dev) -> dict:
+    """``--remote-read``: phase 12's file from the fake ``s3://`` and from
+    the local disk, in turns, through ``create_input_split`` alone (every
+    chunk's bytes) and through ``create_row_block_iter`` on the card;
+    MB/s of each read."""
+    from dmlc_tpu_torch.data import create_row_block_iter
+    from dmlc_tpu_torch.io import create_input_split
+
+    def split_read(uri):
+        split = create_input_split(uri, 0, 1)
+        got = 0
+        try:
+            while (chunk := split.next_chunk()) is not None:
+                got += len(chunk)
+        finally:
+            split.close()
+        return got
+
+    rates = {f"{route}_{where}": [] for route in ("split", "card")
+             for where in ("s3", "local")}
+    with tempfile.TemporaryDirectory() as tmp, remote_fakes() as fakes:
+        path = os.path.join(tmp, "criteo_ingest.svm")
+        write_criteo(path, INGEST_ROWS, seed=13)
+        nbytes = os.path.getsize(path)
+        with open(path, "rb") as fh:
+            fakes["s3"].objects[("bkt", "ingest/criteo.svm")] = fh.read()
+        uris = {"s3": "s3://bkt/ingest/criteo.svm", "local": path}
+        for _ in range(REMOTE_READ_REPS):
+            for where, uri in uris.items():
+                t0 = time.perf_counter()
+                got = split_read(uri)
+                rates["split_" + where].append(
+                    nbytes / 1e6 / (time.perf_counter() - t0))
+                require(got == nbytes, "%s: the split read %d of %d bytes",
+                        uri, got, nbytes)
+                t0 = time.perf_counter()
+                block = read_all(create_row_block_iter(uri, device=dev))[0]
+                torch.cuda.synchronize()
+                rates["card_" + where].append(
+                    nbytes / 1e6 / (time.perf_counter() - t0))
+                require(len(block) == INGEST_ROWS, "%s: %d rows", uri,
+                        len(block))
+                del block
+        require(fakes["s3"].request_count > 0, "the fake s3 served nothing")
+    return {"file_bytes": nbytes, "mb_per_s": rates}
+
+
 def kernel_times(kernels, dev) -> dict:
     """``--times``: the kernels' times at the main path's shapes (as phases
     7, 10 and 11 take them, the forward twice) beside SDPA's forward,
@@ -4612,6 +5013,15 @@ def main() -> int:
         print("card:", card_line())
         print(json.dumps({"times": kernel_times(kernels, dev)}))
         return 0
+    if sys.argv[1:] == ["--remote-read"]:
+        from dmlc_tpu_torch.ops import kernels
+        from dmlc_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(None)
+        print("card:", card_line())
+        kernels._lib()
+        print(json.dumps({"remote_read": remote_read_times(dev)}))
+        return 0
     if sys.argv[1:2] == ["--fit-rank"] and len(sys.argv) == 4:
         return fit_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--group-rank"] and len(sys.argv) == 4:
@@ -4622,16 +5032,17 @@ def main() -> int:
         return recover_rank(sys.argv[2])
     if sys.argv[1:2] == ["--moe-rank"] and len(sys.argv) == 4:
         return moe_rank(int(sys.argv[2]), sys.argv[3])
-    require(not sys.argv[1:], "unknown arguments %s (only --times)",
+    require(not sys.argv[1:], "unknown arguments %s (only --times and "
+            "--remote-read)",
             sys.argv[1:])
-    # phases 5-6 and 12 write their files here, and phases 13-21 read
+    # phases 5-6 and 12 write their files here, and phases 13-22 read
     # them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-21 (the module docstring), with the fit files in
+    """Phases 1-22 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -4949,6 +5360,15 @@ def smoke(fit_dir: str) -> int:
     formats["seconds"] = time.perf_counter() - t0
     lap("21")
 
+    # ---- 22. remote filesystems on the card --------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        remote = drive_remote(kernels, dev, ingest_file, ingest, fit_files,
+                              paths, fit_params, tmp)
+    torch.cuda.synchronize()
+    remote["seconds"] = time.perf_counter() - t0
+    lap("22")
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -5015,6 +5435,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"pipeline": dict(pipeline, card=card)}))
     print(json.dumps({"obs": obs_summary(card, obs_report)}))
     print(json.dumps({"formats": formats_summary(card, formats)}))
+    print(json.dumps({"remote": remote_summary(card, remote)}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

@@ -8,10 +8,13 @@ counterpart sits at the same path:
   the threaded iterator, the stopwatch (``utils.timer``)
 - ``dmlc_tpu_torch.params`` — the Parameter/field subset the learners use,
   the parser registry, typed environment reads (``params.env``)
-- ``dmlc_tpu_torch.io``     — URISpec, the InputSplits (local files:
-  text, recordio, indexed recordio, stdin; prefetch, cache and shuffle),
-  RecordIO, the ``.dtsh`` shards, streams, the serializer, the ordered
-  read-ahead window
+- ``dmlc_tpu_torch.io``     — the FileSystem registry (local files,
+  ``mem://``, ``http(s)://``, ``s3://``, ``gs://``, ``hdfs://`` over
+  WebHDFS, ``azure://``), URISpec, the InputSplits over any of them
+  (text, recordio, indexed recordio, stdin; prefetch, cache and
+  shuffle), RecordIO, the ``.dtsh`` shards (local files), streams, the
+  serializer, the ordered read-ahead window and the remote partition
+  reader
 - ``dmlc_tpu_torch.data``   — RowBlock, the libsvm / libfm / csv parsers
   (libsvm tokenized by a CUDA kernel on the card), the RecordIO row
   groups, ``PipelinedParser``, the row-block iterators with the
@@ -31,8 +34,8 @@ counterpart sits at the same path:
   crash recovery and elastic membership
 - ``dmlc_tpu_torch.tracker`` — the rabit tracker and the local launcher
   (``python -m dmlc_tpu_torch.tracker.submit``)
-- ``dmlc_tpu_torch.resilience`` — fault injection, preemption notices and
-  the retry policy
+- ``dmlc_tpu_torch.resilience`` — fault injection, preemption notices,
+  the retry policy and hedged calls
 - ``dmlc_tpu_torch.models`` — the allreduce-SGD linear learner,
   factorization machines and histogram GBDT, with the shared fit-loop
   observability (``models.fitloop.FitLoopObs``)
@@ -43,7 +46,7 @@ counterpart sits at the same path:
 - ``dmlc_tpu_torch.examples`` — the MoE-transformer block over process
   groups (``python -m dmlc_tpu_torch.examples.moe_transformer``)
 - ``dmlc_tpu_torch.tools``  — ``python -m dmlc_tpu_torch.tools <cmd>``:
-  ``bake``, ``parity``, ``recordio``, ``rowrec``
+  ``bake``, ``filesys``, ``parity``, ``recordio``, ``rowrec``
 
 The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``dmlc_tpu``. Entry points take ``device=None``, which means ``cuda``; with

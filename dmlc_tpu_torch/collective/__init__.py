@@ -18,7 +18,8 @@ reduces its gradients on the device with ``bucketed_all_reduce``.
 
 Checkpoints: the rabit API ``checkpoint(state, uri)`` /
 ``load_checkpoint(uri)`` / ``version_number()`` over one in-process blob
-(optionally a file), and the job-snapshot plane of ``collective.checkpoint``
+(optionally a file at any filesystem uri), and the job-snapshot plane of
+``collective.checkpoint``
 (``CheckpointManager``, ``JobSnapshot``) and ``collective.snapshot``
 (``Snapshotter``, ``load_snapshot``).
 

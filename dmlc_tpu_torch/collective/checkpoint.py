@@ -1,6 +1,7 @@
-"""Rabit-style checkpoints and coordinated job snapshots over local files
-(the port of ``dmlc_tpu/collective/checkpoint.py``, same on-disk layout,
-so each package restores the other's directory).
+"""Rabit-style checkpoints and coordinated job snapshots over any
+registered filesystem (the port of ``dmlc_tpu/collective/checkpoint.py``,
+same layout and bytes, so each package restores the other's directory,
+local or ``s3://``).
 
 Layout under the checkpoint directory::
 
@@ -20,8 +21,12 @@ rank 0 waits for all parts of the version to land and verify, then
 atomically writes the manifest and LATEST; a torn or partial write is
 never visible to :meth:`JobSnapshot.restore`. The faultpoints
 ``ckpt.commit``, ``ckpt.read`` and ``snap.commit`` sit where the
-reference's do. Remote filesystems are not ported: the directory is a
-local path or ``file://`` uri.
+reference's do. The directory is any uri of ``io/filesystem.py``: on local
+files each pointer, manifest and part is written beside itself, fsynced
+and renamed into place; on an object store it is one object write, which
+appears only once its upload completes. Pruning deletes through the
+directory's filesystem, best effort: a file that cannot be deleted stays,
+and the commit stands.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from dmlc_tpu_torch.io.filesystem import (atomic_write, create_stream,
-                                          delete, makedirs)
+from dmlc_tpu_torch.io.filesystem import (URI, atomic_write,
+                                          create_stream, get_filesystem,
+                                          makedirs)
 from dmlc_tpu_torch.io.serializer import load_obj, save_obj
 from dmlc_tpu_torch.io.stream import MemoryStream
 from dmlc_tpu_torch.resilience import faultpoint, preempt
@@ -74,6 +80,19 @@ def _read_all(uri: str) -> Optional[bytes]:
         return None
     with stream:
         return stream.read_all()
+
+
+def _prune_file(uri: str) -> None:
+    """Delete ``uri`` if it is there, best effort (the reference's
+    pruning): a backend that cannot delete leaves the file and logs why;
+    the commit that pruned stands."""
+    parsed = URI.parse(uri)
+    fs = get_filesystem(parsed)
+    try:
+        if fs.exists(parsed):
+            fs.delete(parsed)
+    except Exception as err:  # noqa: BLE001 (pruning never fails a commit)
+        log_warning("checkpoint prune of %s failed: %s", uri, err)
 
 
 def _config_error(err: BaseException) -> bool:
@@ -216,7 +235,7 @@ class CheckpointManager:
         for version in range(max(1, newest - self.keep * 4),
                              newest - self.keep + 1):
             for rank in ranks:
-                delete(self._state_uri(version, rank))
+                _prune_file(self._state_uri(version, rank))
 
 
 # ---- coordinated job snapshots ----------------------------------------
@@ -502,6 +521,6 @@ class JobSnapshot(CheckpointManager):
                 if self._read_manifest(version) is not None:
                     kept += 1
                 continue
-            delete(self._manifest_uri(version))
+            _prune_file(self._manifest_uri(version))
             for rank in range(self.world_size):
-                delete(self._state_uri(version, rank))
+                _prune_file(self._state_uri(version, rank))

@@ -196,6 +196,7 @@ class SocketEngine:
     # ---- framed array transport ---------------------------------------
     @staticmethod
     def _send_array(conn: FramedSocket, arr: np.ndarray) -> None:
+        faultpoint("collective.send")
         payload = arr.tobytes()
         conn.send_str(f"{arr.dtype.str}|{','.join(map(str, arr.shape))}")
         conn.send_int(len(payload))
@@ -203,6 +204,7 @@ class SocketEngine:
 
     @staticmethod
     def _recv_array(conn: FramedSocket) -> np.ndarray:
+        faultpoint("collective.recv")
         header = conn.recv_str()
         # dtype.str may itself start with '|' (e.g. "|u1"), so split from
         # the right where the shape field is

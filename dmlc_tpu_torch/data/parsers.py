@@ -15,8 +15,11 @@ the port of ``dmlc_tpu/data/parsers.py``'s Python stack.
 - ``ThreadedParser``: background-thread prefetch of parsed blocks
   (parser.h:70-126).
 - ``PARSER_REGISTRY`` / ``register_parser`` and ``create_parser(uri, part,
-  nparts, format)``, resolving "auto" through the ``format=`` uri arg, or
-  a ``.dtsh`` suffix, else libsvm (src/data.cc:62-85); with
+  nparts, format)`` over any uri of the filesystem registry (local,
+  ``s3://``, ``gs://``, ``hdfs://``, ``azure://``, ``http(s)://``,
+  ``mem://``: a remote uri reads through the same InputSplit), resolving
+  "auto" through the ``format=`` uri arg, or a ``.dtsh`` suffix (local
+  files only), else libsvm (src/data.cc:62-85); with
   ``threaded=True`` a ``Parser`` comes wrapped in the cross-chunk
   ``data/pipeline.PipelinedParser``.
 - the binary formats: ``recordio`` (row groups, ``data/rowrec.py``, over

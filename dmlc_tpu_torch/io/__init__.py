@@ -1,15 +1,27 @@
-"""I/O layer: streams, the serializer, local files, URI parsing, RecordIO,
-the InputSplits over local files (text, recordio, indexed recordio,
-stdin, and the prefetch, cache and shuffle decorators), the ``.dtsh``
-shards and the ordered thread-pool window."""
+"""I/O layer: streams, the serializer, the FileSystem registry (local
+files, ``mem://``, ``http(s)://``, and at first use ``s3://``, ``gs://``,
+``hdfs://``, ``azure://``), URI parsing, RecordIO, the InputSplits over
+any of them (text, recordio, indexed recordio, stdin, and the prefetch,
+cache and shuffle decorators), the ``.dtsh`` shards (local files), the
+ordered thread-pool window and the remote partition reader."""
 
 from dmlc_tpu_torch.io.filesystem import (
+    URI,
+    FileInfo,
+    FileSystem,
+    HTTPFileSystem,
+    LocalFileSystem,
+    MemoryFileSystem,
     atomic_write,
     create_stream,
+    create_stream_for_read,
     delete,
     exists,
+    expand_uri_patterns,
+    get_filesystem,
     list_dir,
     makedirs,
+    register_filesystem,
 )
 from dmlc_tpu_torch.io.input_split import (
     CachedInputSplit,
@@ -24,7 +36,11 @@ from dmlc_tpu_torch.io.input_split import (
     create_input_split,
     list_split_files,
 )
-from dmlc_tpu_torch.io.readahead import OrderedWindow, fetch_ordered
+from dmlc_tpu_torch.io.readahead import (
+    OrderedWindow,
+    RemotePartitionReader,
+    fetch_ordered,
+)
 from dmlc_tpu_torch.io.recordio import (
     RECORDIO_MAGIC,
     RecordIOChunkReader,
@@ -50,5 +66,8 @@ __all__ = [
     "URISpec", "create_input_split", "list_split_files", "RECORDIO_MAGIC",
     "RecordIOWriter", "RecordIOReader", "RecordIOChunkReader",
     "build_index", "OrderedWindow", "fetch_ordered", "atomic_write",
-    "delete", "exists", "list_dir", "makedirs",
+    "delete", "exists", "list_dir", "makedirs", "URI", "FileInfo",
+    "FileSystem", "LocalFileSystem", "MemoryFileSystem", "HTTPFileSystem",
+    "register_filesystem", "get_filesystem", "create_stream_for_read",
+    "expand_uri_patterns", "RemotePartitionReader",
 ]

@@ -2,12 +2,16 @@
 port of ``dmlc_tpu/io/input_split.py`` (the reference's io.h:135-282,
 src/io/input_split_base.*, line_split, recordio_split,
 indexed_recordio_split, single_file_split.h, threaded_input_split.h,
-cached_input_split.h and input_split_shuffle.h), for local files:
+cached_input_split.h and input_split_shuffle.h), over any registered
+filesystem (``io/filesystem.py``: local files, ``mem://``, ``s3://``,
+``gs://``, ``hdfs://``, ``azure://``, ``http(s)://``):
 
-- the dataset is one ``;``-separated list of paths, each an exact path, a
+- the dataset is one ``;``-separated list of uris, each an exact path, a
   directory (its non-empty files; with ``recurse_directories`` those of
   its subdirectories too), or a regex over the files of its parent
-  directory (InputSplitBase::ConvertToURIs);
+  directory (InputSplitBase::ConvertToURIs, ``expand_uri_patterns``);
+- each file is read through its filesystem's ``open_for_read`` stream:
+  a local file's handle, a remote file's reconnecting ranged reader;
 - partition boundaries are aligned byte offsets moved forward to the next
   record start (ResetPartition), so every record belongs to exactly one
   part;
@@ -32,7 +36,6 @@ from __future__ import annotations
 
 import bisect
 import os
-import re
 import struct
 import sys
 from typing import Iterator, List, Optional, Tuple
@@ -41,7 +44,10 @@ import numpy as np
 
 from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.io import recordio as _rio
-from dmlc_tpu_torch.io.filesystem import create_stream, local_path
+from dmlc_tpu_torch.io.filesystem import (URI, FileInfo, create_stream,
+                                          create_stream_for_read, delete,
+                                          exists, get_filesystem, is_local)
+from dmlc_tpu_torch.io.filesystem import list_split_files as _split_infos
 from dmlc_tpu_torch.io.uri_spec import URISpec
 from dmlc_tpu_torch.utils.logging import DMLCError, check, check_eq
 from dmlc_tpu_torch.utils.threaded_iter import ThreadedIter
@@ -57,83 +63,15 @@ _M_READ = obs.registry().counter(
     source="input_split")
 
 
-def _expand_patterns(uri: str) -> List[str]:
-    """Expand a ``;``-separated list of paths and regexes into concrete
-    paths (InputSplitBase::ConvertToURIs): an exact path match in the
-    parent directory wins, else the segment is a regex that must
-    full-match non-empty regular files there."""
-    out: List[str] = []
-    for part in uri.split(";"):
-        if not part:
-            continue
-        name = local_path(part)
-        pos = name.rfind("/")
-        if pos < 0 or pos + 1 == len(name):
-            out.append(name)
-            continue
-        parent = name[:pos]
-        try:
-            entries = sorted(os.listdir(parent))
-        except OSError:
-            out.append(name)
-            continue
-        listed = [os.path.join(parent, e) for e in entries]
-        target = name.rstrip("/")
-        exact = [p for p in listed if p.rstrip("/") == target]
-        if exact:
-            out.append(exact[0])
-            continue
-        try:
-            pattern = re.compile(name)
-        except re.error as err:
-            raise DMLCError(f"bad regex in uri {name!r}: {err}") from err
-        matched = False
-        for p in listed:
-            if (os.path.isfile(p) and os.path.getsize(p) > 0
-                    and pattern.fullmatch(p.rstrip("/"))):
-                out.append(p)
-                matched = True
-        if not matched:
-            out.append(name)
-    return out
-
-
-def _list_directory(path: str, recurse: bool) -> List[str]:
-    """The entries of a directory that are not directories, sorted by
-    name; with ``recurse``, then those of its subdirectories, last
-    subdirectory first (the JAX package's ``list_directory_recursive``
-    stack order)."""
-    out: List[str] = []
-    stack = [path]
-    while stack:
-        cur = stack.pop()
-        for entry in sorted(os.listdir(cur)):
-            full = os.path.join(cur, entry)
-            if os.path.isdir(full):
-                if recurse:
-                    stack.append(full)
-            else:
-                out.append(full)
-    return out
-
-
 def list_split_files(uri: str,
                      recurse: bool = False) -> List[Tuple[str, int]]:
-    """The flat list of non-empty ``(path, size)`` files of a dataset uri
-    (InputSplitBase::InitInputFileInfo), a directory's subdirectories
-    included with ``recurse``; raise if nothing matched."""
-    files: List[Tuple[str, int]] = []
-    for path in _expand_patterns(uri):
-        if os.path.isdir(path):
-            for full in _list_directory(path, recurse):
-                if os.path.isfile(full) and os.path.getsize(full) > 0:
-                    files.append((full, os.path.getsize(full)))
-        elif os.path.exists(path) and os.path.getsize(path) > 0:
-            files.append((path, os.path.getsize(path)))
-    if not files:
-        raise DMLCError(
-            f"Cannot find any files that match the URI pattern {uri!r}")
-    return files
+    """The flat list of non-empty ``(uri, size)`` files of a dataset uri
+    (InputSplitBase::InitInputFileInfo; ``io/filesystem.list_split_files``
+    gives them as FileInfo), a directory's subdirectories included with
+    ``recurse``; raise if nothing matched. A local file is named by its
+    path."""
+    return [(info.path.str_full(), info.size)
+            for info in _split_infos(uri, recurse)]
 
 
 class InputSplit:
@@ -187,12 +125,13 @@ class InputSplitBase(InputSplit):
 
     def __init__(self, uri: str, align_bytes: int,
                  recurse_directories: bool = False):
-        self._files = list_split_files(uri, recurse_directories)
+        self._files: List[FileInfo] = _split_infos(uri, recurse_directories)
         self._file_offset = [0]
-        for path, size in self._files:
-            check(size % align_bytes == 0,
-                  "file %s does not align by %d bytes", path, align_bytes)
-            self._file_offset.append(self._file_offset[-1] + size)
+        for info in self._files:
+            check(info.size % align_bytes == 0,
+                  "file %s does not align by %d bytes",
+                  info.path.str_full(), align_bytes)
+            self._file_offset.append(self._file_offset[-1] + info.size)
         self._align = align_bytes
         self._chunk_bytes = DEFAULT_CHUNK_BYTES
         self._stream = None
@@ -252,7 +191,8 @@ class InputSplitBase(InputSplit):
         return bisect.bisect_right(self._file_offset, offset) - 1
 
     def _open(self, file_index: int):
-        return open(self._files[file_index][0], "rb")
+        path = self._files[file_index].path
+        return get_filesystem(path).open_for_read(path)
 
     def _close_stream(self) -> None:
         if self._stream is not None:
@@ -592,7 +532,7 @@ class SingleFileSplit(InputSplit):
     def _open(self):
         if self._path == "stdin":
             return sys.stdin.buffer
-        return open(local_path(self._path), "rb")
+        return create_stream_for_read(self._path)
 
     def before_first(self) -> None:
         if self._stream is not None and self._path != "stdin":
@@ -643,7 +583,8 @@ class SingleFileSplit(InputSplit):
     def get_total_size(self) -> int:
         if self._path == "stdin":
             return 0
-        return os.path.getsize(local_path(self._path))
+        path = URI.parse(self._path)
+        return get_filesystem(path).get_path_info(path).size
 
     def close(self) -> None:
         if self._stream is not None and self._path != "stdin":
@@ -737,9 +678,17 @@ class ThreadedInputSplit(_Prefetched):
 
 class CachedInputSplit(_Prefetched):
     """The first epoch streams the base's chunks and writes them to a
-    local cache file as ``[u64 size][bytes]`` frames; later epochs, and
-    later instances over the same file, replay the cache
-    (src/io/cached_input_split.h:148-189). Chunks only."""
+    cache file as ``[u64 size][bytes]`` frames; later epochs, and later
+    instances over the same file, replay the cache
+    (src/io/cached_input_split.h:148-189). Chunks only.
+
+    The cache counts only once a whole pass wrote it. A local one is
+    written beside itself and renamed into place, as the JAX package
+    does. A remote one is written as one object under its own name (an
+    object store has no rename, and a stream that ends early still
+    uploads what it holds), then marked complete by an empty
+    ``<cache>.complete`` object; a remote cache without its marker is
+    built again."""
 
     PREFETCH = 16  # cached_input_split.h:151
     NAME = "cached-split"
@@ -747,20 +696,28 @@ class CachedInputSplit(_Prefetched):
     def __init__(self, base: InputSplitBase, cache_file: str):
         super().__init__(base)
         self._cache_file = cache_file
-        self._cache_ready = os.path.exists(cache_file)
-        self._tmp_file = cache_file + ".tmp"
+        self._local = is_local(cache_file)
+        if self._local:
+            self._tmp_file = cache_file + ".tmp"
+            self._cache_ready = exists(cache_file)
+        else:
+            self._tmp_file = cache_file
+            self._marker = cache_file + ".complete"
+            self._cache_ready = exists(self._marker) and exists(cache_file)
 
     def _chunk_source(self) -> Iterator[bytes]:
         if self._cache_ready:
-            with open(self._cache_file, "rb") as fp:
+            with create_stream(self._cache_file, "r") as fp:
                 while True:
                     head = fp.read(8)
                     if len(head) < 8:
                         return
                     (size,) = struct.unpack("<Q", head)
-                    yield fp.read(size)
+                    yield fp.read_exact(size)
         else:
-            with open(self._tmp_file, "wb") as out:
+            if not self._local and exists(self._marker):
+                delete(self._marker)  # its cache is gone: built anew
+            with create_stream(self._tmp_file, "w") as out:
                 while True:
                     chunk = self._base.next_chunk()
                     if chunk is None:
@@ -768,7 +725,11 @@ class CachedInputSplit(_Prefetched):
                     out.write(struct.pack("<Q", len(chunk)))
                     out.write(chunk)
                     yield chunk
-            os.replace(self._tmp_file, self._cache_file)
+            if self._local:
+                os.replace(URI.parse(self._tmp_file).name,
+                           URI.parse(self._cache_file).name)
+            else:
+                create_stream(self._marker, "w").close()
             self._cache_ready = True
 
     def next_record(self) -> Optional[bytes]:

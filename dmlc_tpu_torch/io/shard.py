@@ -416,7 +416,7 @@ class ShardParser:
                  seed: Optional[int] = None,
                  shuffle_window: Optional[int] = None,
                  use_mmap: Optional[bool] = None, device=None):
-        from dmlc_tpu_torch.io.input_split import list_split_files
+        from dmlc_tpu_torch.io.filesystem import list_split_files
         from dmlc_tpu_torch.obs import audit
 
         del nthread  # windows decode as frombuffer slices
@@ -432,8 +432,13 @@ class ShardParser:
         self._seed = int(seed)
         self._unit = max(1, int(shuffle_window) if shuffle_window is not None
                          else env_shuffle_window())
-        paths = sorted(path for path, _size in
-                       list_split_files(_local_path(self.uri)))
+        infos = list_split_files(_local_path(self.uri))
+        for info in infos:
+            # shards are local files: a remote uri lists, then refuses
+            check(info.path.protocol == "file://",
+                  "shard reader requires local files, got %s",
+                  info.path.protocol)
+        paths = sorted(info.path.name for info in infos)
         self._readers: List[ShardReader] = []
         try:
             for p in paths:

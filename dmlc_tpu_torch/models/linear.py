@@ -506,7 +506,8 @@ class LinearLearner:
         line reads the whole file in one process and its own byte range in
         each rank of a job. Returns the per-epoch mean losses.
 
-        ``snapshot_uri`` (a local directory) arms preemption-proof job
+        ``snapshot_uri`` (a directory uri on any registered filesystem:
+        a local path, ``s3://``, ``mem://``, ...) arms preemption-proof job
         snapshots: every ``snap_every_epochs``-th epoch boundary (and the
         job's ``DMLC_TPU_SNAP_EVERY_S`` clock) commits params, velocity
         and the loss history through the async two-phase-commit writer,

@@ -6,11 +6,12 @@
   the :data:`EXIT_PREEMPTED` relaunch code and the ``preempt.notice``
   faultpoint;
 - :mod:`~dmlc_tpu_torch.resilience.retry`: the retry policy (transient
-  classification, jittered backoff, deadlines, a retry budget)
-  behind the tracker dials and the recovery loop.
-
-The reference's hedged calls serve remote filesystems and the data
-service, which the port does not have yet.
+  classification, jittered backoff, deadlines, a process-wide retry
+  budget) behind the remote filesystems' reads and writes, the tracker
+  dials and the recovery loop;
+- :mod:`~dmlc_tpu_torch.resilience.hedge`: :func:`hedged_call`, one
+  backup request after a latency threshold, for the remote readahead's
+  range fetches (``DMLC_TPU_HEDGE_S``).
 """
 
 from dmlc_tpu_torch.resilience import preempt
@@ -22,6 +23,7 @@ from dmlc_tpu_torch.resilience.faults import (
     parse_spec,
     reset,
 )
+from dmlc_tpu_torch.resilience.hedge import hedged_call
 from dmlc_tpu_torch.resilience.preempt import EXIT_PREEMPTED, Preempted
 from dmlc_tpu_torch.resilience.retry import (
     CONFIG_ERRORS,
@@ -30,6 +32,8 @@ from dmlc_tpu_torch.resilience.retry import (
     RetryState,
     backoff_sleep,
     classify_transient,
+    global_budget,
+    reset_global_budget,
     reset_stats,
     retry_call,
 )
@@ -38,5 +42,6 @@ __all__ = [
     "CONFIG_ERRORS", "EXIT_PREEMPTED", "FaultSpecError", "InjectedFault",
     "Preempted", "RetryBudget", "RetryPolicy", "RetryState",
     "backoff_sleep", "classify_transient", "configure", "faultpoint",
-    "parse_spec", "preempt", "reset", "reset_stats", "retry_call",
+    "global_budget", "hedged_call", "parse_spec", "preempt", "reset",
+    "reset_global_budget", "reset_stats", "retry_call",
 ]

@@ -20,9 +20,14 @@ treat it as the I/O or peer failure it stands in for. The sites this
 package has: ``preempt.notice`` (resilience/preempt.py), ``ckpt.commit``,
 ``ckpt.read`` and ``snap.commit`` (collective/checkpoint.py,
 collective/__init__.py), ``collective.connect`` (the socket engine's
-tracker dial), ``tracker.join`` and ``tracker.evict``
-(tracker/rendezvous.py); a program may pass its own (a training loop's
-``worker.step``). Fired faults are counted in :func:`stats`.
+tracker dial), ``collective.send`` and ``collective.recv`` (its framed
+arrays), ``tracker.join`` and ``tracker.evict`` (tracker/rendezvous.py),
+``io.read`` (each attempt of a remote range read, io/filesystem.py),
+``io.write`` (each mutating REST call of an object-store upload,
+io/object_store.py) and ``readahead.fetch`` (each range of
+io/readahead.RemotePartitionReader); a program may pass its own (a
+training loop's ``worker.step``). Fired faults are counted in
+:func:`stats`.
 """
 
 from __future__ import annotations

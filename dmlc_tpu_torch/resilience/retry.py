@@ -1,6 +1,6 @@
 """Policy-driven retry and backoff, the port of
-``dmlc_tpu/resilience/retry.py``: one copy of "try again" for the
-tracker dials and the recovery loop.
+``dmlc_tpu/resilience/retry.py``: one copy of "try again" for the remote
+filesystems' reads and writes, the tracker dials and the recovery loop.
 
 - **Classification first.** :func:`classify_transient` splits transient
   errors (HTTP 5xx/429/408, ``URLError``, ``OSError``,
@@ -10,17 +10,24 @@ tracker dials and the recovery loop.
   nothing.
 - **Decorrelated jitter:** ``sleep = min(cap, uniform(base, prev * 3))``,
   so retries of many threads and hosts do not run in lockstep.
-- **Per-call deadline** (``deadline_s``, 0 = none): a wall-clock bound on
-  one logical operation, sleeps included.
-- **Retry budget** (``budget``, a :class:`RetryBudget` token bucket; none
-  = unlimited): one bucket shared by several policies bounds what a
-  systemic outage costs them together.
+- **Per-call deadline** (``deadline_s``; by default the job's
+  ``DMLC_TPU_RETRY_DEADLINE_S``, 0 = none): a wall-clock bound on one
+  logical operation, sleeps included.
+- **Process-wide retry budget** (:func:`global_budget`, a
+  :class:`RetryBudget` token bucket of ``DMLC_TPU_RETRY_BUDGET`` tokens,
+  0 = unlimited, the default): every policy draws from it unless given
+  its own, so a systemic outage costs O(budget) retries, not O(call
+  sites × attempts).
 
 :meth:`RetryPolicy.call` (and :func:`retry_call`) wraps a closure;
+:meth:`RetryPolicy.start` hands a loop that keeps its own structure (the
+remote range reads of ``io/filesystem.py``) a :class:`RetryState` whose
+``failed(err, progressed)`` classifies, counts, sleeps or raises;
 :func:`backoff_sleep` is the jittered sleep of loops that retry outside
-that shape (``collective.run_with_recovery``). Retries and give-ups are
-counted per site in :func:`stats` (the reference keeps them as obs
-metrics).
+both shapes (``collective.run_with_recovery``). Retries and give-ups are
+counted per site as ``dmlc_retry_attempts_total{site=}`` and
+``dmlc_retry_giveups_total{site=}`` in the obs registry, and in
+:func:`stats`.
 """
 
 from __future__ import annotations
@@ -62,11 +69,10 @@ def classify_transient(err: BaseException) -> bool:
 
 class RetryBudget:
     """Token bucket bounding retries: ``capacity`` tokens refilled at
-    ``capacity`` per ``refill_s`` seconds."""
+    ``capacity`` per ``refill_s`` seconds; ``capacity <= 0`` is
+    unlimited."""
 
-    def __init__(self, capacity: int, refill_s: float = 60.0):
-        check(capacity >= 1, "a retry budget needs capacity >= 1, got %d",
-              capacity)
+    def __init__(self, capacity: int = 0, refill_s: float = 60.0):
         self.capacity = int(capacity)
         self._refill_s = float(refill_s)
         self._tokens = float(self.capacity)
@@ -75,6 +81,8 @@ class RetryBudget:
 
     def take(self) -> bool:
         """Consume one retry token; False when the budget is spent."""
+        if self.capacity <= 0:
+            return True
         now = time.monotonic()
         with self._lock:
             rate = self.capacity / self._refill_s
@@ -85,6 +93,37 @@ class RetryBudget:
                 return False
             self._tokens -= 1.0
             return True
+
+
+_GLOBAL_BUDGET: Optional[RetryBudget] = None
+_GLOBAL_LOCK = threading.Lock()
+
+
+def global_budget() -> RetryBudget:
+    """The process-wide budget, ``DMLC_TPU_RETRY_BUDGET`` tokens (read at
+    first use; 0, the default, is unlimited)."""
+    global _GLOBAL_BUDGET
+    with _GLOBAL_LOCK:
+        if _GLOBAL_BUDGET is None:
+            from dmlc_tpu_torch.params.env import get_env
+
+            _GLOBAL_BUDGET = RetryBudget(
+                max(0, get_env("DMLC_TPU_RETRY_BUDGET", 0)))
+        return _GLOBAL_BUDGET
+
+
+def reset_global_budget() -> None:
+    """Read ``DMLC_TPU_RETRY_BUDGET`` again at the next use (tests, a
+    fresh process state)."""
+    global _GLOBAL_BUDGET
+    with _GLOBAL_LOCK:
+        _GLOBAL_BUDGET = None
+
+
+def _env_deadline_s() -> float:
+    from dmlc_tpu_torch.params.env import get_env
+
+    return max(0.0, float(get_env("DMLC_TPU_RETRY_DEADLINE_S", 0.0)))
 
 
 _stats_lock = threading.Lock()
@@ -125,14 +164,22 @@ def reset_stats() -> None:
 
 
 class RetryState:
-    """One logical operation's retry bookkeeping inside
-    :meth:`RetryPolicy.call`: :meth:`failed` either sleeps (a retry
-    granted) or raises."""
+    """One logical operation's retry bookkeeping (see
+    :meth:`RetryPolicy.start`): the owner loop calls :meth:`failed` on
+    each error, which either sleeps (a retry granted) or raises.
 
-    def __init__(self, policy: "RetryPolicy", site: str, display: str):
+    ``progressed=True`` refills the attempt count: a long transfer over a
+    flaky link that keeps delivering bytes must not run out of attempts
+    while it advances. An absolute ceiling of ten times ``max_attempts``
+    still bounds a server that drips a byte a connection."""
+
+    def __init__(self, policy: "RetryPolicy", site: str, display: str,
+                 cancelled: Optional[Callable[[], bool]] = None):
         self._policy = policy
         self.site = site
         self.display = display or site
+        self._cancelled = cancelled
+        self.attempts_left = policy.max_attempts
         self.total_attempts = 0
         self._deadline = (policy.clock() + policy.deadline_s
                           if policy.deadline_s else None)
@@ -151,16 +198,24 @@ class RetryState:
                         f"{self.total_attempts} attempt(s) ({why}): "
                         f"{err}") from err
 
-    def failed(self, err: BaseException) -> None:
+    def failed(self, err: BaseException, progressed: bool = False) -> None:
         """Record one failed attempt: re-raise a fatal error, give up when
-        out of attempts, deadline or budget, else sleep with jitter."""
+        cancelled or out of attempts, deadline or budget, else sleep with
+        jitter."""
         policy = self._policy
         if not policy.classify(err):
             raise err
+        if self._cancelled is not None and self._cancelled():
+            raise DMLCError(f"{self.display}: cancelled") from err
+        if progressed:
+            self.attempts_left = policy.max_attempts
+        self.attempts_left -= 1
         self.total_attempts += 1
-        if self.total_attempts >= policy.max_attempts:
+        if self.attempts_left <= 0:
             self._give_up(err, "attempts exhausted")
-        if policy.budget is not None and not policy.budget.take():
+        if self.total_attempts >= policy.max_attempts * 10:
+            self._give_up(err, "absolute attempt ceiling")
+        if not policy.budget.take():
             self._give_up(err, "retry budget exhausted")
         delay = policy.next_sleep(self._prev_sleep)
         self._prev_sleep = delay
@@ -176,13 +231,13 @@ class RetryPolicy:
 
     ``max_attempts`` counts tries (1 = no retry). ``base_s``/``cap_s``
     bound the jittered sleep. ``deadline_s`` bounds one call, sleeps
-    included (0 = none). ``budget`` (None = unlimited) is a
-    :class:`RetryBudget` the policy draws a token from for each retry.
-    ``classify``, ``rng``, ``sleep`` and ``clock`` can be replaced
-    (tests)."""
+    included (None: ``DMLC_TPU_RETRY_DEADLINE_S``; 0 = none). ``budget``
+    is the :class:`RetryBudget` the policy draws a token from for each
+    retry (None: :func:`global_budget`). ``classify``, ``rng``, ``sleep``
+    and ``clock`` can be replaced (tests)."""
 
     def __init__(self, max_attempts: int = 3, base_s: float = 0.1,
-                 cap_s: float = 2.0, deadline_s: float = 0.0,
+                 cap_s: float = 2.0, deadline_s: Optional[float] = None,
                  budget: Optional[RetryBudget] = None,
                  classify: Callable[[BaseException], bool] =
                  classify_transient,
@@ -194,8 +249,10 @@ class RetryPolicy:
         self.max_attempts = int(max_attempts)
         self.base_s = float(base_s)
         self.cap_s = max(float(cap_s), self.base_s)
+        if deadline_s is None:
+            deadline_s = _env_deadline_s()
         self.deadline_s = max(0.0, float(deadline_s))
-        self.budget = budget
+        self.budget = budget if budget is not None else global_budget()
         self.classify = classify
         self._rng = rng or random
         self.sleep = sleep
@@ -205,10 +262,16 @@ class RetryPolicy:
         """Decorrelated jitter: uniform over [base, prev * 3], capped."""
         return min(self.cap_s, self._rng.uniform(self.base_s, prev * 3))
 
-    def call(self, fn: Callable, site: str, display: str = ""):
+    def start(self, site: str, display: str = "",
+              cancelled: Optional[Callable[[], bool]] = None) -> RetryState:
+        """A fresh :class:`RetryState` for a caller-owned loop."""
+        return RetryState(self, site, display, cancelled)
+
+    def call(self, fn: Callable, site: str, display: str = "",
+             cancelled: Optional[Callable[[], bool]] = None):
         """Run ``fn()`` under this policy; no sleep after the last
         failed attempt."""
-        state = RetryState(self, site, display)
+        state = self.start(site, display=display, cancelled=cancelled)
         while True:
             try:
                 return fn()

@@ -4,6 +4,7 @@ that exist so far:
 | command    | module                    | does                                        |
 |------------|---------------------------|---------------------------------------------|
 | ``bake``     | ``tools/bake.py``           | text corpus -> ``.dtsh`` shards              |
+| ``filesys``  | ``tools/filesys.py``        | ls / cat / cp over any uri scheme            |
 | ``parity``   | ``tools/parity.py``         | socket-engine world vs one process, ulps    |
 | ``recordio`` | ``tools/recordio.py``       | RecordIO round trip (recordio_test.cc)      |
 | ``rowrec``   | ``tools/rowrec.py``         | dataset -> row-group RecordIO               |
@@ -23,6 +24,7 @@ from dmlc_tpu_torch.utils.logging import DMLCError
 
 _COMMANDS = {
     "bake": "dmlc_tpu_torch.tools.bake",
+    "filesys": "dmlc_tpu_torch.tools.filesys",
     "parity": "dmlc_tpu_torch.tools.parity",
     "recordio": "dmlc_tpu_torch.tools.recordio",
     "rowrec": "dmlc_tpu_torch.tools.rowrec",

@@ -360,6 +360,39 @@ def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
     assert np.array_equal(split.index, want.index)
 
 
+def test_remote_s3_read_on_the_card_matches_cpu(cuda, tmp_path,
+                                                monkeypatch):
+    """A libsvm file of several 8 MiB chunks read from the fake s3:// on
+    the card (chip_smoke.py phase 22 at a small size): one tokenizer
+    launch a non-empty chunk part, and the rows of the CPU route's read
+    of the local file, bit for bit."""
+    from chip_smoke import count_parts, read_all, same_blocks
+    from dmlc_tpu_torch.io import filesystem
+    from dmlc_tpu_torch.io.object_store import S3FileSystem
+    from fake_object_store import serve  # tests/, on the path under pytest
+
+    path = str(tmp_path / "remote.svm")
+    write_criteo(path, 60_000, seed=21)
+    server, store, base = serve()
+    try:
+        monkeypatch.setenv("S3_ENDPOINT", base)
+        monkeypatch.setenv("no_proxy", "127.0.0.1,localhost")
+        filesystem.register_filesystem("s3://", lambda uri: S3FileSystem())
+        with open(path, "rb") as fh:
+            store.objects[("bkt", "remote.svm")] = fh.read()
+        kernels.reset_launch_counts()
+        with count_parts() as parts:
+            card, _ = read_all(create_row_block_iter("s3://bkt/remote.svm"))
+        launches = kernels.tokenize_boundaries.launches
+    finally:
+        server.shutdown()
+        server.server_close()
+    cpu, _ = read_all(create_row_block_iter(path, device="cpu"))
+    assert launches == len(parts) > 2
+    same_blocks("the s3:// read on the card", card, cpu)
+    assert len(card) == 60_000
+
+
 # ---------------------------------------------------------------------------
 # GBDT and the sharded SpMV (chip_smoke.py phases 14-15)
 # ---------------------------------------------------------------------------

@@ -103,8 +103,13 @@ def test_input_split_rejects_cache_file_and_remote(svm_file):
     with pytest.raises(DMLCError, match="cache"):
         create_input_split(svm_file + "#" + svm_file + ".cache", 0, 1,
                            num_shuffle_parts=2)
-    with pytest.raises(DMLCError, match="local"):
-        create_input_split("s3://bucket/data.svm", 0, 1)
+    # remote schemes go through the filesystem registry (the fake servers
+    # of tests/test_torch_remote_ingest.py); a scheme it lacks is refused
+    # there, and viewfs:// refuses as the reference's gated backends do
+    with pytest.raises(DMLCError, match="unknown filesystem protocol"):
+        create_input_split("nosuch://bucket/data.svm", 0, 1)
+    with pytest.raises(DMLCError, match="not enabled"):
+        create_input_split("viewfs://cluster/data.svm", 0, 1)
 
 
 def _concat(blocks):

@@ -140,7 +140,36 @@ split = create_input_split(rec, 0, 1, "indexed_recordio",
 assert len(list(split.records())) == 1
 split.close()
 assert shard.cache_token(dtsh, "shard")[0] == shard.SHARD_FORMAT_VERSION
-assert sorted(tools._COMMANDS) == ["bake", "parity", "recordio", "rowrec"]
+assert sorted(tools._COMMANDS) == ["bake", "filesys", "parity", "recordio",
+                                   "rowrec"]
+# the remote filesystems: a parser read and a csr fit from a fake s3://,
+# the fit's snapshot and the model written there too
+import dmlc_tpu_torch.io.azure
+import dmlc_tpu_torch.io.webhdfs
+from dmlc_tpu_torch.io import filesystem, object_store, readahead
+from dmlc_tpu_torch.resilience import hedge
+from dmlc_tpu_torch.tools import filesys
+root = os.path.dirname(os.path.dirname(os.path.abspath(
+    dmlc_tpu_torch.__file__)))
+sys.path.insert(0, os.path.join(root, "tests"))
+import fake_object_store
+server, store, base = fake_object_store.serve()
+os.environ["S3_ENDPOINT"] = base
+filesystem.register_filesystem("s3://", lambda uri: object_store.S3FileSystem())
+with open(sys.argv[1], "rb") as fh:
+    store.objects[("bkt", "tiny.svm")] = fh.read()
+parser = create_parser("s3://bkt/tiny.svm", device="cpu")
+assert sum(len(b) for b in parser) == 11
+parser.close()
+learner = LinearLearner(device="cpu")
+assert len(learner.fit_uri("s3://bkt/tiny.svm", batch_size=4, epochs=2,
+                           layout="csr", num_features=8,
+                           snapshot_uri="s3://bkt/snap")) == 2
+resilience.preempt.uninstall()
+learner.save("s3://bkt/tiny.model")
+assert ("bkt", "snap/LATEST") in store.objects
+assert hedge.hedged_call(lambda: 3, 0.0) == 3
+server.shutdown()
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

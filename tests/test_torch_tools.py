@@ -105,16 +105,17 @@ def test_rowrec_cli_writes_what_the_library_writes(tmp_path):
 
 
 def test_dispatcher_names_the_ported_commands(capsys):
-    assert sorted(tools._COMMANDS) == ["bake", "parity", "recordio",
-                                       "rowrec"]
+    assert sorted(tools._COMMANDS) == ["bake", "filesys", "parity",
+                                       "recordio", "rowrec"]
     assert tools.main(["--help"]) == 0
-    assert "bake parity recordio rowrec" in capsys.readouterr().out
+    assert "bake filesys parity recordio rowrec" in capsys.readouterr().out
     assert tools.main([]) == 2
-    with pytest.raises(DMLCError, match="bake parity recordio rowrec"):
+    with pytest.raises(DMLCError,
+                       match="bake filesys parity recordio rowrec"):
         tools.main(["split_read", "x"])
     out = _run("obs-report")
     assert out.returncode != 0
-    assert "the port has: bake parity recordio rowrec" in out.stderr
+    assert "the port has: bake filesys parity recordio rowrec" in out.stderr
 
 
 def test_parity_runs_through_the_dispatcher_and_its_module():

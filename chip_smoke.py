@@ -322,14 +322,43 @@ non-zero exit and no result line:
    of each fit beside the local one, seconds of a commit and a restore,
    the retries of (c).
 
+23. the fault-tolerant data service on the card (``drive_data_service``):
+   a ``DataDispatcher`` a fleet in this process, ``python -m
+   dmlc_tpu_torch.tools serve --dispatcher`` workers on the card (each
+   parses its leased InputSplit parts through ``create_parser`` on the
+   card and reports its kernel launches at exit), consumers here; every
+   socket on 127.0.0.1, ``DATA_CHUNKS`` chunks a job, a fleet fit one job
+   an epoch. (a) phase 12's file through a one-worker and a two-worker
+   fleet, drained by one ``RemoteBlockParser``: the rows' order-insensitive
+   digest equal to phase 12's read; (b) phase 5's dense and phase 6's csr
+   fit fed by the one-worker fleet (a ``DeviceFeed`` over a dispatcher
+   consumer, the exactly-once acks back): losses and params bit-identical
+   to phases 5 and 6, ``fused_linear_grads`` / ``coo_segment_sum`` once a
+   step, chunks in seq order; the csr fit through the two-worker fleet
+   bit-identical to a local fit replayed over ``create_parser(file, k,
+   N)`` in the order the consumer received the chunks; (c) that fit again
+   with ``DATA_CRASH`` in the first worker's environment: the worker exits
+   ``EXIT_WORKER_CRASHED`` (43), the dispatcher declares it dead and requeues its
+   lease, the consumer fails over; the rows' digest equal to the clean
+   run's, the fit bit-identical to its replay, every chunk acked, at least
+   one requeued; (d) jobs ``a`` and ``b`` over phase 6's file through one
+   worker with the source cache on: both digests equal the local read,
+   the worker's tokenizer launches one job's, ``chunks_parsed`` N. Every
+   clean fleet ends with all chunks acked and none requeued, and every
+   worker's tokenizer launches equal the non-empty chunk parts of what it
+   served; each worker's exit code is the one its schedule expects. MB/s
+   of each fleet beside phase 12's, rows/s of each fit beside phases 5-6,
+   seconds of the crashed fit beside the clean one.
+
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
-``formats`` line (phase 21), the ``remote`` line (phase 22) and
-``phase_seconds`` (each phase's wall seconds); the last lines are the
+``formats`` line (phase 21), the ``remote`` line (phase 22), the
+``data_service`` line (phase 23) and ``phase_seconds`` (each phase's wall
+seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -505,6 +534,14 @@ RESUME_EPOCHS, SIGNAL_AT_EPOCH = 3, 2
 REMOTE_FAIL_AFTER = 6 << 20
 REMOTE_FAULTS = "io.read:p=0.1:seed=5"
 REMOTE_READ_REPS = 3  # --remote-read: reads of each route, in turns
+# phase 23: chunks a job (DMLC_TPU_DATA_CHUNKS's default); the crashing
+# worker's fault (its third lease); the crash fleet's heartbeat-silence
+# limit (the requeue waits for it); the tenants' worker's source cache,
+# large enough to hold phase 6's whole file
+DATA_CHUNKS = 16
+DATA_CRASH = "service.worker_crash:nth=3"
+DATA_CRASH_DEAD_S = 2.0
+DATA_TENANT_CACHE_MB = 4096
 
 
 class SmokeFailure(RuntimeError):
@@ -1648,6 +1685,7 @@ def drive_ingest(kernels, dev, path, tmp):
     require(cpu_launches == 0, "ingest: the CPU route launched a kernel")
     same_blocks("ingest on the card", card, cpu)
     result["card_digest"] = block_digest(card)
+    result["card_rows_digest"] = rows_digest([row_fingerprints(card)])
     require(ncol == cpu_ncol and len(card) == INGEST_ROWS,
             "ingest: num_col %d/%d, %d rows", ncol, cpu_ncol, len(card))
     result.update({"rows": len(card), "nnz": card.num_nonzero,
@@ -4898,6 +4936,437 @@ def remote_summary(card, report) -> dict:
         "phase_seconds": report["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the fault-tolerant data service on the card
+# ---------------------------------------------------------------------------
+
+
+def rows_digest(fingerprints) -> str:
+    """sha256 of a read's sorted row fingerprints (``row_fingerprints``
+    of each block, joined): equal for the same rows in any order."""
+    import hashlib
+
+    rows = np.sort(np.concatenate(fingerprints)) if fingerprints else \
+        np.zeros(0, dtype=np.uint64)
+    return hashlib.sha256(rows.tobytes()).hexdigest()
+
+
+def split_parts(path: str, nchunks: int) -> int:
+    """Non-empty InputSplit chunks over the ``nchunks`` parts of ``path``,
+    read without a parse: the tokenizer launches a worker owes a job over
+    the file (one a chunk part, as in phases 5, 6 and 12)."""
+    from dmlc_tpu_torch.io import create_input_split
+
+    count = 0
+    for part in range(nchunks):
+        split = create_input_split(path, part, nchunks)
+        try:
+            while True:
+                chunk = split.next_chunk()
+                if chunk is None:
+                    break
+                count += bool(len(chunk))
+        finally:
+            split.close()
+    return count
+
+
+class Worker:
+    """One ``python -m dmlc_tpu_torch.tools serve --dispatcher`` process on
+    the card: started, read up to its ``serving HOST PORT`` line
+    (registered by then), and at the end its exit code and its
+    ``{"worker": ...}`` report (tokenizer launches, chunks parsed)."""
+
+    def __init__(self, address, tmp: str, name: str, device, **env):
+        self.name = name
+        self.log = os.path.join(tmp, name + ".log")
+        root = os.path.dirname(os.path.abspath(__file__))
+        full = dict(os.environ)
+        full.pop("DMLC_TPU_FAULTS", None)
+        full.update({k: str(v) for k, v in env.items()})
+        self._err = open(self.log, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dmlc_tpu_torch.tools", "serve",
+             "--dispatcher", "%s:%d" % tuple(address), "--host",
+             "127.0.0.1", "--port", "0", "--grace", "30", "--device",
+             str(device)],
+            cwd=root, env=full, stdout=subprocess.PIPE,
+            stderr=self._err, text=True)
+        self.report = None
+
+    def serving(self) -> None:
+        import select
+
+        ready, _, _ = select.select([self.proc.stdout], [], [],
+                                    RANK_TIMEOUT_S)
+        line = self.proc.stdout.readline() if ready else ""
+        require(line.startswith("serving "), "worker %s did not start: "
+                "%r\n%s", self.name, line, self.tail())
+
+    def tail(self) -> str:
+        with open(self.log) as fh:
+            return fh.read()[-4000:]
+
+    def finish(self, expect_rc: int) -> dict:
+        try:
+            out, _ = self.proc.communicate(timeout=RANK_TIMEOUT_S)
+        finally:
+            self.kill()
+        require(self.proc.returncode == expect_rc, "worker %s exited with "
+                "%s, expected %d:\n%s", self.name, self.proc.returncode,
+                expect_rc, self.tail())
+        lines = [json.loads(line)["worker"] for line in out.splitlines()
+                 if line.startswith('{"worker"')]
+        require(len(lines) == 1, "worker %s printed no report: %r",
+                self.name, out)
+        self.report = lines[0]
+        return self.report
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self._err.close()
+
+
+def served_read(address, job: str, dev):
+    """Drain ``job`` through one ``RemoteBlockParser``: (the rows' digest,
+    bytes of the blocks, seconds of the drain, seqs in arrival order)."""
+    from dmlc_tpu_torch.data import RemoteBlockParser
+
+    t0 = time.perf_counter()
+    parser = RemoteBlockParser(address, dispatcher=True, job=job,
+                               device=dev)
+    try:
+        blocks = list(parser)
+    finally:
+        parser.close()
+    seconds = time.perf_counter() - t0
+    return (rows_digest([row_fingerprints(b) for b in blocks]),
+            parser.bytes_read, seconds, [b.seq_id for b in blocks])
+
+
+class ChunkReplay:
+    """Parser over chunks ``order`` of ``path``: ``create_parser(path, k,
+    N)`` blocks on the card, concatenated in that order. The local fit
+    over it is what a fleet-fed fit that received the chunks in that
+    order must equal."""
+
+    def __init__(self, path, order, nchunks, dev):
+        self._path, self._order, self._n, self._dev = path, order, nchunks, \
+            dev
+        self.bytes_read = 0
+
+    def __iter__(self):
+        from dmlc_tpu_torch.data import create_parser
+
+        for part in self._order:
+            parser = create_parser(self._path, part, self._n,
+                                   device=self._dev)
+            try:
+                yield from parser
+            finally:
+                parser.close()
+
+    def before_first(self):
+        raise SmokeFailure("a chunk replay is one pass")
+
+    def close(self):
+        pass
+
+
+def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
+              parser_of):
+    """The linear fit of phases 5-6, one epoch a job: epoch e reads
+    ``parser_of(e)`` (a dispatcher consumer of job ``<layout>e``, or a
+    replay) through a DeviceFeed and continues the same learner. Returns
+    (history, params as numpy, seconds, launches, seq orders)."""
+    from dmlc_tpu_torch.data import RemoteBlockParser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+
+    class Recorder(RemoteBlockParser):
+        """The consumer, noting each chunk's seq and rows as they land."""
+
+        def next_block(self):
+            block = super().next_block()
+            if block is not None:
+                orders[-1].append(block.seq_id)
+                prints[-1].append(row_fingerprints(block))
+            return block
+
+    learner = LinearLearner(device=dev, objective="logistic",
+                            learning_rate=0.1)
+    history, orders, prints = [], [], []
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        orders.append([])
+        prints.append([])
+        parser = parser_of(epoch) if parser_of is not None else Recorder(
+            address, dispatcher=True, job="%s%d" % (layout, epoch),
+            device=dev)
+        feed = DeviceFeed(parser, BatchSpec(
+            batch_size=batch_size, layout=layout, num_features=nf),
+            device=dev)
+        try:
+            history = learner.fit_feed(feed, epochs=epoch + 1,
+                                       start_epoch=epoch, history=history)
+        finally:
+            feed.close()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    return history, params_to_numpy(learner.params), seconds, launches, \
+        orders, [rows_digest(p) for p in prints]
+
+
+def same_fit_bits(what, got, want) -> None:
+    """Histories and params equal bit for bit."""
+    require(list(got[0]) == list(want[0]), "%s: loss history %s, expected "
+            "%s", what, got[0], want[0])
+    for k in ("w", "b"):
+        require(np.array_equal(got[1][k], want[1][k]),
+                "%s: %s differs from the reference fit's bits", what, k)
+
+
+def hold_ledger(what, snap, job_totals, requeued_min=0, requeued_max=0):
+    """Every job's chunks acked, none left queued, leased or delivered,
+    and the requeue count within [min, max]."""
+    for name, total in job_totals.items():
+        chunks = snap["jobs"][name]["chunks"]
+        require(chunks == {"total": total, "queued": 0, "leased": 0,
+                           "delivered": 0, "acked": total},
+                "%s: job %s ledger %s", what, name, chunks)
+    require(requeued_min <= snap["requeued"] <= requeued_max,
+            "%s: %d requeued, expected %d..%d", what, snap["requeued"],
+            requeued_min, requeued_max)
+    require(snap["rejects"] == 0 or requeued_min > 0,
+            "%s: %d duplicate deliveries rejected", what, snap["rejects"])
+
+
+def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
+                       fit_params, tmp) -> dict:
+    """Phase 23 (the module docstring): the dispatcher in this process,
+    ``serve --dispatcher`` workers on the card, consumers here."""
+    from dmlc_tpu_torch.data import DataDispatcher
+    from dmlc_tpu_torch.tools.serve import EXIT_WORKER_CRASHED
+
+    n = DATA_CHUNKS
+    ingest_bytes = os.path.getsize(ingest_file)
+    parts = {"ingest": split_parts(ingest_file, n),
+             "dense": split_parts(fit_files["dense"], n),
+             "csr": split_parts(fit_files["csr"], n)}
+    shape = {"dense": (HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS),
+             "csr": (CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)}
+    kernel_of = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
+    nocache = {"DMLC_TPU_DATA_CACHE_MB": 0}
+    report = {"nchunks": n, "chunk_parts": parts}
+    disps, workers = {}, []
+
+    def fleet(name, jobs, **kw):
+        disp = DataDispatcher(host="127.0.0.1", port=0, **kw)
+        for job, path in jobs.items():
+            disp.add_job(job, path, nchunks=n)
+        disps[name] = disp
+        return disp
+
+    def worker(name, disp, **env):
+        w = Worker(disp.address, tmp, name, dev, **env)
+        workers.append(w)
+        return w
+
+    try:
+        one = fleet("one", {"ingest": ingest_file,
+                            "dense0": fit_files["dense"],
+                            "dense1": fit_files["dense"],
+                            "csr0": fit_files["csr"],
+                            "csr1": fit_files["csr"]})
+        two = fleet("two", {"ingest": ingest_file, "csr0": fit_files["csr"],
+                            "csr1": fit_files["csr"]})
+        crash = fleet("crash", {"csr0": fit_files["csr"],
+                                "csr1": fit_files["csr"]},
+                      dead_after_s=DATA_CRASH_DEAD_S)
+        tenants = fleet("tenants", {"a": fit_files["csr"],
+                                    "b": fit_files["csr"]})
+        # every worker starts at once; the crashing one first in its fleet,
+        # so the consumer (which dials the lowest worker id) reaches it
+        w_one = worker("one", one, **nocache)
+        w_two = [worker("two%d" % i, two, **nocache) for i in range(2)]
+        w_crash = worker("crash_victim", crash, DMLC_TPU_FAULTS=DATA_CRASH,
+                         **nocache)
+        w_tenant = worker("tenants", tenants,
+                          DMLC_TPU_DATA_CACHE_MB=DATA_TENANT_CACHE_MB)
+        w_crash.serving()
+        w_survivor = worker("crash_survivor", crash, **nocache)
+        for w in (w_one, *w_two, w_tenant, w_survivor):
+            w.serving()
+
+        # (a) phase 12's file through one worker, then two
+        reads = {}
+        for name, disp in (("one_worker", one), ("two_workers", two)):
+            digest, nbytes, seconds, seqs = served_read(disp.address,
+                                                        "ingest", dev)
+            require(digest == ingest["card_rows_digest"], "served read "
+                    "(%s): rows differ from phase 12's local read", name)
+            require(sorted(seqs) == list(range(n)), "served read (%s): "
+                    "seqs %s", name, seqs)
+            reads[name] = {"seconds": seconds,
+                           "mb_per_s": ingest_bytes / 1e6 / seconds,
+                           "frame_bytes": nbytes, "seq_order": seqs}
+        report["reads"] = reads
+        report["phase12_local_card_mb_per_s"] = ingest["card_mb_per_s"]
+
+        # (b) the fits of phases 5-6 through the one-worker fleet
+        fits = {}
+        for layout in ("dense", "csr"):
+            bs, nf, rows = shape[layout]
+            steps = EPOCHS * (-(-rows // bs))
+            got = fleet_fit(kernels, one.address, dev, layout, bs, nf,
+                            EPOCHS, None)
+            want = (paths[layout]["loss_history"], fit_params[layout])
+            same_fit_bits("%s fit fed by one worker" % layout, got, want)
+            require(got[3][kernel_of[layout]] == steps, "%s fleet fit: %s "
+                    "launched %d times for %d steps", layout,
+                    kernel_of[layout], got[3][kernel_of[layout]], steps)
+            for order in got[4]:
+                require(order == list(range(n)), "one-worker %s fit: chunk "
+                        "order %s", layout, order)
+            fits[layout + "_one_worker"] = {
+                "seconds": got[2], "rows_per_s": EPOCHS * rows / got[2],
+                "local_rows_per_s": paths[layout]["rows_per_s"],
+                "launches": got[3][kernel_of[layout]], "steps": steps}
+        snap = one.snapshot()
+        hold_ledger("one-worker fleet", snap, {
+            j: n for j in ("ingest", "dense0", "dense1", "csr0", "csr1")})
+        report["one_worker_snapshot_chunks"] = snap["chunks"]
+
+        # (b) the csr fit through two workers, against its replay
+        bs, nf, rows = shape["csr"]
+        steps = EPOCHS * (-(-rows // bs))
+
+        def replayed(orders):
+            return fleet_fit(
+                kernels, None, dev, "csr", bs, nf, EPOCHS,
+                lambda e: ChunkReplay(fit_files["csr"], orders[e], n, dev))
+
+        clean = rows_digest([row_fingerprints(b) for b in ChunkReplay(
+            fit_files["csr"], range(n), n, dev)])
+        got = fleet_fit(kernels, two.address, dev, "csr", bs, nf, EPOCHS,
+                        None)
+        require(got[3]["coo_segment_sum"] == steps, "two-worker csr fit: "
+                "%d launches for %d steps", got[3]["coo_segment_sum"], steps)
+        require(got[5] == [clean] * EPOCHS, "two-worker csr fit: the "
+                "epochs' rows differ from the local read")
+        same_fit_bits("csr fit fed by two workers", got, replayed(got[4]))
+        fits["csr_two_workers"] = {
+            "seconds": got[2], "rows_per_s": EPOCHS * rows / got[2],
+            "seq_orders": got[4]}
+        hold_ledger("two-worker fleet", two.snapshot(),
+                    {j: n for j in ("ingest", "csr0", "csr1")})
+
+        # (c) the same fit with one worker crashing at its third lease
+        got = fleet_fit(kernels, crash.address, dev, "csr", bs, nf, EPOCHS,
+                        None)
+        # before the replay: the survivor, done, is declared dead in turn
+        # once DATA_CRASH_DEAD_S have passed
+        snap = crash.snapshot()
+        require(got[5] == [clean] * EPOCHS, "crashed fleet: the epochs' "
+                "rows differ from the clean read")
+        for order in got[4]:
+            require(sorted(order) == list(range(n)), "crashed fleet: chunk "
+                    "order %s", order)
+        same_fit_bits("csr fit over a crashed worker", got,
+                      replayed(got[4]))
+        hold_ledger("crashed fleet", snap, {"csr0": n, "csr1": n},
+                    requeued_min=1, requeued_max=n)
+        require(sorted(w["live"] for w in snap["workers"].values())
+                == [False, True], "crashed fleet: workers %s",
+                snap["workers"])
+        fits["csr_crashed"] = {
+            "seconds": got[2], "rows_per_s": EPOCHS * rows / got[2],
+            "clean_seconds": fits["csr_two_workers"]["seconds"],
+            "requeued": snap["requeued"], "seq_orders": got[4]}
+        report["fits"] = fits
+
+        # (d) two tenants over one worker with the source cache on
+        tenant = {}
+        for job in ("a", "b"):
+            digest, _, seconds, _ = served_read(tenants.address, job, dev)
+            require(digest == clean, "tenant %s: rows differ from the "
+                    "local read", job)
+            tenant[job] = {"seconds": seconds}
+        hold_ledger("tenants", tenants.snapshot(), {"a": n, "b": n})
+
+        # a worker ends once every job of its fleet is drained, or (the
+        # second worker of fleet two, never dialed) once its dispatcher
+        # is gone
+        for disp in disps.values():
+            disp.close()
+        rep = {"one": w_one.finish(0),
+               "two": [w.finish(0) for w in w_two],
+               "crash_victim": w_crash.finish(EXIT_WORKER_CRASHED),
+               "crash_survivor": w_survivor.finish(0),
+               "tenants": w_tenant.finish(0)}
+    finally:
+        for w in workers:
+            w.kill()
+        for disp in disps.values():
+            disp.close()
+
+    def tokens(r):
+        return r["launches"]["tokenize_boundaries"]
+
+    want = parts["ingest"] + EPOCHS * (parts["dense"] + parts["csr"])
+    require(tokens(rep["one"]) == want, "one-worker fleet: %d tokenizer "
+            "launches for %d chunk parts", tokens(rep["one"]), want)
+    want = parts["ingest"] + EPOCHS * parts["csr"]
+    got = sum(tokens(r) for r in rep["two"])
+    require(got == want, "two-worker fleet: %d tokenizer launches for %d "
+            "chunk parts", got, want)
+    got = tokens(rep["crash_victim"]) + tokens(rep["crash_survivor"])
+    require(got == EPOCHS * parts["csr"], "crashed fleet: %d tokenizer "
+            "launches for %d chunk parts", got, EPOCHS * parts["csr"])
+    require(tokens(rep["tenants"]) == parts["csr"]
+            and rep["tenants"]["chunks_parsed"] == n,
+            "tenants: %d tokenizer launches and %d chunks parsed for one "
+            "job's %d parts and %d chunks", tokens(rep["tenants"]),
+            rep["tenants"]["chunks_parsed"], parts["csr"], n)
+    tenant["worker_tokenize_launches"] = tokens(rep["tenants"])
+    tenant["chunks_parsed"] = rep["tenants"]["chunks_parsed"]
+    report["tenants"] = tenant
+    report["worker_tokenize_launches"] = {
+        "one": tokens(rep["one"]), "two": [tokens(r) for r in rep["two"]],
+        "crash_victim": tokens(rep["crash_victim"]),
+        "crash_survivor": tokens(rep["crash_survivor"]),
+        "tenants": tokens(rep["tenants"])}
+    return report
+
+
+def data_service_summary(card, report) -> dict:
+    """The ``data_service`` line: phase 23's MB/s, rows/s, seconds and
+    requeues."""
+    reads, fits = report["reads"], report["fits"]
+    return {
+        "card": card, "nchunks": report["nchunks"],
+        "served_mb_per_s": {k: v["mb_per_s"] for k, v in reads.items()},
+        "phase12_local_card_mb_per_s": report["phase12_local_card_mb_per_s"],
+        "fit_rows_per_s": {k: v["rows_per_s"] for k, v in fits.items()},
+        "local_fit_rows_per_s": {
+            "dense": fits["dense_one_worker"]["local_rows_per_s"],
+            "csr": fits["csr_one_worker"]["local_rows_per_s"]},
+        "crashed_fit_seconds": fits["csr_crashed"]["seconds"],
+        "clean_two_worker_fit_seconds": fits["csr_crashed"]["clean_seconds"],
+        "crash_requeued": fits["csr_crashed"]["requeued"],
+        "crash_seq_orders": fits["csr_crashed"]["seq_orders"],
+        "tenant_worker_tokenize_launches":
+            report["tenants"]["worker_tokenize_launches"],
+        "one_job_chunk_parts": report["chunk_parts"]["csr"],
+        "tenant_chunks_parsed": report["tenants"]["chunks_parsed"],
+        "worker_tokenize_launches": report["worker_tokenize_launches"],
+        "phase_seconds": report["seconds"]}
+
+
 def remote_read_times(dev) -> dict:
     """``--remote-read``: phase 12's file from the fake ``s3://`` and from
     the local disk, in turns, through ``create_input_split`` alone (every
@@ -5035,14 +5504,14 @@ def main() -> int:
     require(not sys.argv[1:], "unknown arguments %s (only --times and "
             "--remote-read)",
             sys.argv[1:])
-    # phases 5-6 and 12 write their files here, and phases 13-22 read
+    # phases 5-6 and 12 write their files here, and phases 13-23 read
     # them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-22 (the module docstring), with the fit files in
+    """Phases 1-23 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -5369,6 +5838,16 @@ def smoke(fit_dir: str) -> int:
     remote["seconds"] = time.perf_counter() - t0
     lap("22")
 
+    # ---- 23. the fault-tolerant data service on the card --------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_service = drive_data_service(kernels, dev, ingest_file, ingest,
+                                          fit_files, paths, fit_params, tmp)
+    torch.cuda.synchronize()
+    data_service["seconds"] = time.perf_counter() - t0
+    lap("23")
+    print(json.dumps({"data_service_detail": data_service}), flush=True)
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -5436,6 +5915,8 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"obs": obs_summary(card, obs_report)}))
     print(json.dumps({"formats": formats_summary(card, formats)}))
     print(json.dumps({"remote": remote_summary(card, remote)}))
+    print(json.dumps({"data_service": data_service_summary(card,
+                                                           data_service)}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

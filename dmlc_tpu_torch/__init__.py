@@ -5,22 +5,28 @@ counterpart sits at the same path:
 
 - ``dmlc_tpu_torch.utils``  — DMLCError/check logging layer, device rule,
   the threefry copy behind GBDT's masks and FM's init (``utils.prng``),
-  the threaded iterator, the stopwatch (``utils.timer``)
-- ``dmlc_tpu_torch.params`` — the Parameter/field subset the learners use,
-  the parser registry, typed environment reads (``params.env``)
+  the threaded iterator, the stopwatch (``utils.timer``), managed
+  threads (``utils.thread_group``) and small helpers (``utils.common``)
+- ``dmlc_tpu_torch.params`` — Parameter structs (enums, aliases,
+  optional fields, JSON save / load), ``Config`` files, the parser
+  registry, typed environment reads (``params.env``)
 - ``dmlc_tpu_torch.io``     — the FileSystem registry (local files,
   ``mem://``, ``http(s)://``, ``s3://``, ``gs://``, ``hdfs://`` over
   WebHDFS, ``azure://``), URISpec, the InputSplits over any of them
   (text, recordio, indexed recordio, stdin; prefetch, cache and
   shuffle), RecordIO, the ``.dtsh`` shards (local files), streams, the
-  serializer, the ordered read-ahead window and the remote partition
-  reader
+  serializer, the JSON reader and writer (``io.json``), the ordered
+  read-ahead window and the remote partition reader
 - ``dmlc_tpu_torch.data``   — RowBlock, the libsvm / libfm / csv parsers
   (libsvm tokenized by a CUDA kernel on the card), the RecordIO row
   groups, ``PipelinedParser``, the row-block iterators with the
-  ``#cachefile`` disk pages, and ``reshard_split``
+  ``#cachefile`` disk pages, the fault-tolerant data service (the
+  dispatcher, block-service workers parsing on their own card, failover
+  consumers, the shared source cache, the autoscaler), and
+  ``reshard_split``
 - ``dmlc_tpu_torch.device`` — static-shape padding, the sharded csr batch
-  and the pinned-memory DeviceFeed
+  and the pinned-memory DeviceFeed (with the data service's exactly-once
+  acks)
 - ``dmlc_tpu_torch.ops``    — objectives, SpMV, the long-context attention
   schedules (ring, Ulysses, flash), expert-parallel MoE (``ops.moe``),
   GPipe pipeline parallelism (``ops.pipeline_parallel``), and the
@@ -46,7 +52,8 @@ counterpart sits at the same path:
 - ``dmlc_tpu_torch.examples`` — the MoE-transformer block over process
   groups (``python -m dmlc_tpu_torch.examples.moe_transformer``)
 - ``dmlc_tpu_torch.tools``  — ``python -m dmlc_tpu_torch.tools <cmd>``:
-  ``bake``, ``filesys``, ``parity``, ``recordio``, ``rowrec``
+  ``bake``, ``dispatch``, ``filesys``, ``parity``, ``recordio``,
+  ``rowrec``, ``serve``
 
 The package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``dmlc_tpu``. Entry points take ``device=None``, which means ``cuda``; with

@@ -21,6 +21,13 @@ csr ``label``/``weight``/``indices``/``values``/``offsets`` (CSR offsets,
 not per-entry row ids: the step expands them on the device), plus the
 ``num_rows`` (and csr ``num_nonzero``) ints.
 
+Over a dispatcher-mode ``RemoteBlockParser`` (data/service.py) the feed
+owns the exactly-once ack frontier: it switches the parser to explicit
+acks, each chunk's seq id rides the first batch its rows reach, and the
+chunk is acked once the consumer comes back from that batch (a chunk with
+no rows at once). Closing the feed mid-epoch acks nothing it did not
+deliver, so the dispatcher requeues the rest.
+
 Observability, on the reference's names (docs/observability.md): per-batch
 stage histograms ``dmlc_feed_host_batch_ns`` (host production: parse, then
 the pad into staging), ``dmlc_feed_dispatch_ns`` (the non_blocking copy
@@ -54,7 +61,7 @@ from dmlc_tpu_torch.device.csr import block_to_dense, emit_to_bucket
 from dmlc_tpu_torch.obs import audit, device_telemetry
 from dmlc_tpu_torch.resilience import faultpoint
 from dmlc_tpu_torch.utils.device import resolve_device
-from dmlc_tpu_torch.utils.logging import check
+from dmlc_tpu_torch.utils.logging import check, log_warning
 
 _FEED_IDS = itertools.count()  # per-instance obs label (feed="f0")
 _POOL_IDS = itertools.count()  # per-instance obs label (pool="p0")
@@ -235,34 +242,66 @@ class DeviceFeed:
         # shared no-op child when DMLC_TPU_AUDIT is off)
         self._audit = audit.auditor()
         self._epoch_base: dict = {}
+        # exactly-once acks (a dispatcher-mode RemoteBlockParser): switch
+        # the parser to explicit acks before its first fetch, so a chunk is
+        # acked only once the consumer has stepped on its rows
+        self._ack = getattr(self._parser, "ack", None)
+        set_explicit = getattr(self._parser, "set_explicit_ack", None)
+        if callable(self._ack) and callable(set_explicit):
+            set_explicit()
+        else:
+            self._ack = None
 
     # ---- host side: re-batch parser blocks into fixed-size batches ------
     def _containers(self) -> Iterator:
-        """(container, flow ids) of ``batch_size`` rows (the last one
-        shorter unless ``drop_remainder``), each holding slices of the
-        parser's blocks; a chunk's flow id rides the first batch its rows
-        reach."""
+        """(container, flow ids, chunk seq ids) of ``batch_size`` rows (the
+        last one shorter unless ``drop_remainder``), each holding slices of
+        the parser's blocks; a chunk's flow id and dispatcher seq id ride
+        the first batch its rows reach. A chunk with no rows, or whose rows
+        only reach a dropped remainder, is acked here: it was visited."""
         bs = self.spec.batch_size
         pending = RowBlockContainer()
-        flows = []
+        flows, seqs = [], []
         for block in self._parser:
             fid = getattr(block, "flow_id", 0)
             if fid:
                 flows.append(fid)
+            sid = getattr(block, "seq_id", None)
+            if sid is not None:
+                if len(block):
+                    seqs.append(sid)
+                else:
+                    self._ack_seq(sid)
             start = 0
             while start < len(block):
                 take = min(bs - len(pending), len(block) - start)
                 pending.push_block(block.slice(start, start + take))
                 start += take
                 if len(pending) == bs:
-                    yield pending, tuple(flows)
+                    yield pending, tuple(flows), tuple(seqs)
                     pending = RowBlockContainer()
-                    flows = []
+                    flows, seqs = [], []
         if len(pending) and not self.spec.drop_remainder:
-            yield pending, tuple(flows)
+            yield pending, tuple(flows), tuple(seqs)
+        else:
+            for sid in seqs:
+                self._ack_seq(sid)
+
+    def _ack_seq(self, sid) -> None:
+        """Report one dispatcher chunk consumed, best effort: a lost ack
+        is covered by the lease deadline and a repeated one is harmless,
+        so a dispatcher that went away must not stop the training loop."""
+        if self._ack is None:
+            return
+        try:
+            self._ack(sid)
+        except Exception as err:  # noqa: BLE001 (see the docstring)
+            log_warning("device feed: ack of chunk %s lost: %s", sid,
+                        str(err).split("\n\nStack trace:")[0])
 
     def _host_batches(self) -> Iterator:
-        """(staged host arrays, flow ids): each batch's digest at emit,
+        """(staged host arrays, flow ids, seq ids): each batch's digest at
+        emit,
         then its pad into staging inside a ``stage`` span; the time of
         each step of this producer is ``dmlc_feed_host_batch_ns``."""
         producer = self._containers()
@@ -272,7 +311,7 @@ class DeviceFeed:
             t0 = time.monotonic_ns()
             try:
                 try:
-                    rows, flows = next(producer)
+                    rows, flows, seqs = next(producer)
                 except StopIteration:
                     return
                 self._audit.note_batch(bidx, rows)
@@ -284,7 +323,7 @@ class DeviceFeed:
             finally:
                 self._stage["host_batch_ns"].observe(
                     time.monotonic_ns() - t0)
-            yield staged, flows
+            yield staged, flows, seqs
 
     # ---- device side ---------------------------------------------------
     def _stage_rows(self, rows: RowBlockContainer) -> tuple:
@@ -332,13 +371,17 @@ class DeviceFeed:
         duration IS the time the consumer held the batch, and the
         thread's current flow is the batch's first chunk for that window,
         so fit-loop spans (train_step, collective ops) mark the chunk;
-        each flow ends inside the consume span."""
+        each flow ends inside the consume span. Once the yield returns the
+        consumer is done with the batch, and the dispatcher chunks whose
+        rows first reached it are acked; a batch the consumer never comes
+        back from (the feed closed, or an error) is not acked, so its
+        chunks requeue."""
         nbatch = 0
         producer = self._host_batches()
         while True:
             with obs.span("feed_batch", batch=nbatch):
                 try:
-                    (arrays, ints), flows = next(producer)
+                    (arrays, ints), flows, seqs = next(producer)
                 except StopIteration:
                     break
                 t1 = time.monotonic_ns()
@@ -362,6 +405,8 @@ class DeviceFeed:
                     for fid in flows:
                         obs.flow_end(fid, "chunk")
             self._stage["consume_ns"].observe(time.monotonic_ns() - t2)
+            for sid in seqs:
+                self._ack_seq(sid)
             nbatch += 1
 
     def stats(self) -> dict:

@@ -1,6 +1,7 @@
-"""Typed environment-variable reads (``get_env`` of
-``dmlc_tpu/params/env.py``; reference GetEnv, parameter.h:1035-1063): how
-the observability layer reads its settings."""
+"""Typed environment-variable reads and writes (``get_env`` / ``set_env``
+of ``dmlc_tpu/params/env.py``; reference GetEnv / SetEnv,
+parameter.h:1035-1063): how the observability layer and the data service
+read their settings."""
 
 from __future__ import annotations
 
@@ -23,3 +24,11 @@ def get_env(key: str, default: T, ftype: Optional[Type[T]] = None) -> T:
     info.name = key
     return info.parse(raw)  # type: ignore[return-value]
 
+
+
+def set_env(key: str, value) -> None:
+    """Set env var ``key`` from a typed value, with the Parameter fields'
+    string form (bool as true/false)."""
+    info = FieldInfo(type(value))
+    info.name = key
+    os.environ[key] = info.to_string(value)

@@ -661,3 +661,53 @@ def test_a_recording_reads_the_peak_and_keeps_the_callers(cuda):
     assert rec["peak_bytes"] >= 2 * x.numel() * 4
     assert torch.cuda.max_memory_allocated(cuda) == high
     xla_cost.reset()
+
+
+def test_fleet_fed_csr_fit_equals_the_local_card_fit(cuda, tmp_path,
+                                                     monkeypatch):
+    """A one-worker data-service fleet on the card (the worker tokenizes
+    each leased part there; its source cache off, so every epoch parses)
+    feeds the csr fit one job an epoch: losses and params equal the local
+    card fit's bit for bit, one ``coo_segment_sum`` a step, one tokenizer
+    launch a chunk part."""
+    from chip_smoke import split_parts
+    from dmlc_tpu_torch.data import (BlockService, DataDispatcher,
+                                     RemoteBlockParser, reset_source_cache)
+    from dmlc_tpu_torch.models import params_to_numpy
+
+    monkeypatch.setenv("DMLC_TPU_DATA_CACHE_MB", "0")
+    reset_source_cache()
+    path = str(tmp_path / "criteo.svm")
+    write_criteo(path, 4096, seed=21)
+    nf, bs, epochs, nchunks = (1 << 20) + 1, 512, 2, 6
+    local = LinearLearner(device=cuda, objective="logistic",
+                          learning_rate=0.1)
+    want = local.fit_uri(path, batch_size=bs, epochs=epochs, layout="csr",
+                         num_features=nf)
+    learner = LinearLearner(device=cuda, objective="logistic",
+                            learning_rate=0.1)
+    history = []
+    kernels.reset_launch_counts()
+    with DataDispatcher() as disp:
+        for e in range(epochs):
+            disp.add_job("csr%d" % e, path, nchunks=nchunks)
+        with BlockService(dispatcher=disp.address, nthread=2, device=cuda):
+            for e in range(epochs):
+                feed = DeviceFeed(
+                    RemoteBlockParser(disp.address, dispatcher=True,
+                                      job="csr%d" % e, device=cuda),
+                    BatchSpec(batch_size=bs, layout="csr", num_features=nf),
+                    device=cuda)
+                history = learner.fit_feed(feed, epochs=e + 1,
+                                           start_epoch=e, history=history)
+                feed.close()
+            assert disp.join(timeout=60), disp.snapshot()
+    torch.cuda.synchronize()
+    assert history == want
+    got, ref = params_to_numpy(learner.params), params_to_numpy(local.params)
+    for k in ("w", "b"):
+        assert np.array_equal(got[k], ref[k]), k
+    assert kernels.coo_segment_sum.launches == epochs * (-(-4096 // bs))
+    assert kernels.tokenize_boundaries.launches == \
+        epochs * split_parts(path, nchunks)
+    reset_source_cache()

@@ -140,8 +140,8 @@ split = create_input_split(rec, 0, 1, "indexed_recordio",
 assert len(list(split.records())) == 1
 split.close()
 assert shard.cache_token(dtsh, "shard")[0] == shard.SHARD_FORMAT_VERSION
-assert sorted(tools._COMMANDS) == ["bake", "filesys", "parity", "recordio",
-                                   "rowrec"]
+assert sorted(tools._COMMANDS) == ["bake", "dispatch", "filesys", "parity",
+                                   "recordio", "rowrec", "serve"]
 # the remote filesystems: a parser read and a csr fit from a fake s3://,
 # the fit's snapshot and the model written there too
 import dmlc_tpu_torch.io.azure
@@ -170,6 +170,24 @@ learner.save("s3://bkt/tiny.model")
 assert ("bkt", "snap/LATEST") in store.objects
 assert hedge.hedged_call(lambda: 3, 0.0) == 3
 server.shutdown()
+# the data service: a dispatcher, an in-process worker and a fleet-fed fit;
+# the host modules of Parameter JSON, Config and the managed threads
+from dmlc_tpu_torch.data import (BlockService, DataDispatcher,
+                                 RemoteBlockParser, WorkerAutoscaler)
+from dmlc_tpu_torch.io import json as dmlc_json
+from dmlc_tpu_torch.params import Config
+from dmlc_tpu_torch.tools import dispatch, serve
+from dmlc_tpu_torch.utils import ThreadGroup, hash_combine
+with DataDispatcher(sys.argv[1], nchunks=3) as disp:
+    with BlockService(dispatcher=disp.address, nthread=1, device="cpu"):
+        feed = DeviceFeed(RemoteBlockParser(disp.address, dispatcher=True,
+                                            device="cpu"),
+                          BatchSpec(batch_size=4, layout="csr",
+                                    num_features=8), device="cpu")
+        assert len(LinearLearner(device="cpu").fit_feed(feed)) == 1
+        feed.close()
+        assert disp.join(timeout=30)
+assert dmlc_json.loads(dmlc_json.dumps({"a": [1]})) == {"a": [1]}
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")
@@ -255,6 +273,55 @@ def test_fit_with_the_observability_layer_armed_loads_no_jax(tmp_path):
     assert (tmp_path / "trace.json").exists()
     assert "dmlc_fit_steps_total" in (tmp_path / "m.prom").read_text()
     assert list((tmp_path / "rec").glob("profile-rank0-req0/trace.json"))
+
+
+_SERVE_WORKER = """
+import sys
+from dmlc_tpu_torch.tools import main
+rc = main(["serve", "--dispatcher", sys.argv[1], "--host", "127.0.0.1",
+           "--nthread", "1", "--grace", "10", "--device", "cpu"])
+loaded = sorted(
+    m for m in sys.modules
+    if m in ("jax", "jaxlib", "dmlc_tpu")
+    or m.startswith(("jax.", "jaxlib.", "dmlc_tpu."))
+)
+print("LOADED", loaded, "RC", rc)
+"""
+
+
+def test_serve_worker_process_loads_no_jax(tmp_path):
+    """A ``serve --dispatcher --device cpu`` worker process parses and
+    serves a whole epoch for this process's dispatcher and consumer, and
+    ends with neither JAX nor any ``dmlc_tpu`` module loaded."""
+    import numpy as np
+
+    from dmlc_tpu_torch.data import DataDispatcher, RemoteBlockParser
+
+    data = tmp_path / "tiny.svm"
+    data.write_text("".join(f"{i % 2} 1:{i}\n" for i in range(30)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    with DataDispatcher(str(data), nchunks=3) as disp:
+        worker = subprocess.Popen(
+            [sys.executable, "-c", _SERVE_WORKER, "%s:%d" % disp.address],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            assert worker.stdout.readline().startswith("serving ")
+            parser = RemoteBlockParser(disp.address, dispatcher=True,
+                                       device="cpu")
+            vals = sorted(v for b in parser
+                          for v in np.asarray(b.value).tolist())
+            parser.close()
+            assert disp.join(timeout=30)
+            out, err = worker.communicate(timeout=120)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+    assert vals == [float(i) for i in range(30)]
+    assert worker.returncode == 0, err
+    assert "LOADED [] RC 0" in out, out + err
 
 
 def test_entry_points_without_cuda_raise(monkeypatch, tmp_path):

@@ -348,7 +348,25 @@ non-zero exit and no result line:
    worker's tokenizer launches equal the non-empty chunk parts of what it
    served; each worker's exit code is the one its schedule expects. MB/s
    of each fleet beside phase 12's, rows/s of each fit beside phases 5-6,
-   seconds of the crashed fit beside the clean one.
+   seconds of the crashed fit beside the clean one. The consumers' feeds
+   run inline (``host_prefetch=0``), as this phase first measured them.
+24. the feed's producer thread and transfer window (``drive_feed``): (a)
+   phases 5-6's fits over a ``DeviceFeed`` at each ``FEED_MODES`` entry
+   (depth 0 and the default 2 in turns 0, 2, 2, 0, the csr fit also at
+   window 2): losses and params bit-identical to phases 5-6,
+   ``fused_linear_grads`` / ``coo_segment_sum`` once a step, the
+   tokenizer as in phases 5-6; rows/s, the last epoch's
+   ``stall_breakdown`` and the pool's allocated / reused counts of each
+   turn; (b) phase 23's fleet-fed fits (one and two
+   workers, clean and with ``DATA_CRASH``) with the consumers' feeds at
+   the default depth, held as phase 23 holds them: rows/s beside phase
+   23's, requeues, each worker's tokenizer launches; (c) in process,
+   through their ``main(argv)``: ``parse``, ``dataiter`` and ``strtonum``
+   over a ``FEED_SLICE_BYTES`` slice of phase 12's file (the tokenizer),
+   ``criteo_sparse.py`` over phase 6's file (``coo_segment_sum``),
+   ``long_context.py`` at T = ``LONG_CONTEXT_T`` (``flash_attention_fwd``)
+   and ``boosted_trees.py`` over phase 5's first ``GBDT_EXAMPLE_ROWS``
+   rows (the tokenizer): each exits 0 having launched its kernel.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
@@ -357,8 +375,8 @@ path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
-``data_service`` line (phase 23) and ``phase_seconds`` (each phase's wall
-seconds); the last lines are the
+``data_service`` line (phase 23), the ``feed`` line (phase 24) and
+``phase_seconds`` (each phase's wall seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -5076,11 +5094,13 @@ class ChunkReplay:
 
 
 def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
-              parser_of):
+              parser_of, host_prefetch=None):
     """The linear fit of phases 5-6, one epoch a job: epoch e reads
     ``parser_of(e)`` (a dispatcher consumer of job ``<layout>e``, or a
-    replay) through a DeviceFeed and continues the same learner. Returns
-    (history, params as numpy, seconds, launches, seq orders)."""
+    replay) through a DeviceFeed (its producer thread at
+    ``host_prefetch``, None for the default) and continues the same
+    learner. Returns (history, params as numpy, seconds, launches, seq
+    orders, each epoch's rows digest)."""
     from dmlc_tpu_torch.data import RemoteBlockParser
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
     from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
@@ -5108,7 +5128,7 @@ def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
             device=dev)
         feed = DeviceFeed(parser, BatchSpec(
             batch_size=batch_size, layout=layout, num_features=nf),
-            device=dev)
+            device=dev, host_prefetch=host_prefetch)
         try:
             history = learner.fit_feed(feed, epochs=epoch + 1,
                                        start_epoch=epoch, history=history)
@@ -5146,9 +5166,14 @@ def hold_ledger(what, snap, job_totals, requeued_min=0, requeued_max=0):
 
 
 def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
-                       fit_params, tmp) -> dict:
+                       fit_params, tmp, host_prefetch=0,
+                       served=True) -> dict:
     """Phase 23 (the module docstring): the dispatcher in this process,
-    ``serve --dispatcher`` workers on the card, consumers here."""
+    ``serve --dispatcher`` workers on the card, consumers here. The
+    consumers' feeds run their producer thread at ``host_prefetch`` (0,
+    the inline feed phase 23 measured first; None, the default, in phase
+    24 (b)); ``served=False`` leaves out the served reads (a) and the
+    tenants (d)."""
     from dmlc_tpu_torch.data import DataDispatcher
     from dmlc_tpu_torch.tools.serve import EXIT_WORKER_CRASHED
 
@@ -5161,8 +5186,10 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
              "csr": (CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)}
     kernel_of = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
     nocache = {"DMLC_TPU_DATA_CACHE_MB": 0}
-    report = {"nchunks": n, "chunk_parts": parts}
+    report = {"nchunks": n, "chunk_parts": parts,
+              "host_prefetch": host_prefetch}
     disps, workers = {}, []
+    reads_of = {"ingest": ingest_file} if served else {}
 
     def fleet(name, jobs, **kw):
         disp = DataDispatcher(host="127.0.0.1", port=0, **kw)
@@ -5177,34 +5204,37 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
         return w
 
     try:
-        one = fleet("one", {"ingest": ingest_file,
-                            "dense0": fit_files["dense"],
+        one = fleet("one", {**reads_of, "dense0": fit_files["dense"],
                             "dense1": fit_files["dense"],
                             "csr0": fit_files["csr"],
                             "csr1": fit_files["csr"]})
-        two = fleet("two", {"ingest": ingest_file, "csr0": fit_files["csr"],
+        two = fleet("two", {**reads_of, "csr0": fit_files["csr"],
                             "csr1": fit_files["csr"]})
         crash = fleet("crash", {"csr0": fit_files["csr"],
                                 "csr1": fit_files["csr"]},
                       dead_after_s=DATA_CRASH_DEAD_S)
-        tenants = fleet("tenants", {"a": fit_files["csr"],
-                                    "b": fit_files["csr"]})
+        if served:
+            tenants = fleet("tenants", {"a": fit_files["csr"],
+                                        "b": fit_files["csr"]})
         # every worker starts at once; the crashing one first in its fleet,
         # so the consumer (which dials the lowest worker id) reaches it
         w_one = worker("one", one, **nocache)
         w_two = [worker("two%d" % i, two, **nocache) for i in range(2)]
         w_crash = worker("crash_victim", crash, DMLC_TPU_FAULTS=DATA_CRASH,
                          **nocache)
-        w_tenant = worker("tenants", tenants,
-                          DMLC_TPU_DATA_CACHE_MB=DATA_TENANT_CACHE_MB)
+        w_tenant = (worker("tenants", tenants,
+                           DMLC_TPU_DATA_CACHE_MB=DATA_TENANT_CACHE_MB)
+                    if served else None)
         w_crash.serving()
         w_survivor = worker("crash_survivor", crash, **nocache)
         for w in (w_one, *w_two, w_tenant, w_survivor):
-            w.serving()
+            if w is not None:
+                w.serving()
 
         # (a) phase 12's file through one worker, then two
         reads = {}
-        for name, disp in (("one_worker", one), ("two_workers", two)):
+        for name, disp in ((("one_worker", one), ("two_workers", two))
+                           if served else ()):
             digest, nbytes, seconds, seqs = served_read(disp.address,
                                                         "ingest", dev)
             require(digest == ingest["card_rows_digest"], "served read "
@@ -5214,8 +5244,9 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
             reads[name] = {"seconds": seconds,
                            "mb_per_s": ingest_bytes / 1e6 / seconds,
                            "frame_bytes": nbytes, "seq_order": seqs}
-        report["reads"] = reads
-        report["phase12_local_card_mb_per_s"] = ingest["card_mb_per_s"]
+        if served:
+            report["reads"] = reads
+            report["phase12_local_card_mb_per_s"] = ingest["card_mb_per_s"]
 
         # (b) the fits of phases 5-6 through the one-worker fleet
         fits = {}
@@ -5223,7 +5254,7 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
             bs, nf, rows = shape[layout]
             steps = EPOCHS * (-(-rows // bs))
             got = fleet_fit(kernels, one.address, dev, layout, bs, nf,
-                            EPOCHS, None)
+                            EPOCHS, None, host_prefetch)
             want = (paths[layout]["loss_history"], fit_params[layout])
             same_fit_bits("%s fit fed by one worker" % layout, got, want)
             require(got[3][kernel_of[layout]] == steps, "%s fleet fit: %s "
@@ -5238,7 +5269,7 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
                 "launches": got[3][kernel_of[layout]], "steps": steps}
         snap = one.snapshot()
         hold_ledger("one-worker fleet", snap, {
-            j: n for j in ("ingest", "dense0", "dense1", "csr0", "csr1")})
+            j: n for j in (*reads_of, "dense0", "dense1", "csr0", "csr1")})
         report["one_worker_snapshot_chunks"] = snap["chunks"]
 
         # (b) the csr fit through two workers, against its replay
@@ -5248,12 +5279,13 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
         def replayed(orders):
             return fleet_fit(
                 kernels, None, dev, "csr", bs, nf, EPOCHS,
-                lambda e: ChunkReplay(fit_files["csr"], orders[e], n, dev))
+                lambda e: ChunkReplay(fit_files["csr"], orders[e], n, dev),
+                host_prefetch)
 
         clean = rows_digest([row_fingerprints(b) for b in ChunkReplay(
             fit_files["csr"], range(n), n, dev)])
         got = fleet_fit(kernels, two.address, dev, "csr", bs, nf, EPOCHS,
-                        None)
+                        None, host_prefetch)
         require(got[3]["coo_segment_sum"] == steps, "two-worker csr fit: "
                 "%d launches for %d steps", got[3]["coo_segment_sum"], steps)
         require(got[5] == [clean] * EPOCHS, "two-worker csr fit: the "
@@ -5263,11 +5295,11 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
             "seconds": got[2], "rows_per_s": EPOCHS * rows / got[2],
             "seq_orders": got[4]}
         hold_ledger("two-worker fleet", two.snapshot(),
-                    {j: n for j in ("ingest", "csr0", "csr1")})
+                    {j: n for j in (*reads_of, "csr0", "csr1")})
 
         # (c) the same fit with one worker crashing at its third lease
         got = fleet_fit(kernels, crash.address, dev, "csr", bs, nf, EPOCHS,
-                        None)
+                        None, host_prefetch)
         # before the replay: the survivor, done, is declared dead in turn
         # once DATA_CRASH_DEAD_S have passed
         snap = crash.snapshot()
@@ -5291,12 +5323,13 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
 
         # (d) two tenants over one worker with the source cache on
         tenant = {}
-        for job in ("a", "b"):
+        for job in ("a", "b") if served else ():
             digest, _, seconds, _ = served_read(tenants.address, job, dev)
             require(digest == clean, "tenant %s: rows differ from the "
                     "local read", job)
             tenant[job] = {"seconds": seconds}
-        hold_ledger("tenants", tenants.snapshot(), {"a": n, "b": n})
+        if served:
+            hold_ledger("tenants", tenants.snapshot(), {"a": n, "b": n})
 
         # a worker ends once every job of its fleet is drained, or (the
         # second worker of fleet two, never dialed) once its dispatcher
@@ -5306,8 +5339,9 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
         rep = {"one": w_one.finish(0),
                "two": [w.finish(0) for w in w_two],
                "crash_victim": w_crash.finish(EXIT_WORKER_CRASHED),
-               "crash_survivor": w_survivor.finish(0),
-               "tenants": w_tenant.finish(0)}
+               "crash_survivor": w_survivor.finish(0)}
+        if served:
+            rep["tenants"] = w_tenant.finish(0)
     finally:
         for w in workers:
             w.kill()
@@ -5317,16 +5351,23 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
     def tokens(r):
         return r["launches"]["tokenize_boundaries"]
 
-    want = parts["ingest"] + EPOCHS * (parts["dense"] + parts["csr"])
+    ingest_parts = parts["ingest"] if served else 0
+    want = ingest_parts + EPOCHS * (parts["dense"] + parts["csr"])
     require(tokens(rep["one"]) == want, "one-worker fleet: %d tokenizer "
             "launches for %d chunk parts", tokens(rep["one"]), want)
-    want = parts["ingest"] + EPOCHS * parts["csr"]
+    want = ingest_parts + EPOCHS * parts["csr"]
     got = sum(tokens(r) for r in rep["two"])
     require(got == want, "two-worker fleet: %d tokenizer launches for %d "
             "chunk parts", got, want)
     got = tokens(rep["crash_victim"]) + tokens(rep["crash_survivor"])
     require(got == EPOCHS * parts["csr"], "crashed fleet: %d tokenizer "
             "launches for %d chunk parts", got, EPOCHS * parts["csr"])
+    report["worker_tokenize_launches"] = {
+        "one": tokens(rep["one"]), "two": [tokens(r) for r in rep["two"]],
+        "crash_victim": tokens(rep["crash_victim"]),
+        "crash_survivor": tokens(rep["crash_survivor"])}
+    if not served:
+        return report
     require(tokens(rep["tenants"]) == parts["csr"]
             and rep["tenants"]["chunks_parsed"] == n,
             "tenants: %d tokenizer launches and %d chunks parsed for one "
@@ -5335,11 +5376,7 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
     tenant["worker_tokenize_launches"] = tokens(rep["tenants"])
     tenant["chunks_parsed"] = rep["tenants"]["chunks_parsed"]
     report["tenants"] = tenant
-    report["worker_tokenize_launches"] = {
-        "one": tokens(rep["one"]), "two": [tokens(r) for r in rep["two"]],
-        "crash_victim": tokens(rep["crash_victim"]),
-        "crash_survivor": tokens(rep["crash_survivor"]),
-        "tenants": tokens(rep["tenants"])}
+    report["worker_tokenize_launches"]["tenants"] = tokens(rep["tenants"])
     return report
 
 
@@ -5364,6 +5401,207 @@ def data_service_summary(card, report) -> dict:
         "one_job_chunk_parts": report["chunk_parts"]["csr"],
         "tenant_chunks_parsed": report["tenants"]["chunks_parsed"],
         "worker_tokenize_launches": report["worker_tokenize_launches"],
+        "phase_seconds": report["seconds"]}
+
+
+# phase 24 (a): (layout, host_prefetch, spec.prefetch) of each local fit,
+# depth 0 and the default in turns (0, 2, 2, 0) so that drift between
+# fits shows; None is the default (DMLC_TPU_HOST_PREFETCH /
+# DMLC_TPU_PREFETCH unset: depth 2 on a host with more than one core,
+# window 1)
+FEED_MODES = (("dense", 0, None), ("dense", None, None),
+              ("dense", None, None), ("dense", 0, None),
+              ("csr", 0, None), ("csr", None, None), ("csr", None, None),
+              ("csr", 0, None), ("csr", None, 2))
+# phase 24 (c): the slice of phase 12's file the parse CLIs read, the rows
+# of phase 5's file boosted_trees.py fits, long_context.py's T
+FEED_SLICE_BYTES = 16 << 20
+GBDT_EXAMPLE_ROWS = 65_536
+LONG_CONTEXT_T = 2048
+
+
+def feed_fit(path, layout, batch_size, nf, host_prefetch, prefetch):
+    """Phases 5-6's fit over a DeviceFeed built here at ``host_prefetch``
+    and ``spec.prefetch`` (``fit_uri``'s feed with the two options):
+    (history, params as numpy, seconds, the last epoch's feed stats)."""
+    from dmlc_tpu_torch.data import create_parser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+
+    learner = LinearLearner(objective="logistic", learning_rate=0.1)
+    feed = DeviceFeed(
+        create_parser(path, 0, 1, device=learner.device),
+        BatchSpec(batch_size=batch_size, layout=layout, num_features=nf,
+                  prefetch=prefetch),
+        device=learner.device, host_prefetch=host_prefetch)
+    try:
+        t0 = time.perf_counter()
+        history = learner.fit_feed(feed, epochs=EPOCHS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        stats = feed.stats()
+        depth, window = feed.host_prefetch, feed._prefetch
+    finally:
+        feed.close()
+    return history, params_to_numpy(learner.params), seconds, stats, \
+        depth, window
+
+
+def first_lines(src: str, dst: str, nbytes: int = 0, rows: int = 0) -> int:
+    """The first ``rows`` lines of ``src`` (or its lines within the first
+    ``nbytes``) into ``dst``; returns the bytes written."""
+    with open(src, "rb") as fh:
+        if rows:
+            data = b"".join(fh.readline() for _ in range(rows))
+        else:
+            data = fh.read(nbytes)
+            data = data[:data.rfind(b"\n") + 1]
+    with open(dst, "wb") as fh:
+        fh.write(data)
+    return len(data)
+
+
+def run_entry(kernels, main, argv) -> dict:
+    """One CLI or example's ``main(argv)`` in this process, its stdout
+    kept: exit code, seconds, kernel launches, the last stdout lines."""
+    import io
+
+    out = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"rc": rc, "seconds": seconds,
+            "launches": {k: fn.launches for k, fn in kernels.KERNELS.items()
+                         if fn.launches},
+            "tail": out.getvalue().splitlines()[-3:]}
+
+
+def drive_feed(kernels, dev, ingest_file, fit_files, paths, fit_params,
+               data_service, tmp) -> dict:
+    """Phase 24 (the module docstring): the feed's producer thread and
+    transfer window on the local and fleet-fed fits, then the tier-2 CLIs
+    and the examples on the card."""
+    from dmlc_tpu_torch.device.feed import stall_breakdown
+    from dmlc_tpu_torch.examples import (boosted_trees, criteo_sparse,
+                                         long_context)
+    from dmlc_tpu_torch.tools import dataiter, parse, strtonum
+
+    shape = {"dense": (HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS),
+             "csr": (CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)}
+    kernel_of = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
+    report = {}
+
+    # (a) the local fits at each depth and window
+    local = {}
+    for layout, depth, window in FEED_MODES:
+        bs, nf, rows = shape[layout]
+        steps = EPOCHS * (-(-rows // bs))
+        kernels.reset_launch_counts()
+        history, params, seconds, stats, depth_used, window_used = feed_fit(
+            fit_files[layout], layout, bs, nf, depth, window)
+        launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+        name = "%s_depth%d_window%d" % (layout, depth_used, window_used)
+        same_fit_bits("%s fit" % name, (history, params),
+                      (paths[layout]["loss_history"], fit_params[layout]))
+        require(launches[kernel_of[layout]] == steps, "%s: %s launched %d "
+                "times for %d steps", name, kernel_of[layout],
+                launches[kernel_of[layout]], steps)
+        require(launches["tokenize_boundaries"]
+                == paths[layout]["tokenize_launches"], "%s: %d tokenizer "
+                "launches, phase %s had %d", name,
+                launches["tokenize_boundaries"],
+                "5" if layout == "dense" else "6",
+                paths[layout]["tokenize_launches"])
+        # one list entry a turn of this mode
+        turns = local.setdefault(name, {
+            "seconds": [], "rows_per_s": [], "stall_breakdown": [],
+            "last_epoch_ns": [], "pool": [],
+            "launches": launches[kernel_of[layout]],
+            "tokenize_launches": launches["tokenize_boundaries"]})
+        turns["seconds"].append(seconds)
+        turns["rows_per_s"].append(EPOCHS * rows / seconds)
+        turns["stall_breakdown"].append(stall_breakdown(stats))
+        turns["last_epoch_ns"].append({k: stats[k] for k in (
+            "host_batch_ns", "dispatch_ns", "host_wait_ns", "consume_ns")})
+        turns["pool"].append(stats["pool"])
+    report["local"] = local
+    report["phase56_rows_per_s"] = {k: v["rows_per_s"]
+                                    for k, v in paths.items()}
+
+    # (b) phase 23's fleet-fed fits with the consumers' feeds at the
+    # default depth
+    t0 = time.perf_counter()
+    fleet = drive_data_service(kernels, dev, ingest_file, None, fit_files,
+                               paths, fit_params, tmp, host_prefetch=None,
+                               served=False)
+    fits = fleet["fits"]
+    report["fleet"] = {
+        "rows_per_s": {k: v["rows_per_s"] for k, v in fits.items()},
+        "phase23_rows_per_s": {
+            k: v["rows_per_s"] for k, v in data_service["fits"].items()},
+        "crash_requeued": fits["csr_crashed"]["requeued"],
+        "crashed_fit_seconds": fits["csr_crashed"]["seconds"],
+        "clean_two_worker_fit_seconds": fits["csr_two_workers"]["seconds"],
+        "two_worker_seq_orders": fits["csr_two_workers"]["seq_orders"],
+        "worker_tokenize_launches": fleet["worker_tokenize_launches"],
+        "seconds": time.perf_counter() - t0}
+
+    # (c) the CLIs and examples that touch the card, at a small size
+    slice_file = os.path.join(tmp, "ingest_slice.svm")
+    slice_bytes = first_lines(ingest_file, slice_file,
+                              nbytes=FEED_SLICE_BYTES)
+    gbdt_file = os.path.join(tmp, "higgs_head.svm")
+    first_lines(fit_files["dense"], gbdt_file, rows=GBDT_EXAMPLE_ROWS)
+    runs = {
+        "parse": (parse.main, [slice_file], "tokenize_boundaries"),
+        "dataiter": (dataiter.main, [slice_file, "--epochs", 2],
+                     "tokenize_boundaries"),
+        "strtonum": (strtonum.main, [], "tokenize_boundaries"),
+        "criteo_sparse": (criteo_sparse.main, [
+            fit_files["csr"], "--num-features", CRITEO_DIM + 1,
+            "--epochs", 1], "coo_segment_sum"),
+        "long_context": (long_context.main, ["--seq", LONG_CONTEXT_T],
+                         "flash_attention_fwd"),
+        "boosted_trees": (boosted_trees.main, [
+            gbdt_file, "--num-features", HIGGS_FEATURES + 1],
+            "tokenize_boundaries"),
+    }
+    entries = {}
+    for name, (main, argv, kernel) in runs.items():
+        got = run_entry(kernels, main, argv)
+        require(got["rc"] == 0, "%s exited %s: %s", name, got["rc"],
+                got["tail"])
+        require(got["launches"].get(kernel, 0) >= 1, "%s launched %s %d "
+                "times", name, kernel, got["launches"].get(kernel, 0))
+        entries[name] = got
+    report["entries"] = entries
+    report["slice_bytes"] = slice_bytes
+    return report
+
+
+def feed_summary(card, report) -> dict:
+    """Phase 24's line: rows/s of each local fit beside phases 5-6, the
+    fleet-fed fits beside phase 23's (depth 0), each entry point's exit
+    code and launches."""
+    return {
+        "card": card,
+        "local_rows_per_s": {k: v["rows_per_s"]
+                             for k, v in report["local"].items()},
+        "phase56_rows_per_s": report["phase56_rows_per_s"],
+        "pool": {k: v["pool"] for k, v in report["local"].items()},
+        "stall_breakdown": {k: v["stall_breakdown"]
+                            for k, v in report["local"].items()},
+        "fleet_rows_per_s": report["fleet"]["rows_per_s"],
+        "phase23_fleet_rows_per_s": report["fleet"]["phase23_rows_per_s"],
+        "fleet_crash_requeued": report["fleet"]["crash_requeued"],
+        "fleet_worker_tokenize_launches":
+            report["fleet"]["worker_tokenize_launches"],
+        "entries": {k: {"rc": v["rc"], "seconds": v["seconds"],
+                        "launches": v["launches"]}
+                    for k, v in report["entries"].items()},
         "phase_seconds": report["seconds"]}
 
 
@@ -5504,14 +5742,14 @@ def main() -> int:
     require(not sys.argv[1:], "unknown arguments %s (only --times and "
             "--remote-read)",
             sys.argv[1:])
-    # phases 5-6 and 12 write their files here, and phases 13-23 read
+    # phases 5-6 and 12 write their files here, and phases 13-24 read
     # them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-23 (the module docstring), with the fit files in
+    """Phases 1-24 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -5842,11 +6080,22 @@ def smoke(fit_dir: str) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         data_service = drive_data_service(kernels, dev, ingest_file, ingest,
-                                          fit_files, paths, fit_params, tmp)
+                                          fit_files, paths, fit_params, tmp,
+                                          host_prefetch=0)
     torch.cuda.synchronize()
     data_service["seconds"] = time.perf_counter() - t0
     lap("23")
     print(json.dumps({"data_service_detail": data_service}), flush=True)
+
+    # ---- 24. the feed's producer thread and window; CLIs and examples ------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        feed = drive_feed(kernels, dev, ingest_file, fit_files, paths,
+                          fit_params, data_service, tmp)
+    torch.cuda.synchronize()
+    feed["seconds"] = time.perf_counter() - t0
+    lap("24")
+    print(json.dumps({"feed_detail": feed}), flush=True)
 
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
@@ -5917,6 +6166,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"remote": remote_summary(card, remote)}))
     print(json.dumps({"data_service": data_service_summary(card,
                                                            data_service)}))
+    print(json.dumps({"feed": feed_summary(card, feed)}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

@@ -167,6 +167,11 @@ class Snapshotter:
         with self._cond:
             return self._committed_epoch
 
+    @property
+    def version_number(self) -> int:
+        """The newest committed version of the job snapshot."""
+        return self._snap.version_number
+
     def stats(self) -> Dict[str, Any]:
         """Per-snapshot ``capture_ns`` (training thread) and ``write_ns``
         (writer thread) lists, and the ``commits``, ``skipped`` and part

@@ -389,6 +389,39 @@ class RowBlockContainer:
         check_eq(ent, self._nnz, "emit_csr_into nnz drift")
         return row, ent
 
+    def emit_dense_into(
+        self,
+        x: np.ndarray,
+        labels: np.ndarray,
+        weights: np.ndarray,
+    ) -> int:
+        """Scatter the accumulated rows straight into a caller-provided,
+        zeroed ``[batch, num_features]`` array: the dense twin of
+        :meth:`emit_csr_into`, ``to_block`` + ``device/csr.block_to_dense``
+        in one pass over the parts. Feature ids at or beyond
+        ``x.shape[1]`` are dropped, as ``block_to_dense`` drops them; a
+        row's repeated id keeps its last value, as there. Returns the row
+        count written; the caller zeroes the pad tail."""
+        check(len(labels) >= self._nrows, "labels staging too small")
+        check(x.shape[0] >= self._nrows, "dense staging too small")
+        num_features = x.shape[1]
+        row = 0
+        for i, lbl in enumerate(self._label_parts):
+            n = len(lbl)
+            labels[row:row + n] = lbl
+            w = self._weight_parts[i]
+            weights[row:row + n] = 1.0 if w is None else w
+            idx = self._index_parts[i]
+            rows = row + np.repeat(np.arange(n, dtype=np.int64),
+                                   self._count_parts[i])
+            v = self._value_parts[i]
+            vals = np.ones(len(idx), dtype=REAL_DTYPE) if v is None else v
+            keep = idx < num_features
+            x[rows[keep], idx[keep]] = vals[keep]
+            row += n
+        check_eq(row, self._nrows, "emit_dense_into row count drift")
+        return row
+
     # ---- binary page format (row_block.h:189-215) ----------------------
     def save(self, stream: Stream) -> None:
         block = self.to_block()

@@ -1269,8 +1269,10 @@ class RemoteBlockParser:
             sock.close()
 
 
-_lock = threading.Lock()
-_reshards = 0
+def _reshards_counter():
+    return obs.registry().counter(
+        "dmlc_data_reshards_total",
+        "input partitions recomputed after a membership change")
 
 
 def reshard_split(split, rank: Optional[int] = None,
@@ -1282,20 +1284,19 @@ def reshard_split(split, rank: Optional[int] = None,
     only on ``(rank, world)``: the same boundaries a static launch at that
     world reads, which keeps a shrink-then-regrow run bit-identical to a
     static one. ``rank``/``world`` default to the live collective's.
-    Returns the split; :func:`reshard_count` counts the calls."""
-    global _reshards
+    Returns the split; each call counts in ``dmlc_data_reshards_total``."""
     if rank is None or world is None:
         from dmlc_tpu_torch import collective
 
         rank = collective.rank() if rank is None else rank
         world = collective.world_size() if world is None else world
     split.reset_partition(rank, world)
-    with _lock:
-        _reshards += 1
+    _reshards_counter().inc()
     return split
 
 
 def reshard_count() -> int:
-    """Partitions recomputed by :func:`reshard_split` in this process."""
-    with _lock:
-        return _reshards
+    """Partitions recomputed by :func:`reshard_split` in this process:
+    the value of ``dmlc_data_reshards_total`` (0 under
+    ``DMLC_TPU_METRICS=0``)."""
+    return int(_reshards_counter().value)

@@ -1,4 +1,5 @@
-"""Static-shape device batches and the single-device feed."""
+"""Static-shape device batches and the device feed (its producer thread
+and transfer window)."""
 
 from dmlc_tpu_torch.device.csr import (
     DeviceCSRBatch,

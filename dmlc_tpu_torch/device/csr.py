@@ -25,6 +25,8 @@ arrays, so that the host copy lands straight in pinned memory.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 
 from dmlc_tpu_torch.data.row_block import RowBlock, RowBlockContainer
@@ -61,6 +63,22 @@ class DeviceCSRBatch:
     num_rows: int  # valid rows
     num_nonzero: int  # valid entries
 
+    @property
+    def batch_size(self) -> int:
+        return len(self.labels)
+
+    @property
+    def nnz_bucket(self) -> int:
+        return len(self.indices)
+
+
+def _bucket(nnz: int, nnz_bucket: Optional[int]) -> int:
+    """The nnz bucket: a fixed ``nnz_bucket`` (one static shape for a
+    whole feed), else :func:`round_up_bucket`."""
+    bucket = round_up_bucket(nnz) if nnz_bucket is None else int(nnz_bucket)
+    check(nnz <= bucket, "nnz exceeds bucket")
+    return bucket
+
 
 def _staging(pool, shape, dtype):
     """A zeroed staging array: from ``pool`` when given, else np.zeros."""
@@ -74,13 +92,16 @@ def _staging(pool, shape, dtype):
 def pad_to_bucket(
     block: RowBlock,
     batch_size: int,
+    nnz_bucket: Optional[int] = None,
     pool=None,
 ) -> DeviceCSRBatch:
-    """Pad a host RowBlock slice into a static-shape DeviceCSRBatch."""
+    """Pad a host RowBlock slice into a static-shape DeviceCSRBatch;
+    ``nnz_bucket`` fixes the entry arrays' length (a bucket smaller than
+    the slice's nnz raises)."""
     n = len(block)
     check(n <= batch_size, "block larger than batch_size")
     nnz = block.num_nonzero
-    bucket = round_up_bucket(nnz)
+    bucket = _bucket(nnz, nnz_bucket)
 
     labels = _staging(pool, batch_size, np.float32)
     labels[:n] = block.label
@@ -121,17 +142,19 @@ def _staging_raw(pool, shape, dtype):
 def emit_to_bucket(
     container: RowBlockContainer,
     batch_size: int,
+    nnz_bucket: Optional[int] = None,
     pool=None,
 ) -> DeviceCSRBatch:
     """Pad in place: emit a ``RowBlockContainer``'s rows straight into a
     static-shape DeviceCSRBatch's staging arrays
     (``RowBlockContainer.emit_csr_into``), the one copy of
     ``to_block()`` + :func:`pad_to_bucket`. Only the pad tails are zeroed:
-    padded entries have value 0 at feature 0, padded rows weight 0."""
+    padded entries have value 0 at feature 0, padded rows weight 0.
+    ``nnz_bucket`` as in :func:`pad_to_bucket`."""
     n = container.size
     check(n <= batch_size, "container larger than batch_size")
     nnz = container.num_nonzero
-    bucket = round_up_bucket(nnz)
+    bucket = _bucket(nnz, nnz_bucket)
 
     labels = _staging_raw(pool, batch_size, np.float32)
     weights = _staging_raw(pool, batch_size, np.float32)

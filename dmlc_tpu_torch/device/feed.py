@@ -4,17 +4,33 @@ The single-device port of ``dmlc_tpu/device/feed.py``. The parser's
 RowBlocks are re-batched as the reference's device-resident producer does
 (``batch_size`` rows a batch, collected as zero-copy slices in a
 ``RowBlockContainer``, the tail kept for the next chunk, a short last
-batch unless ``drop_remainder``), then padded into static shapes
+batch unless ``drop_remainder``), then written once into static shapes
 (device/csr.py): a csr batch straight from the container into its staging
-arrays (``emit_to_bucket``, one copy), a dense batch through
-``block_to_dense``.
+arrays (``emit_to_bucket``, padded to ``spec.nnz_bucket`` when it is set),
+a dense batch scattered into a zeroed ``[batch, num_features]`` staging
+array (``RowBlockContainer.emit_dense_into``).
 
-On a CUDA feed the padding writes straight into pinned host staging, the
-copies are ``non_blocking``, and a staging buffer is handed out again only
-after a CUDA event recorded behind its copy has completed (:class:`PinnedPool`,
-the counterpart of the reference's ``FixedShapePool`` guarded by
-``_transfer_done``). On a CPU feed the numpy arrays become tensors without a
-copy.
+That host stage (re-batch, audit digest, staging) runs on a producer
+thread, ``ThreadedIter`` at depth ``host_prefetch`` (explicit, else
+``DMLC_TPU_HOST_PREFETCH``, where -1 or unset is auto: 0 on a host with
+one usable core, else 2); at 0 it runs inline on the consumer's thread
+(:class:`_SyncIter`). The consumer keeps ``spec.prefetch`` batches'
+host→device copies in flight (``spec.prefetch``, else
+``DMLC_TPU_PREFETCH``, else 1) before it yields the oldest. Neither
+option changes a batch's bits. The window is kept for parity with the
+JAX package, where it pipelines async dispatch; on a card it buys no
+overlap: the copies and the steps share the consumer's stream, so a
+wider window only queues more copies ahead of the next step, and the
+host already runs ahead of the card through ``non_blocking``.
+
+On a CUDA feed the staging is pinned host memory filled by the producer;
+the copies are ``non_blocking`` on the consumer's current stream, so a
+step is stream-ordered after its copy, and a staging buffer is handed out
+again only after a CUDA event recorded behind its copy has completed
+(:class:`PinnedPool`, the counterpart of the reference's
+``FixedShapePool`` guarded by ``_transfer_done``). On a CPU feed the
+numpy arrays become tensors without a copy, so the staging is fresh for
+every batch.
 
 Batch dicts carry the reference's keys: dense ``x``/``label``/``weight``,
 csr ``label``/``weight``/``indices``/``values``/``offsets`` (CSR offsets,
@@ -23,17 +39,19 @@ not per-entry row ids: the step expands them on the device), plus the
 
 Over a dispatcher-mode ``RemoteBlockParser`` (data/service.py) the feed
 owns the exactly-once ack frontier: it switches the parser to explicit
-acks, each chunk's seq id rides the first batch its rows reach, and the
-chunk is acked once the consumer comes back from that batch (a chunk with
-no rows at once). Closing the feed mid-epoch acks nothing it did not
-deliver, so the dispatcher requeues the rest.
+acks, each chunk's seq id rides the first batch its rows reach (a chunk
+with no rows rides the next batch), and the chunk is acked on the
+consumer's thread once the consumer comes back from that batch; chunks
+whose rows reached only a dropped remainder are acked once the consumer
+has taken every batch. Closing the feed mid-epoch acks nothing it did not
+deliver (prefetched chunks too), so the dispatcher requeues the rest.
 
 Observability, on the reference's names (docs/observability.md): per-batch
-stage histograms ``dmlc_feed_host_batch_ns`` (host production: parse, then
-the pad into staging), ``dmlc_feed_dispatch_ns`` (the non_blocking copy
-submission), ``dmlc_feed_host_wait_ns`` (the consumer's wait on a producer
-thread — none here: the host stage runs on the consumer's thread, so its
-time is all host_batch) and ``dmlc_feed_consume_ns`` (the time the
+stage histograms ``dmlc_feed_host_batch_ns`` (host production on the
+producer: parse, then the write into staging), ``dmlc_feed_dispatch_ns``
+(the non_blocking copy submission), ``dmlc_feed_host_wait_ns`` (the
+consumer's wait on the producer thread; not observed at depth 0, where
+that time is host_batch) and ``dmlc_feed_consume_ns`` (the time the
 consumer held each batch: its step as the host sees it), the
 ``dmlc_feed_*`` / ``dmlc_pool_*`` counters, the H2D meter on the copies,
 ``stage`` / ``dispatch`` / ``consume`` / ``feed_batch`` spans that carry
@@ -46,10 +64,12 @@ the yield), and batch digests at emit for the determinism audit.
 from __future__ import annotations
 
 import itertools
+import os
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -57,11 +77,13 @@ import torch
 from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.data.parsers import Parser, create_parser
 from dmlc_tpu_torch.data.row_block import RowBlockContainer
-from dmlc_tpu_torch.device.csr import block_to_dense, emit_to_bucket
+from dmlc_tpu_torch.device.csr import _staging_raw, emit_to_bucket
 from dmlc_tpu_torch.obs import audit, device_telemetry
+from dmlc_tpu_torch.params.env import get_env
 from dmlc_tpu_torch.resilience import faultpoint
 from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.logging import check, log_warning
+from dmlc_tpu_torch.utils.threaded_iter import ThreadedIter
 
 _FEED_IDS = itertools.count()  # per-instance obs label (feed="f0")
 _POOL_IDS = itertools.count()  # per-instance obs label (pool="p0")
@@ -72,6 +94,53 @@ _TORCH_DTYPE = {
 }
 
 
+def _available_cpus() -> int:
+    """CPUs this process may run on (its affinity mask, so a one-core
+    container on a large host counts one); ``os.cpu_count()`` elsewhere."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except (AttributeError, OSError):  # not linux
+        return os.cpu_count() or 1
+
+
+def default_prefetch(explicit: Optional[int] = None) -> int:
+    """The transfer window: ``explicit``, else ``DMLC_TPU_PREFETCH``,
+    else 1; at least 1."""
+    if explicit is not None:
+        return max(1, int(explicit))
+    return max(1, int(get_env("DMLC_TPU_PREFETCH", 1)))
+
+
+def default_host_prefetch(explicit: Optional[int] = None) -> Optional[int]:
+    """The producer's queue depth: ``explicit``, else
+    ``DMLC_TPU_HOST_PREFETCH``; None (auto) when that is -1 or unset."""
+    if explicit is not None:
+        return int(explicit)
+    val = int(get_env("DMLC_TPU_HOST_PREFETCH", -1))
+    return None if val < 0 else val
+
+
+class _SyncIter:
+    """ThreadedIter's consumer surface (iteration, ``close``,
+    ``before_first``) over the producer run inline: ``host_prefetch=0``."""
+
+    def __init__(self, factory):
+        self._factory = factory
+        self._gen = factory()
+
+    def __iter__(self):
+        return self._gen
+
+    def before_first(self) -> None:
+        self.close()
+        self._gen = self._factory()
+
+    def close(self) -> None:
+        gen, self._gen = self._gen, iter(())
+        if hasattr(gen, "close"):
+            gen.close()
+
+
 @dataclass
 class BatchSpec:
     """Static-shape contract for one feed."""
@@ -79,7 +148,12 @@ class BatchSpec:
     batch_size: int
     layout: str = "dense"  # "dense" | "csr"
     num_features: int = 0  # required for dense; bounds csr feature ids
+    nnz_bucket: Optional[int] = None  # a fixed csr entry bucket, else auto
     drop_remainder: bool = False
+    # host→device copies in flight ahead of the consumer; None resolves
+    # through DMLC_TPU_PREFETCH (default 1). Parity with the JAX package:
+    # on a card the copies share the step's stream, so it overlaps nothing
+    prefetch: Optional[int] = None
 
 
 class PinnedPool:
@@ -89,9 +163,12 @@ class PinnedPool:
     handed out again only once ``event`` (recorded on the stream behind
     their copies) has completed — never blocking: a buffer still being
     read is left retired and a fresh one allocated, so the pool grows to
-    the in-flight depth and then stops allocating."""
+    the in-flight depth and then stops allocating. The feed's producer
+    thread acquires while its consumer retires, so both go under one
+    lock."""
 
     def __init__(self):
+        self._lock = threading.Lock()
         self._free: Dict[tuple, list] = {}
         self._retired: deque = deque()  # (arrays, event)
         self._owner: Dict[int, tuple] = {}  # id(array) -> (array, tensor)
@@ -117,34 +194,41 @@ class PinnedPool:
 
     def acquire(self, shape, dtype) -> np.ndarray:
         key = self._key(shape, dtype)
-        self._shapes.add(key)
-        self._drain()
-        free = self._free.get(key)
-        if free:
-            self.reused += 1
-            self._m_reused.inc()
-            return free.pop()
+        with self._lock:
+            self._shapes.add(key)
+            self._drain()
+            free = self._free.get(key)
+            if free:
+                self.reused += 1
+                self._m_reused.inc()
+                return free.pop()
         tensor = torch.empty(key[0], dtype=_TORCH_DTYPE[np.dtype(dtype)],
                              pin_memory=True)
         arr = tensor.numpy()
-        self._owner[id(arr)] = (arr, tensor)
-        self.allocated += 1
+        with self._lock:
+            self._owner[id(arr)] = (arr, tensor)
+            self.allocated += 1
         self._m_allocated.inc()
         return arr
 
     def tensor(self, arr: np.ndarray) -> torch.Tensor:
         """The pinned tensor behind an array this pool handed out."""
-        return self._owner[id(arr)][1]
+        with self._lock:
+            return self._owner[id(arr)][1]
 
     def retire(self, arrays, event: torch.cuda.Event) -> None:
-        self._retired.append((list(arrays), event))
+        with self._lock:
+            self._retired.append((list(arrays), event))
 
     def stats(self) -> dict:
-        return {"shapes": len(self._shapes), "allocated": self.allocated,
-                "reused": self.reused, "pending_retire": len(self._retired)}
+        with self._lock:
+            return {"shapes": len(self._shapes),
+                    "allocated": self.allocated, "reused": self.reused,
+                    "pending_retire": len(self._retired)}
 
     def _drain(self) -> None:
-        # oldest first: copies on one stream complete in order
+        # under the lock; oldest first: copies on one stream complete in
+        # order
         while self._retired and self._retired[0][1].query():
             arrays, _ = self._retired.popleft()
             for arr in arrays:
@@ -188,21 +272,33 @@ def stall_breakdown(stats: dict) -> str:
 class DeviceFeed:
     """Iterate fixed-shape device batches from a parser or a uri; a uri
     gets ``create_parser`` on the feed's device, so its libsvm chunks
-    tokenize there too."""
+    tokenize there too. ``host_prefetch`` is the producer thread's queue
+    depth (0 runs the host stage inline; None reads
+    ``DMLC_TPU_HOST_PREFETCH``, else auto). The producer starts at the
+    first iteration, so a caller may restore the parser's read plan after
+    construction."""
 
     def __init__(self, source, spec: BatchSpec, device=None,
-                 part_index: int = 0, num_parts: int = 1):
+                 part_index: int = 0, num_parts: int = 1,
+                 host_prefetch: Optional[int] = None):
         check(spec.layout in ("dense", "csr"), "layout must be dense or csr")
         if spec.layout == "dense":
             check(spec.num_features > 0, "dense layout requires num_features")
         self.device = resolve_device(device)
+        host_prefetch = default_host_prefetch(host_prefetch)
+        if host_prefetch is None:
+            host_prefetch = 0 if _available_cpus() <= 1 else 2
+        self.host_prefetch = max(0, host_prefetch)
+        self._sync_host = self.host_prefetch == 0
+        self._prefetch = default_prefetch(spec.prefetch)
         if isinstance(source, str):
             source = create_parser(source, part_index, num_parts,
                                    device=self.device)
         self._parser: Parser = source
         self.spec = spec
         self.pool = PinnedPool() if self.device.type == "cuda" else None
-        # per-stage wall time in the obs registry as per-batch histograms;
+        # per-stage wall time in the obs registry as per-batch histograms
+        # (host_batch observed on the producer, the rest on the consumer);
         # stats() windows the monotonic totals with _epoch_base so it
         # describes the current epoch
         fid = "f%d" % next(_FEED_IDS)
@@ -251,14 +347,24 @@ class DeviceFeed:
             set_explicit()
         else:
             self._ack = None
+        self._host_iter = None  # started by the first __iter__
+
+    def _start_host_iter(self):
+        if self._sync_host:
+            return _SyncIter(self._host_batches)
+        return ThreadedIter(self._host_batches,
+                            max_capacity=self.host_prefetch,
+                            name="device-feed")
 
     # ---- host side: re-batch parser blocks into fixed-size batches ------
     def _containers(self) -> Iterator:
         """(container, flow ids, chunk seq ids) of ``batch_size`` rows (the
         last one shorter unless ``drop_remainder``), each holding slices of
         the parser's blocks; a chunk's flow id and dispatcher seq id ride
-        the first batch its rows reach. A chunk with no rows, or whose rows
-        only reach a dropped remainder, is acked here: it was visited."""
+        the first batch its rows reach, a chunk with no rows the next
+        batch. Seqs left at the end (their rows only reached a dropped
+        remainder, or no rows followed) come last as ``(None, (),
+        seqs)``: the consumer acks them once it has taken every batch."""
         bs = self.spec.batch_size
         pending = RowBlockContainer()
         flows, seqs = [], []
@@ -268,10 +374,7 @@ class DeviceFeed:
                 flows.append(fid)
             sid = getattr(block, "seq_id", None)
             if sid is not None:
-                if len(block):
-                    seqs.append(sid)
-                else:
-                    self._ack_seq(sid)
+                seqs.append(sid)
             start = 0
             while start < len(block):
                 take = min(bs - len(pending), len(block) - start)
@@ -283,9 +386,8 @@ class DeviceFeed:
                     flows, seqs = [], []
         if len(pending) and not self.spec.drop_remainder:
             yield pending, tuple(flows), tuple(seqs)
-        else:
-            for sid in seqs:
-                self._ack_seq(sid)
+        elif seqs:
+            yield None, (), tuple(seqs)
 
     def _ack_seq(self, sid) -> None:
         """Report one dispatcher chunk consumed, best effort: a lost ack
@@ -300,10 +402,10 @@ class DeviceFeed:
                         str(err).split("\n\nStack trace:")[0])
 
     def _host_batches(self) -> Iterator:
-        """(staged host arrays, flow ids, seq ids): each batch's digest at
-        emit,
-        then its pad into staging inside a ``stage`` span; the time of
-        each step of this producer is ``dmlc_feed_host_batch_ns``."""
+        """The host stage (the producer thread's loop at depth > 0):
+        (staged host arrays, flow ids, seq ids) per batch, each batch's
+        digest at emit, then its write into staging inside a ``stage``
+        span; the time of each step is ``dmlc_feed_host_batch_ns``."""
         producer = self._containers()
         bidx = 0  # per-epoch batch index (the audit's batch-chain key)
         while True:
@@ -314,40 +416,51 @@ class DeviceFeed:
                     rows, flows, seqs = next(producer)
                 except StopIteration:
                     return
-                self._audit.note_batch(bidx, rows)
-                bidx += 1
-                with obs.span("stage", rows=len(rows)):
-                    for fid in flows:
-                        obs.flow_step(fid, "chunk")
-                    staged = self._stage_rows(rows)
+                if rows is None:
+                    staged = None
+                else:
+                    self._audit.note_batch(bidx, rows)
+                    bidx += 1
+                    with obs.span("stage", rows=len(rows)):
+                        for fid in flows:
+                            obs.flow_step(fid, "chunk")
+                        staged = self._stage_rows(rows)
             finally:
                 self._stage["host_batch_ns"].observe(
                     time.monotonic_ns() - t0)
             yield staged, flows, seqs
 
-    # ---- device side ---------------------------------------------------
     def _stage_rows(self, rows: RowBlockContainer) -> tuple:
-        """(host arrays, ints) of one batch, padded to its static shapes
-        (into pinned staging on a CUDA feed)."""
+        """(host arrays, ints) of one batch, written once into its static
+        shapes (into pinned staging on a CUDA feed)."""
         spec = self.spec
         if spec.layout == "dense":
-            x, labels, weights = block_to_dense(
-                rows.to_block(), spec.batch_size, spec.num_features,
-                pool=self.pool)
+            # pinned from the pool on a card; fresh on the CPU, whose
+            # feed hands its arrays out without a copy
+            bs = spec.batch_size
+            x = _staging_raw(self.pool, (bs, spec.num_features), np.float32)
+            x.fill(0)  # the scatter writes only the present entries
+            labels = _staging_raw(self.pool, bs, np.float32)
+            weights = _staging_raw(self.pool, bs, np.float32)
+            n = rows.emit_dense_into(x, labels, weights)
+            labels[n:] = 0.0
+            weights[n:] = 0.0
             return ({"x": x, "label": labels, "weight": weights},
-                    {"num_rows": len(rows)})
+                    {"num_rows": n})
         # an out-of-range feature id would index past w on the device
         check(spec.num_features <= 0 or rows.num_nonzero == 0
               or rows.max_index < spec.num_features,
               "feature id %d out of range for num_features %d",
               rows.max_index, spec.num_features)
-        batch = emit_to_bucket(rows, spec.batch_size, pool=self.pool)
+        batch = emit_to_bucket(rows, spec.batch_size,
+                               nnz_bucket=spec.nnz_bucket, pool=self.pool)
         return ({"label": batch.labels, "weight": batch.weights,
                  "indices": batch.indices, "values": batch.values,
                  "offsets": batch.offsets},
                 {"num_rows": batch.num_rows,
                  "num_nonzero": batch.num_nonzero})
 
+    # ---- device side ---------------------------------------------------
     def _put(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if self.pool is None:
             return {k: torch.from_numpy(v) for k, v in arrays.items()}
@@ -366,35 +479,18 @@ class DeviceFeed:
                        time.monotonic_ns() - t0)
         return out
 
-    def __iter__(self):
-        """Yield device batches. The consume span covers the yield: its
-        duration IS the time the consumer held the batch, and the
-        thread's current flow is the batch's first chunk for that window,
-        so fit-loop spans (train_step, collective ops) mark the chunk;
-        each flow ends inside the consume span. Once the yield returns the
-        consumer is done with the batch, and the dispatcher chunks whose
-        rows first reached it are acked; a batch the consumer never comes
-        back from (the feed closed, or an error) is not acked, so its
-        chunks requeue."""
-        nbatch = 0
-        producer = self._host_batches()
-        while True:
-            with obs.span("feed_batch", batch=nbatch):
-                try:
-                    (arrays, ints), flows, seqs = next(producer)
-                except StopIteration:
-                    break
-                t1 = time.monotonic_ns()
-                with obs.span("dispatch", batch=nbatch):
-                    for fid in flows:
-                        obs.flow_step(fid, "chunk")
-                    batch = self._put(arrays)
-                    batch.update(ints)
-                self._stage["dispatch_ns"].observe(time.monotonic_ns() - t1)
-                self._m_batches.inc()
-                self._m_rows.inc(int(ints["num_rows"]))
+    def _consume(self, entry, index: int):
+        """Yield one pending batch inside its ``consume`` span, then ack
+        the chunks that ride it. The span covers the yield: its duration
+        IS the time the consumer held the batch, and the thread's current
+        flow is the batch's first chunk for that window, so fit-loop spans
+        (train_step, collective ops) mark the chunk; each flow ends inside
+        the span. A batch the consumer never comes back from (the feed
+        closed, or an error) is not acked, so its chunks requeue."""
+        batch, flows, seqs = entry
+        if batch is not None:
             t2 = time.monotonic_ns()
-            with obs.span("consume", batch=nbatch):
+            with obs.span("consume", batch=index):
                 if flows:
                     obs.set_current_flow(flows[0])
                 try:
@@ -405,16 +501,67 @@ class DeviceFeed:
                     for fid in flows:
                         obs.flow_end(fid, "chunk")
             self._stage["consume_ns"].observe(time.monotonic_ns() - t2)
-            for sid in seqs:
-                self._ack_seq(sid)
-            nbatch += 1
+        for sid in seqs:
+            self._ack_seq(sid)
+
+    def __iter__(self):
+        """Yield device batches with ``spec.prefetch`` copies in flight
+        ahead of the consumer. A producer error (a parse error, the
+        ``device.feed`` faultpoint) is raised at its in-order position,
+        after the batches before it; the feed stays closeable."""
+        if self._host_iter is None:
+            self._host_iter = self._start_host_iter()
+        window = self._prefetch
+        pending: deque = deque()
+        it = iter(self._host_iter)
+        nbatch = ndelivered = 0
+        error = None
+        while True:
+            with obs.span("feed_batch", batch=nbatch):
+                t0 = time.monotonic_ns()
+                try:
+                    staged, flows, seqs = next(it)
+                except StopIteration:
+                    break
+                except Exception as err:  # noqa: BLE001 (raised below)
+                    error = err
+                    break
+                finally:
+                    # inline, the time inside next() is host_batch already
+                    if not self._sync_host:
+                        self._stage["host_wait_ns"].observe(
+                            time.monotonic_ns() - t0)
+                if staged is None:
+                    pending.append((None, flows, seqs))
+                    continue
+                arrays, ints = staged
+                t1 = time.monotonic_ns()
+                with obs.span("dispatch", batch=nbatch):
+                    for fid in flows:
+                        obs.flow_step(fid, "chunk")
+                    batch = self._put(arrays)
+                    batch.update(ints)
+                self._stage["dispatch_ns"].observe(time.monotonic_ns() - t1)
+                self._m_batches.inc()
+                self._m_rows.inc(int(ints["num_rows"]))
+                pending.append((batch, flows, seqs))
+                nbatch += 1
+            if len(pending) > window:
+                yield from self._consume(pending.popleft(), ndelivered)
+                ndelivered += 1
+        while pending:
+            yield from self._consume(pending.popleft(), ndelivered)
+            ndelivered += 1
+        if error is not None:
+            raise error
 
     def stats(self) -> dict:
         """Per-stage wall time of the current epoch (ns): host batch
-        production (parse + pad), device dispatch, the consumer's wait on
-        a producer thread (0: none here) and the time the consumer held
-        each batch, plus the staging pool's counters and the parser
-        pipeline's own stage counters when it has them."""
+        production (parse + staging, on the producer), device dispatch,
+        the consumer's wait on the producer thread (0 at depth 0) and the
+        time the consumer held each batch, plus the staging pool's
+        counters and the parser pipeline's own stage counters when it has
+        them."""
         base = self._epoch_base
         out = {
             "batches": int(self._m_batches.value - base.get("batches", 0)),
@@ -430,6 +577,10 @@ class DeviceFeed:
         return out
 
     def before_first(self) -> None:
+        """Stop the producer, rewind the parser, then restart the
+        producer on the next epoch."""
+        if self._host_iter is not None:
+            self._host_iter.close()
         self._parser.before_first()
         # registry metrics are monotonic (Prometheus semantics); stats()
         # windows them against this baseline
@@ -437,10 +588,15 @@ class DeviceFeed:
             key: hist.sum for key, hist in self._stage.items()
         }
         self._epoch_base["batches"] = self._m_batches.value
+        if self._host_iter is not None:
+            self._host_iter.before_first()
 
     @property
     def bytes_read(self) -> int:
         return self._parser.bytes_read
 
     def close(self) -> None:
+        """Join the producer thread, then close the parser."""
+        if self._host_iter is not None:
+            self._host_iter.close()
         self._parser.close()

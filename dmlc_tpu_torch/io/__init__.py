@@ -51,14 +51,17 @@ from dmlc_tpu_torch.io.recordio import (
 from dmlc_tpu_torch.io.serializer import load_obj, save_obj
 from dmlc_tpu_torch.io.stream import (
     FileObjStream,
+    FixedMemoryStream,
     MemoryStream,
     SeekStream,
+    Serializable,
     Stream,
 )
 from dmlc_tpu_torch.io.uri_spec import URISpec
 
 __all__ = [
-    "Stream", "SeekStream", "FileObjStream", "MemoryStream", "save_obj",
+    "Stream", "SeekStream", "FileObjStream", "MemoryStream",
+    "FixedMemoryStream", "Serializable", "save_obj",
     "load_obj",
     "create_stream", "InputSplit", "InputSplitBase", "LineSplitter",
     "RecordIOSplitter", "IndexedRecordIOSplitter", "SingleFileSplit",

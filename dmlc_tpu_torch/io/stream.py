@@ -1,5 +1,6 @@
-"""Byte streams (``dmlc::Stream`` / ``SeekStream``, include/dmlc/io.h), the
-part of ``dmlc_tpu/io/stream.py`` the cache pages and the serializer use.
+"""Byte streams (``dmlc::Stream`` / ``SeekStream`` / ``Serializable``,
+include/dmlc/io.h, and the in-memory streams of memory_io.h), the port of
+``dmlc_tpu/io/stream.py``.
 
 ``read(n)`` returns up to ``n`` bytes (b"" at the end); ``write(data)``
 writes all of them. The typed helpers are little-endian fixed-width
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import io as _pyio
 import struct
+from typing import Optional, Protocol, Union, runtime_checkable
 
 
 class Stream:
@@ -44,6 +46,16 @@ class Stream:
             remaining -= len(chunk)
         return b"".join(chunks)
 
+    def try_read_exact(self, nbytes: int) -> Optional[bytes]:
+        """As :meth:`read_exact`, but None at a clean end of the stream
+        (no byte of the record read)."""
+        first = self.read(nbytes)
+        if not first:
+            return None
+        if len(first) == nbytes:
+            return first
+        return first + self.read_exact(nbytes - len(first))
+
     def read_all(self) -> bytes:
         """Every byte up to the end of the stream."""
         parts = []
@@ -60,6 +72,12 @@ class Stream:
         size = struct.calcsize("<" + fmt)
         vals = struct.unpack("<" + fmt, self.read_exact(size))
         return vals if len(vals) > 1 else vals[0]
+
+    def write_uint32(self, v: int) -> None:
+        self.write_fmt("I", v)
+
+    def read_uint32(self) -> int:
+        return self.read_fmt("I")
 
     def write_uint64(self, v: int) -> None:
         self.write_fmt("Q", v)
@@ -84,6 +102,15 @@ class SeekStream(Stream):
 
     def tell(self) -> int:
         raise NotImplementedError
+
+
+@runtime_checkable
+class Serializable(Protocol):
+    """An object that round-trips through a Stream (io.h:112-126)."""
+
+    def save(self, stream: Stream) -> None: ...
+
+    def load(self, stream: Stream) -> None: ...
 
 
 class FileObjStream(SeekStream):
@@ -128,3 +155,35 @@ class MemoryStream(SeekStream):
 
     def getvalue(self) -> bytes:
         return self._buf.getvalue()
+
+
+class FixedMemoryStream(SeekStream):
+    """A SeekStream over a fixed-size buffer the caller owns
+    (``MemoryFixedSizeStream``, memory_io.h:21-63): a write past its end
+    raises."""
+
+    def __init__(self, buf: Union[bytearray, memoryview]):
+        self._view = memoryview(buf)
+        self._pos = 0
+
+    def read(self, nbytes: int) -> bytes:
+        end = min(self._pos + nbytes, len(self._view))
+        out = bytes(self._view[self._pos:end])
+        self._pos = end
+        return out
+
+    def write(self, data: bytes) -> None:
+        end = self._pos + len(data)
+        if end > len(self._view):
+            raise IOError(
+                f"FixedMemoryStream overflow: {end} > {len(self._view)}")
+        self._view[self._pos:end] = data
+        self._pos = end
+
+    def seek(self, pos: int) -> None:
+        if pos < 0 or pos > len(self._view):
+            raise IOError(f"seek out of range: {pos}")
+        self._pos = pos
+
+    def tell(self) -> int:
+        return self._pos

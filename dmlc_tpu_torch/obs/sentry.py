@@ -37,8 +37,8 @@ stable one a tight band. Metrics with fewer than ``min_samples`` history
 points are skipped (no noise estimate to gate against). Regressions are
 ranked by how far past the tolerance band they land, in tolerance units.
 
-The reference drives it from its ``bench-gate`` tool; the port keeps the
-library (the canned :data:`SMOKE_HISTORY` pair is its self-check). Each
+``python -m dmlc_tpu_torch.tools bench_gate`` drives it (``--smoke``
+runs the canned :data:`SMOKE_HISTORY` pair as its self-check). Each
 reported regression is also recorded as a ``sentry.regression``
 flight-recorder event (docs/observability.md event catalog).
 """

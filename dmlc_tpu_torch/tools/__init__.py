@@ -1,19 +1,26 @@
 """Command-line tools of the port, the counterparts of ``dmlc_tpu/tools``
-that exist so far:
+(the reference's ``test/*.cc`` tier-2 harnesses among them):
 
-| command    | module                    | does                                        |
-|------------|---------------------------|---------------------------------------------|
-| ``bake``     | ``tools/bake.py``           | text corpus -> ``.dtsh`` shards              |
-| ``dispatch`` | ``tools/dispatch.py``       | the data service's chunk lease tables        |
-| ``filesys``  | ``tools/filesys.py``        | ls / cat / cp over any uri scheme            |
-| ``parity``   | ``tools/parity.py``         | socket-engine world vs one process, ulps    |
-| ``recordio`` | ``tools/recordio.py``       | RecordIO round trip (recordio_test.cc)      |
-| ``rowrec``   | ``tools/rowrec.py``         | dataset -> row-group RecordIO               |
-| ``serve``    | ``tools/serve.py``          | a parse host or fleet worker over TCP        |
+| command        | module                    | does                                    |
+|----------------|---------------------------|-----------------------------------------|
+| ``audit_report`` | ``tools/audit_report.py``   | render determinism-audit bundles         |
+| ``bake``         | ``tools/bake.py``           | text corpus -> ``.dtsh`` shards          |
+| ``bench_gate``   | ``tools/bench_gate.py``     | bench record vs its history (sentry)     |
+| ``dataiter``     | ``tools/dataiter.py``       | RowBlockIter epochs through the feed     |
+| ``dispatch``     | ``tools/dispatch.py``       | the data service's chunk lease tables    |
+| ``filesys``      | ``tools/filesys.py``        | ls / cat / cp over any uri scheme        |
+| ``parity``       | ``tools/parity.py``         | socket-engine world vs one process, ulps |
+| ``parse``        | ``tools/parse.py``          | parser MB/s (libsvm, libfm, csv, ...)    |
+| ``recordio``     | ``tools/recordio.py``       | RecordIO round trip (recordio_test.cc)   |
+| ``rowrec``       | ``tools/rowrec.py``         | dataset -> row-group RecordIO            |
+| ``serve``        | ``tools/serve.py``          | a parse host or fleet worker over TCP    |
+| ``split_read``   | ``tools/split_read.py``     | InputSplit record MB/s                   |
+| ``stream_read``  | ``tools/stream_read.py``    | Stream read / write MB/s                 |
+| ``strtonum``     | ``tools/strtonum.py``       | number-scan fuzz against ``float()``     |
 
 Run ``python -m dmlc_tpu_torch.tools <command> [args]`` (or ``python -m
 dmlc_tpu_torch.tools.<module>``); each module's ``main(argv) -> int``
-runs in-process too. The tools that parse text, and ``dispatch``, take
+runs in-process too. The tools that parse text, and ``serve``, take
 ``--device`` (the card unless ``--device cpu``).
 """
 
@@ -25,13 +32,20 @@ from typing import List, Optional
 from dmlc_tpu_torch.utils.logging import DMLCError
 
 _COMMANDS = {
+    "audit_report": "dmlc_tpu_torch.tools.audit_report",
     "bake": "dmlc_tpu_torch.tools.bake",
+    "bench_gate": "dmlc_tpu_torch.tools.bench_gate",
+    "dataiter": "dmlc_tpu_torch.tools.dataiter",
     "dispatch": "dmlc_tpu_torch.tools.dispatch",
     "filesys": "dmlc_tpu_torch.tools.filesys",
     "parity": "dmlc_tpu_torch.tools.parity",
+    "parse": "dmlc_tpu_torch.tools.parse",
     "recordio": "dmlc_tpu_torch.tools.recordio",
     "rowrec": "dmlc_tpu_torch.tools.rowrec",
     "serve": "dmlc_tpu_torch.tools.serve",
+    "split_read": "dmlc_tpu_torch.tools.split_read",
+    "stream_read": "dmlc_tpu_torch.tools.stream_read",
+    "strtonum": "dmlc_tpu_torch.tools.strtonum",
 }
 
 

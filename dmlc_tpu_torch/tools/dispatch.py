@@ -12,7 +12,6 @@ Usage::
     python -m dmlc_tpu_torch.tools dispatch <uri> [--nchunks N] [--host H]
         [--port P] [--format auto|libsvm|libfm|csv|recordio]
         [--lease-s SECS] [--dead-after-s SECS] [--job NAME=URI ...]
-        [--device DEV]
 
 Prints ``dispatching HOST PORT`` once listening, then blocks until every
 chunk is acked and prints a summary with the requeue count, and one
@@ -21,11 +20,11 @@ more jobs over the same workers (the positional ``uri`` is the
 ``default`` job; ``-`` runs named jobs only); a consumer picks its ledger
 with ``RemoteBlockParser(addr, dispatcher=True, job=NAME)``.
 
-``--device`` is the fleet's device (default cuda). The dispatcher parses
-nothing itself; the flag is checked at start, so a fleet meant for the
-card fails at once on a host without one. ``--status-port`` (the ``/data``
-view over HTTP) needs the status plane, which the port does not have yet:
-it raises.
+The dispatcher parses nothing and holds no tensor, so it takes no
+device and runs on any host, as the JAX package's does; each ``serve``
+worker takes its own ``--device``. ``--status-port`` (the ``/data`` view
+over HTTP) needs the status plane, which the port does not have yet: it
+raises.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ import sys
 from typing import List, Optional
 
 from dmlc_tpu_torch.data import DataDispatcher
-from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.logging import DMLCError
 
 
@@ -65,8 +63,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="register another job over the same workers "
                          "(repeatable); same --nchunks / --format as the "
                          "default job")
-    ap.add_argument("--device", default=None,
-                    help="the fleet's device (default: cuda)")
     args = ap.parse_args(argv)
 
     jobs = []
@@ -83,7 +79,6 @@ def main(argv: Optional[List[str]] = None) -> int:
             "--status-port needs the status plane (obs/plane.py), which "
             "the port does not have yet; read DataDispatcher.snapshot() "
             "instead")
-    resolve_device(args.device)
 
     disp = DataDispatcher(
         root_uri, nchunks=args.nchunks, host=args.host, port=args.port,

@@ -55,6 +55,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.obs import flight
 from dmlc_tpu_torch.resilience.faults import InjectedFault, faultpoint
 from dmlc_tpu_torch.resilience.retry import RetryPolicy
@@ -346,6 +347,11 @@ class RabitTracker:
         self._evicted_jobids: Set[str] = set()
         self._rank_jobids: Dict[int, str] = {}
         self._events: List[Dict[str, object]] = []
+        self._m_heartbeats = obs.registry().counter(
+            "dmlc_tracker_heartbeats_total", "worker heartbeats received")
+        self._m_straggler_recoveries = obs.registry().counter(
+            "dmlc_tracker_straggler_recoveries_total",
+            "flagged stragglers that resumed heartbeating")
         logger.info("tracker listening on %s:%d", host_ip, self.port)
 
     def worker_envs(self) -> Dict[str, object]:
@@ -358,7 +364,7 @@ class RabitTracker:
         """Record a worker's liveness report and flag stragglers: any other
         rank whose last report is older than ``heartbeat_gap`` seconds is
         warned about once a lapse; a flagged rank that reports again is
-        logged as recovered and re-armed."""
+        logged as recovered, counted and re-armed."""
         now = time.time()
         with self._hb_lock:
             recovered = rank in self._hb_flagged
@@ -369,7 +375,9 @@ class RabitTracker:
                      if r != rank and now - seen > self.heartbeat_gap
                      and r not in self._hb_flagged]
             self._hb_flagged.update(r for r, _ in stale)
+        self._m_heartbeats.inc()
         if recovered:
+            self._m_straggler_recoveries.inc()
             logger.info("straggler recovered: rank %d is heartbeating "
                         "again", rank)
         logger.debug("heartbeat from rank %d: %s", rank, payload)

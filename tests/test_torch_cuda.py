@@ -711,3 +711,44 @@ def test_fleet_fed_csr_fit_equals_the_local_card_fit(cuda, tmp_path,
     assert kernels.tokenize_boundaries.launches == \
         epochs * split_parts(path, nchunks)
     reset_source_cache()
+
+
+@pytest.mark.parametrize("layout", ["dense", "csr"])
+def test_the_card_feed_at_every_depth_is_the_cpu_feed(cuda, tmp_path,
+                                                      layout):
+    """The feed on the card (pinned staging filled by the producer thread,
+    copies on the consumer's stream) at depth 0 and 2 and window 1 and 2:
+    every batch equal bit for bit to the CPU feed's, the tokenizer once a
+    chunk part, and the pool growing to its in-flight depth only."""
+    path = str(tmp_path / "c.svm")
+    write_criteo(path, 20000, seed=5)
+    spec = dict(batch_size=1024, layout=layout,
+                num_features=40 if layout == "dense" else (1 << 20) + 1)
+
+    def batches(device, depth, window):
+        feed = DeviceFeed(create_parser(path, device=device),
+                          BatchSpec(prefetch=window, **spec), device=device,
+                          host_prefetch=depth)
+        try:
+            out = [{k: (v.cpu().numpy().copy() if torch.is_tensor(v)
+                        else v) for k, v in b.items()} for b in feed]
+            pool = feed.pool.stats() if feed.pool is not None else None
+        finally:
+            feed.close()
+        return out, pool
+
+    want, _ = batches("cpu", 0, 1)
+    for depth, window in ((0, 1), (2, 1), (2, 2)):
+        kernels.reset_launch_counts()
+        got, pool = batches(cuda, depth, window)
+        assert kernels.tokenize_boundaries.launches > 0
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            for k in w:
+                assert np.array_equal(g[k], w[k]), (depth, window, k)
+        arrays = 3 if layout == "dense" else 5
+        # a set a batch in flight, plus the short last batch's smaller
+        # csr entry bucket (its indices and values)
+        extra = 0 if layout == "dense" else 2
+        assert pool["allocated"] <= arrays * (depth + window + 3) + extra
+        assert pool["allocated"] + pool["reused"] == arrays * len(got)

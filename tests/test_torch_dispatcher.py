@@ -452,7 +452,7 @@ def test_dispatch_cli_end_to_end(svm_file):
            "PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", "")}
     disp = subprocess.Popen(
         [sys.executable, "-m", "dmlc_tpu_torch.tools", "dispatch", svm_file,
-         "--nchunks", "4", "--host", "127.0.0.1", "--device", "cpu"],
+         "--nchunks", "4", "--host", "127.0.0.1"],
         stdout=subprocess.PIPE, text=True, cwd=repo, env=env)
     serve = None
     try:
@@ -919,7 +919,8 @@ def test_worker_killed_mid_epoch_exactly_once(tmp_path):
 
 def test_the_fleet_refuses_a_missing_card(svm_file, monkeypatch):
     """``device=None`` means the card: without one a worker, a consumer
-    and both CLIs raise DMLCError instead of parsing on the host."""
+    and ``serve`` raise DMLCError instead of parsing on the host. The
+    dispatcher holds no tensor: ``dispatch`` takes no ``--device``."""
     import torch
 
     from dmlc_tpu_torch.tools import dispatch, serve
@@ -936,8 +937,8 @@ def test_the_fleet_refuses_a_missing_card(svm_file, monkeypatch):
         with pytest.raises(DMLCError, match="no CUDA device"):
             serve.main(["--dispatcher", "%s:%d" % d.address])
         assert d.snapshot()["workers"] == {}
-    with pytest.raises(DMLCError, match="no CUDA device"):
-        dispatch.main([svm_file, "--host", "127.0.0.1"])
+    with pytest.raises(SystemExit):
+        dispatch.main([svm_file, "--host", "127.0.0.1", "--device", "cpu"])
 
 
 def test_dispatch_status_port_waits_for_the_status_plane(svm_file):
@@ -945,7 +946,7 @@ def test_dispatch_status_port_waits_for_the_status_plane(svm_file):
     from dmlc_tpu_torch.utils.logging import DMLCError
 
     with pytest.raises(DMLCError, match="status plane"):
-        dispatch.main([svm_file, "--status-port", "0", "--device", "cpu"])
+        dispatch.main([svm_file, "--status-port", "0"])
 
 
 def test_attach_plane_hands_over_the_snapshot(svm_file):

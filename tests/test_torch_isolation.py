@@ -140,8 +140,10 @@ split = create_input_split(rec, 0, 1, "indexed_recordio",
 assert len(list(split.records())) == 1
 split.close()
 assert shard.cache_token(dtsh, "shard")[0] == shard.SHARD_FORMAT_VERSION
-assert sorted(tools._COMMANDS) == ["bake", "dispatch", "filesys", "parity",
-                                   "recordio", "rowrec", "serve"]
+assert sorted(tools._COMMANDS) == [
+    "audit_report", "bake", "bench_gate", "dataiter", "dispatch", "filesys",
+    "parity", "parse", "recordio", "rowrec", "serve", "split_read",
+    "stream_read", "strtonum"]
 # the remote filesystems: a parser read and a csr fit from a fake s3://,
 # the fit's snapshot and the model written there too
 import dmlc_tpu_torch.io.azure
@@ -188,6 +190,24 @@ with DataDispatcher(sys.argv[1], nchunks=3) as disp:
         feed.close()
         assert disp.join(timeout=30)
 assert dmlc_json.loads(dmlc_json.dumps({"a": [1]})) == {"a": [1]}
+# the feed's producer thread and window, the tier-2 tools and the examples
+from dmlc_tpu_torch.io import FixedMemoryStream, Serializable
+from dmlc_tpu_torch.tools import (audit_report, bench_gate, dataiter, parse,
+                                  split_read, stream_read, strtonum)
+from dmlc_tpu_torch.examples import (boosted_trees, criteo_sparse,
+                                     distributed_sgd, long_context,
+                                     parameter)
+feed = DeviceFeed(create_parser(sys.argv[1], device="cpu"),
+                  BatchSpec(batch_size=4, layout="dense", num_features=8,
+                            prefetch=2), device="cpu", host_prefetch=2)
+assert len(LinearLearner(device="cpu").fit_feed(feed, epochs=2)) == 2
+feed.close()
+assert parse.main([sys.argv[1], "--device", "cpu"]) == 0
+assert dataiter.main([sys.argv[1], "--batch-size", "4", "--device",
+                      "cpu"]) == 0
+assert split_read.main([sys.argv[1], "0", "1"]) == 0
+assert strtonum.main(["--n", "200", "--device", "cpu"]) == 0
+assert bench_gate.main(["--smoke"]) == 0
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

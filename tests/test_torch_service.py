@@ -613,7 +613,7 @@ def test_feed_closed_mid_epoch_leaves_the_rest_unacked(tmp_path):
         with BlockService(dispatcher=d.address, nthread=1, device="cpu"):
             parser = RemoteBlockParser(d.address, dispatcher=True,
                                        device="cpu")
-            feed = DeviceFeed(parser, spec, device="cpu")
+            feed = DeviceFeed(parser, spec, device="cpu", host_prefetch=0)
             seen = []
             for nbatch, batch in enumerate(feed):
                 if nbatch == 2:
@@ -641,8 +641,8 @@ def test_feed_closed_mid_epoch_leaves_the_rest_unacked(tmp_path):
 
 
 def test_chunks_without_rows_are_acked_at_once(tmp_path):
-    """More chunks than lines: the empty chunks are acked by the feed the
-    moment they arrive, so the epoch still completes."""
+    """More chunks than lines: each empty chunk rides the next batch (or
+    the epoch's end) and is acked with it, so the epoch still completes."""
     from dmlc_tpu_torch.data import DataDispatcher
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 

@@ -105,15 +105,15 @@ def test_rowrec_cli_writes_what_the_library_writes(tmp_path):
 
 
 def test_dispatcher_names_the_ported_commands(capsys):
-    assert sorted(tools._COMMANDS) == ["bake", "dispatch", "filesys",
-                                       "parity", "recordio", "rowrec",
-                                       "serve"]
-    names = "bake dispatch filesys parity recordio rowrec serve"
+    names = ("audit_report bake bench_gate dataiter dispatch filesys "
+             "parity parse recordio rowrec serve split_read stream_read "
+             "strtonum")
+    assert sorted(tools._COMMANDS) == names.split()
     assert tools.main(["--help"]) == 0
     assert names in capsys.readouterr().out
     assert tools.main([]) == 2
     with pytest.raises(DMLCError, match=names):
-        tools.main(["split_read", "x"])
+        tools.main(["obs_top", "x"])
     out = _run("obs-report")
     assert out.returncode != 0
     assert "the port has: " + names in out.stderr

@@ -207,18 +207,10 @@ non-zero exit and no result line:
    faultpoint (``RECOVER_FAULTS``) outside the recovery before round 3,
    the warm spare called up: the digests equal (a)'s, the tracker's
    generation 2 with ``join`` and ``rebuild`` events, the spare's own
-   launches; (d) world 2 on the device engine, ``sync="spmd"`` over gloo
-   with CUDA tensors, each task in a relaunch loop exporting
-   DMLC_TPU_COORDINATOR / DMLC_TPU_NUM_PROC / DMLC_TPU_PROC_ID: a clean
-   run within ``FIT_PARAM_REL`` of (a)'s params, and a run where rank 0
-   (which serves the store) crashes as it starts round 2 and rank 1 as
-   it starts round 3 (the surviving rank 0 then serves the store again),
-   whose digests must equal the clean run's; the route each survivor
-   took (re-initialized in process, or the fail-stop exit 41 and a
-   relaunch) is reported. Over NCCL only
-   with a second card. In every job each process launches
-   ``coo_segment_sum`` once a step and the tokenizer once a chunk part;
-   (e) rows/s of (a) and the seconds of (b)-(d) against their clean runs;
+   launches. The device engine's world 2 runs in phase 25 (b). In every
+   job each process launches ``coo_segment_sum`` once a step and the
+   tokenizer once a chunk part; (e) rows/s of (a) and the seconds of (b)
+   and (c) against (a);
 19. expert-parallel MoE and the GPipe pipeline at Mixtral-8x7B's MoE
    widths (``MOE_*``: D 4096, expert hidden 14336, 8 experts, top-2; the
    reference's GELU FFN, not SwiGLU), weights and x drawn on the card:
@@ -246,7 +238,8 @@ non-zero exit and no result line:
    ``KERNELS`` is on this path (the reference computes it with XLA ops);
 20. the observability layer on the card (``drive_obs``): (a) phase 5's
    dense fit, phase 6's csr fit, phase 16's FM fit and phase 14's GBDT fit
-   (1,048,576 × 28, 20 trees), each once with every observability setting
+   (1,048,576 × 28, depth 6, ``OBS_GBDT_TREES`` trees), each once with
+   every observability setting
    off and once fully armed (``DMLC_TPU_TRACE``,
    ``DMLC_TPU_METRICS_EXPORT`` as JSONL or Prometheus,
    ``DMLC_TPU_FLIGHTREC``, ``DMLC_TPU_AUDIT=full``, a device-step sample
@@ -367,6 +360,44 @@ non-zero exit and no result line:
    ``long_context.py`` at T = ``LONG_CONTEXT_T`` (``flash_attention_fwd``)
    and ``boosted_trees.py`` over phase 5's first ``GBDT_EXAMPLE_ROWS``
    rows (the tokenizer): each exits 0 having launched its kernel.
+25. the status plane and the launchers on the card
+   (``drive_status_plane``): jobs of ``python -m
+   dmlc_tpu_torch.tracker.submit`` whose ranks are ``chip_smoke.py
+   --plane-rank`` or ``--recover-rank`` processes. (a) ``--cluster gpu
+   --gpu-hosts localhost -n 1 --status-port P`` with ``DMLC_TPU_TRACE``
+   and ``DMLC_TPU_AUDIT=full``: phase 6's csr fit over a one-rank NCCL
+   group from the launcher's coordinator; while it runs every endpoint
+   of the plane answers 200 with its content type (an unknown path 404),
+   ``/profile?seconds=1`` sent before its first heartbeat makes the rank
+   capture ``torch.profiler`` at its first epoch boundary, and the
+   window's trace must hold ``coo_segment_sum``'s CUDA kernel; /workers,
+   the merged /trace and /metrics show the rank, /audit has no fork,
+   /goodput a window; ``obs-top --once`` shows rank 0 and ``obs-report
+   --status`` exits 0 against the live server, ``obs-report --trace`` /
+   ``--diff`` over the merged and the rank's own trace after the job;
+   losses and params bit-identical to phase 6, ``coo_segment_sum`` once
+   a step, the tokenizer once a chunk part; (b) ``--cluster gpu
+   --gpu-hosts localhost,localhost --max-attempts 3 --status-port P``:
+   phase 18's ranks on the device engine (``sync="spmd"`` over gloo, both
+   ranks on the one card), clean and with rank 0 crashing as it starts
+   round ``RECOVER_CRASH_EPOCH`` and rank 1 a round later, relaunched by
+   the launcher: every digest equal to phase 18 (a)'s, /workers both ranks
+   (a relaunched rank's publisher counts its epochs from 1 again), the
+   merged /trace spans of both ranks in one monotonic timeline, /metrics
+   both ``rank=`` labels, each survivor's route and the seconds from a
+   crash to the replayed round; (c) ``python -m dmlc_tpu_torch.tools
+   dispatch - --status-port 0`` with jobs ``csr0``, ``csr1`` (phase 6's
+   file) and ``tail``, one ``serve`` worker: phase 6's csr fit one job an
+   epoch, bit-identical to phase 6, then /data shows both jobs' lease
+   tables acked; ``tail`` drained; the worker's tokenizer launches equal
+   the chunk parts it served; (d) ``--cluster ssh`` with a fake ``ssh``
+   on a temporary PATH that runs the remote command with ``bash -c``
+   here: one epoch of phase 6's fit, bit-identical to the same epoch in
+   process; (e) one job launched as in (a) (no trace, no audit), its rank
+   fitting in turns ``PLANE_COST_TURNS``, publishing to the plane only in
+   the 1 turns (a rank of a job without ``--status-port`` never
+   publishes): every turn bit-identical to phase 6, rows/s of each, no
+   threshold.
 
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
@@ -375,8 +406,9 @@ path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit). Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
-``data_service`` line (phase 23), the ``feed`` line (phase 24) and
-``phase_seconds`` (each phase's wall seconds); the last lines are the
+``data_service`` line (phase 23), the ``feed`` line (phase 24), the
+``plane`` line (phase 25) and ``phase_seconds`` (each phase's wall
+seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -506,11 +538,13 @@ SNAP_EPOCHS = 3
 SNAP_NOTICE_POLL = 2 * (CRITEO_ROWS // CRITEO_BATCH) + 4
 SIGNAL_EPOCHS = 8
 # phase 18: rounds of one epoch over phase 6's csr file at phase 13's
-# world-2 batch; (b) and (d) crash a rank as it starts round 2, after two
-# committed checkpoints, and (d) crashes the other rank as it starts round
-# 3; (c) kills rank 1 as it starts round 3: rank r
+# world-2 batch; (b) and phase 25 (b) crash a rank as it starts round 2,
+# after two committed checkpoints, and phase 25 (b) crashes the other rank
+# as it starts round 3; (c) kills rank 1 as it starts round 3: rank r
 # passes the worker.step faultpoint r + 1 times before each round, so its
-# 8th pass is rank 1's before round 3 (and no other rank reaches 8)
+# 8th pass is rank 1's before round 3 (and no other rank reaches 8). Not
+# fewer rounds: at 3, with the kill before round 1, the warm spare was
+# still starting when rank 1 died and the job went on at world 1
 RECOVER_EPOCHS = 4
 RECOVER_CRASH_EPOCH = 2
 RECOVER_FAULTS = "worker.step:nth=8"
@@ -2953,10 +2987,12 @@ def process_start_time() -> float:
 
 
 def recover_rank(spec_path: str) -> int:
-    """One rank of phase 18, run as ``chip_smoke.py --recover-rank SPEC``
-    by the port's launcher (the socket engine, ``sync="host"``) or by
-    :func:`run_device_job`'s per-task loop (the device engine over the
-    DMLC_TPU_* env, ``sync="spmd"``): fits ``spec["file"]`` one epoch a
+    """One rank of phases 18 and 25 (b), run as ``chip_smoke.py
+    --recover-rank SPEC`` by the port's launcher: ``--cluster local``
+    (the socket engine, ``sync="host"``) or ``--cluster gpu`` (the device
+    engine over the launcher's DMLC_TPU_* env, ``sync="spmd"``; it ends
+    with one rendezvous with the tracker, after ``spec["hold"]`` appears,
+    so the launcher's job ends): fits ``spec["file"]`` one epoch a
     round under ``run_with_recovery`` for ``RECOVER_EPOCHS`` rounds, each
     round from the shared checkpoint ``spec["ckpt"]`` (epoch, params,
     velocity, loss history, as numpy) on part ``rank()`` of
@@ -3088,6 +3124,14 @@ def recover_rank(spec_path: str) -> int:
     learner.close()
     collective.finalize()
     distributed.shutdown()
+    if device_engine and os.environ.get("DMLC_TRACKER_URI"):
+        # launched by a tracker (``--cluster gpu``), which the device
+        # engine never told anything: one rendezvous and shutdown a rank
+        # end its job, once the smoke has read the live status plane
+        if spec.get("hold"):
+            wait_for(spec["hold"], "the smoke's release")
+        collective.init("socket")
+        collective.finalize()
     return 0
 
 
@@ -3169,78 +3213,6 @@ def run_launcher_job(tmp, name, csr_file, launcher_args, faults="",
         return _reports(out), text, seconds, json.load(fh)
 
 
-def run_device_job(tmp, name, csr_file, backend, devices, crashes=()):
-    """Phase 18 (d): a world of ``len(devices)`` ranks on the device
-    engine, each task in a per-task relaunch loop of its own (up to 3
-    attempts) that exports DMLC_TPU_COORDINATOR (``host:port``) /
-    DMLC_TPU_NUM_PROC / DMLC_TPU_PROC_ID, as a GPU launcher would.
-    Returns (the final reports by rank, each task's exit codes, the wall
-    seconds, the spec)."""
-    import socket
-
-    world = len(devices)
-    spec_path = _job_spec(tmp, name, csr_file, engine="device",
-                          sync="spmd", backend=backend, devices=devices,
-                          crashes=list(crashes))
-    out = os.path.dirname(spec_path)
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        port = probe.getsockname()[1]
-    codes = {tid: [] for tid in range(world)}
-    logs = {tid: [] for tid in range(world)}
-    lock = threading.Lock()
-    procs = []
-    deadline = time.monotonic() + RANK_TIMEOUT_S
-
-    def run_task(tid: int) -> None:
-        for attempt in range(3):
-            env = dict(os.environ, DMLC_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                       DMLC_TPU_NUM_PROC=str(world),
-                       DMLC_TPU_PROC_ID=str(tid), DMLC_TASK_ID=str(tid),
-                       DMLC_NUM_ATTEMPT=str(attempt),
-                       DMLC_TPU_RECOVER_TIMEOUT="60")
-            for key in ("DMLC_TPU_FAULTS", "DMLC_TRACKER_URI"):
-                env.pop(key, None)
-            log_path = os.path.join(out, f"task{tid}.{attempt}.log")
-            with open(log_path, "w") as log:
-                proc = subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--recover-rank", spec_path], env=env, stdout=log,
-                    stderr=subprocess.STDOUT, start_new_session=True)
-                with lock:
-                    procs.append(proc)
-                try:
-                    code = proc.wait(
-                        timeout=max(1.0, deadline - time.monotonic()))
-                except subprocess.TimeoutExpired:
-                    code = None
-            with open(log_path) as fh:
-                text = fh.read()
-            with lock:
-                codes[tid].append(code)
-                logs[tid].append(text)
-            if code in (0, None):
-                return
-
-    t0 = time.perf_counter()
-    threads = [threading.Thread(target=run_task, args=(tid,))
-               for tid in range(world)]
-    try:
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-    finally:
-        for proc in procs:
-            _kill_group(proc)
-    seconds = time.perf_counter() - t0
-    for tid in range(world):
-        require(codes[tid][-1] == 0, "%s: task %d exit codes %s:\n%s", name,
-                tid, codes[tid], logs[tid][-1][-6000:])
-    with open(spec_path) as fh:
-        return _reports(out), codes, seconds, json.load(fh)
-
-
 def hold_recover_job(name, reports, world, digest=None) -> dict:
     """Phase 18's checks of one job's final reports: one a rank, each at
     version ``RECOVER_EPOCHS``, every digest equal (and equal to
@@ -3314,16 +3286,14 @@ def fit_rows_per_s(reports) -> float:
     return rows / seconds
 
 
-def drive_recovery(csr_file, tmp, parts=("clean", "crash", "elastic",
-                                         "device")) -> dict:
+def drive_recovery(csr_file, tmp, parts=("clean", "crash",
+                                         "elastic")) -> dict:
     """Phase 18 (the module docstring): the jobs of ``parts``, in order;
-    "crash", "elastic" and "device" hold their digests against "clean"."""
+    "crash" and "elastic" hold their digests against "clean"."""
     report = {}
     reports, _, clean_s, spec = run_launcher_job(
         tmp, "clean", csr_file, ["-n", "2"])
     clean = hold_recover_job("clean", reports, 2)
-    clean_params = dict(np.load(os.path.join(spec["out"],
-                                             "params-rank0.npz")))
     report["clean"] = dict(clean, seconds=clean_s,
                            rows_per_s=fit_rows_per_s(reports))
     if "crash" in parts:
@@ -3371,55 +3341,6 @@ def drive_recovery(csr_file, tmp, parts=("clean", "crash", "elastic",
             kill_to_replay_s=replay_seconds(fault, reports),
             kill_to_spare_ready_s=(spares[0]["times"]["engine_ready"]
                                    - fault["at"]))
-    if "device" in parts:
-        report["device"] = {}
-        flavors = [("gloo", ["cuda:0", "cuda:0"])]
-        if torch.cuda.device_count() >= 2:
-            flavors.append(("nccl", ["cuda:0", "cuda:1"]))
-        else:
-            report["device"]["nccl"] = "skipped: one card (NCCL refuses " \
-                                       "two ranks on one GPU)"
-        for backend, devices in flavors:
-            reports, codes, clean_d_s, spec = run_device_job(
-                tmp, f"device_{backend}_clean", csr_file, backend, devices)
-            base = hold_recover_job(f"device {backend} clean", reports, 2)
-            rel = param_rel_err(dict(np.load(os.path.join(
-                spec["out"], "params-rank0.npz"))), clean_params)
-            require(rel <= FIT_PARAM_REL, "device %s: the clean spmd fit is "
-                    "%g from the host fit's params (limit %g)", backend, rel,
-                    FIT_PARAM_REL)
-            # rank 0, which serves the store, dies first; then rank 1,
-            # and the surviving (relaunched) rank 0 serves it again
-            crashes = [{"rank": 0, "epoch": RECOVER_CRASH_EPOCH},
-                       {"rank": 1, "epoch": RECOVER_CRASH_EPOCH + 1}]
-            reports, codes, secs, spec = run_device_job(
-                tmp, f"device_{backend}_crash", csr_file, backend, devices,
-                crashes)
-            held = hold_recover_job(f"device {backend} crash", reports, 2,
-                                    base["digest"])
-            # each rank is the survivor of the other's crash, and a
-            # fail-stop exit 41 can only end a survivor's re-init
-            routes, to_replay, relaunch = {}, {}, {}
-            for crash in crashes:
-                dead = crash["rank"]
-                survivor = reports[1 - dead]
-                key = "rank%d_crash" % dead
-                require(codes[reports[dead]["task"]].count(17) == 1,
-                        "device %s: rank %d exit codes %s", backend, dead,
-                        codes[reports[dead]["task"]])
-                routes[key] = ("survivor rank %d: %s" % (
-                    1 - dead, "fail-stop exit 41, relaunched"
-                    if 41 in codes[survivor["task"]]
-                    else "re-initialized in process"))
-                fault = fault_marker(spec, "crashed-rank%d.json" % dead)
-                to_replay[key] = replay_seconds(fault, reports)
-                relaunch[key] = relaunch_seconds(fault, reports[dead])
-            report["device"][backend] = dict(
-                held, exit_codes={rep["rank"]: codes[rep["task"]]
-                                  for rep in reports.values()},
-                routes=routes, clean_seconds=clean_d_s, seconds=secs,
-                vs_clean=secs / clean_d_s, clean_vs_host_rel_err=rel,
-                crash_to_replay_s=to_replay, relaunch_s=relaunch)
     return report
 
 
@@ -3841,6 +3762,8 @@ OBS_DEFAULT = {k: None for k in OBS_OFF}
 #: phase 6's 16 csr and phase 16's 16 FM steps twice
 OBS_SAMPLE_N = 8
 OBS_RUNS = 3  # (d): the median of 3 runs a setting
+#: the GBDT fit of (a) and (d): phase 14's rows and depth, fewer trees
+OBS_GBDT_TREES = 5
 OBS_PROFILE_STEPS = 20  # (b): dense steps under torch.profiler
 #: (c): the csr fit's child dies at its 3rd chunk's parse
 OBS_FAULT = "parse.chunk:nth=3"
@@ -3958,7 +3881,8 @@ def obs_gbdt_fit(x, y, dev):
     from dmlc_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
-    learner, history, seconds = gbdt_fit(x, y, dev)
+    learner, history, seconds = gbdt_fit(x, y, dev,
+                                         num_trees=OBS_GBDT_TREES)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     return history, tree_bits(learner), launches, seconds
 
@@ -4191,7 +4115,7 @@ def drive_obs(kernels, dev, fit_files, fm_file, fm_start, tmp) -> dict:
     steps = {"dense": EPOCHS * (HIGGS_ROWS // HIGGS_BATCH),
              "csr": EPOCHS * (CRITEO_ROWS // CRITEO_BATCH),
              "fm": EPOCHS * (CRITEO_ROWS // CRITEO_BATCH),
-             "gbdt": GBDT_HYPER["num_trees"]}
+             "gbdt": OBS_GBDT_TREES}
     path_kernel = {"dense": "fused_linear_grads", "csr": "coo_segment_sum",
                    "fm": "coo_segment_sum"}
 
@@ -4364,7 +4288,7 @@ def drive_obs(kernels, dev, fit_files, fm_file, fm_start, tmp) -> dict:
             ("dense", lambda: obs_linear_fit(*dense), EPOCHS * HIGGS_ROWS),
             ("csr", lambda: obs_linear_fit(*csr), EPOCHS * CRITEO_ROWS),
             ("gbdt", lambda: obs_gbdt_fit(x, y, dev),
-             GBDT_ROWS * GBDT_HYPER["num_trees"])):
+             GBDT_ROWS * OBS_GBDT_TREES)):
         cost[name] = {}
         for setting in ("default", "metrics_off", "armed"):
             env = {"default": OBS_DEFAULT,
@@ -5605,6 +5529,645 @@ def feed_summary(card, report) -> dict:
         "phase_seconds": report["seconds"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the status plane and the launchers on the card
+# ---------------------------------------------------------------------------
+
+#: the status plane's nine endpoints and their content types
+PLANE_ENDPOINTS = {
+    "/healthz": "application/json", "/workers": "application/json",
+    "/metrics": "text/plain; version=0.0.4", "/trace": "application/json",
+    "/data": "application/json", "/goodput": "application/json",
+    "/audit": "application/json", "/xla": "application/json",
+    "/profile": "application/json"}
+PLANE_PROFILE_S = 1  # (a): the /profile window a rank captures
+PLANE_POLL_S = 0.2
+#: (e): turns of the launched csr fit in one rank, 0 not publishing (as
+#: without --status-port), 1 publishing to the armed tracker
+PLANE_COST_TURNS = (0, 1, 1, 0)
+#: the fake ssh of (d): skip the options, the port and the host, run the
+#: remote command string on this host
+FAKE_SSH = """#!/bin/bash
+while [ $# -gt 1 ]; do
+  case "$1" in
+    -o|-p) shift 2 ;;
+    *) shift ; break ;;
+  esac
+done
+exec bash -c "$1"
+"""
+
+
+def free_port() -> int:
+    """A TCP port free on 127.0.0.1 now."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def wait_for(path: str, what: str, seconds: float = RANK_TIMEOUT_S) -> None:
+    deadline = time.monotonic() + seconds
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise SmokeFailure("%s: %s never appeared" % (what, path))
+        time.sleep(PLANE_POLL_S)
+
+
+def plane_rank(spec_path: str) -> int:
+    """One rank of phase 25 (a), (d) and (e), run as ``chip_smoke.py
+    --plane-rank SPEC`` by the port's launcher: phase 6's csr fit for
+    ``spec["epochs"]`` epochs on the card it sees, after the tracker's
+    rendezvous (the socket engine keeps the job's books), over a one-rank
+    NCCL group started from the gpu launcher's coordinator when
+    ``spec["nccl"]``. ``spec["turns"]`` (0 / 1 a fit) runs the fit once a
+    turn after one unarmed warm-up fit, publishing to the tracker's plane
+    only in the 1 turns (what a rank of a job without ``--status-port``
+    does in the 0 turns: it never publishes), and reports the rows/s of
+    each; every fit must give the first's bits. With ``spec["profile"]`` it waits for the
+    ``/profile`` window its heartbeat ack started to be written beside its
+    flight-recorder dump and reads the CUDA kernels in it; with
+    ``spec["hold"]`` it waits for that file before it leaves the job, so
+    the smoke reads the live plane first. Writes ``report-rank0.json``
+    and ``params-rank0.npz`` to ``spec["out"]``."""
+    import hashlib
+
+    import torch.distributed as dist
+    from dmlc_tpu_torch import collective
+    from dmlc_tpu_torch.ops import kernels
+    from dmlc_tpu_torch.parallel import distributed
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    kernels._lib()  # built by the parent: loaded, never built again
+    collective.init()
+    rank = collective.rank()
+    group = None
+    if spec["nccl"]:
+        info = distributed.env_process_info()
+        distributed.initialize(info["coordinator"], 1, 0, backend="nccl",
+                               device=dev)
+        # NCCL builds its communicator at the first collective: outside
+        # the fit's seconds, as phase 13 times it
+        dist.all_reduce(torch.zeros(1, device=dev))
+        torch.cuda.synchronize()
+        group = dist.group.WORLD
+    from dmlc_tpu_torch.obs import plane
+
+    turn_rows_per_s = []
+    turns = spec.get("turns")
+    # turns start after one unarmed fit, so that no turn pays the
+    # process's first fit (the cost records of its first calls)
+    for armed in [0] + list(turns) if turns else [None]:
+        if armed is not None:
+            # a turn publishes exactly when it is armed
+            if armed:
+                os.environ["DMLC_TPU_OBS_PUBLISH"] = "1"
+            else:
+                os.environ.pop("DMLC_TPU_OBS_PUBLISH", None)
+            plane.reset_default_publisher()
+        kernels.reset_launch_counts()
+        with count_parts() as parts:
+            history, params, seconds = run_fit(
+                spec["file"], "csr", CRITEO_BATCH, CRITEO_DIM + 1, dev,
+                group=group, epochs=spec["epochs"])
+        turn_rows_per_s.append(spec["epochs"] * CRITEO_ROWS / seconds)
+        if len(turn_rows_per_s) == 1:
+            first = (history, params)
+        same_fit_bits("turn %d" % len(turn_rows_per_s), (history, params),
+                      first)
+    if turns:
+        turn_rows_per_s = turn_rows_per_s[1:]
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    report = {
+        "rank": rank, "history": history, "seconds": seconds,
+        "rows_per_s": spec["epochs"] * CRITEO_ROWS / seconds,
+        "turn_rows_per_s": turn_rows_per_s,
+        "launches": launches, "chunk_parts": len(parts),
+        "backend": dist.get_backend() if group is not None else None,
+        "digest": hashlib.sha256(params["w"].tobytes()
+                                 + params["b"].tobytes()).hexdigest(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "cluster": os.environ.get("DMLC_JOB_CLUSTER")}
+    if spec.get("profile"):
+        path = os.path.join(os.environ["DMLC_TPU_FLIGHTREC"],
+                            "profile-rank%d-req1" % rank, "trace.json")
+        wait_for(path, "the /profile window's trace")
+        time.sleep(0.5)  # the export writes the file in one go; let it end
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        names = sorted({e.get("name", "") for e in events
+                        if e.get("cat") == "kernel"})
+        report["profile"] = {"trace": path, "kernels": names,
+                             "seg_sum_kernels": sum(
+                                 1 for e in events if e.get("cat") == "kernel"
+                                 and "seg_sum_kernel" in e.get("name", ""))}
+    np.savez(os.path.join(spec["out"], "params-rank%d.npz" % rank), **params)
+    with open(os.path.join(spec["out"], "report-rank%d.json" % rank),
+              "x") as fh:
+        json.dump(report, fh)
+    if spec.get("hold"):
+        wait_for(spec["hold"], "the smoke's release")
+    if group is not None:
+        distributed.shutdown()
+    collective.finalize()
+    return 0
+
+
+class LaunchedJob:
+    """``python -m dmlc_tpu_torch.tracker.submit --host-ip 127.0.0.1
+    <launcher_args> python chip_smoke.py <entry> SPEC`` in a session of
+    its own, its log beside the spec. ``status`` arms the tracker's
+    status plane on a free port (``self.status``)."""
+
+    def __init__(self, tmp, name, launcher_args, entry, spec, status=False,
+                 env=None, hold=False):
+        self.name = name
+        self.out = os.path.join(tmp, name)
+        os.makedirs(self.out)
+        self.hold = os.path.join(self.out, "release") if hold else None
+        spec = dict(spec, out=self.out, hold=self.hold)
+        self.spec_path = os.path.join(self.out, "spec.json")
+        with open(self.spec_path, "w") as fh:
+            json.dump(spec, fh)
+        self.status = free_port() if status else None
+        full = dict(os.environ)
+        for key in ("DMLC_TPU_FAULTS", "DMLC_TPU_STATUS_PORT",
+                    "DMLC_TRACKER_URI", "DMLC_TPU_COORDINATOR",
+                    "DMLC_TPU_ELASTIC", "DMLC_TPU_SPARE", "DMLC_TPU_TRACE",
+                    "DMLC_TPU_AUDIT", "DMLC_TPU_FLIGHTREC",
+                    "CUDA_VISIBLE_DEVICES"):
+            full.pop(key, None)
+        full.update({k: str(v) for k, v in (env or {}).items()})
+        root = os.path.dirname(os.path.abspath(__file__))
+        cmd = [sys.executable, "-m", "dmlc_tpu_torch.tracker.submit",
+               "--host-ip", "127.0.0.1", *map(str, launcher_args)]
+        if status:
+            cmd += ["--status-port", str(self.status)]
+        cmd += [sys.executable, os.path.abspath(__file__), entry,
+                self.spec_path]
+        self.log_path = os.path.join(self.out, "job.log")
+        self._log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, cwd=root, env=full,
+                                     stdout=self._log,
+                                     stderr=subprocess.STDOUT,
+                                     start_new_session=True)
+
+    def kill(self) -> None:
+        """End the job's session, its ranks included."""
+        _kill_group(self.proc)
+        self._log.close()
+
+    def log(self) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()
+
+    def get(self, path: str):
+        """(status, content type, body) of ``path`` on the status server;
+        an HTTP error's code in place of the status."""
+        import urllib.error
+        import urllib.request
+
+        url = "http://127.0.0.1:%d%s" % (self.status, path)
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                return resp.status, resp.headers["Content-Type"], resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, None, b""
+
+    def get_json(self, path: str):
+        code, _, body = self.get(path)
+        require(code == 200, "%s: %s answered %s", self.name, path, code)
+        return json.loads(body)
+
+    def wait_up(self) -> None:
+        """Until the status server answers /healthz."""
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while True:
+            require(self.proc.poll() is None, "%s: the launcher exited %s "
+                    "before its status server answered:\n%s", self.name,
+                    self.proc.returncode, self.log()[-6000:])
+            try:
+                if self.get("/healthz")[0] == 200:
+                    return
+            except OSError:
+                pass
+            require(time.monotonic() < deadline, "%s: no status server",
+                    self.name)
+            time.sleep(PLANE_POLL_S)
+
+    def reports(self, world: int, poll=None) -> dict:
+        """Wait until ``world`` ranks wrote their reports (calling
+        ``poll()`` between looks), then return them by rank."""
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while len(_reports(self.out)) < world:
+            require(self.proc.poll() is None or len(_reports(self.out))
+                    >= world, "%s: the launcher exited %s:\n%s", self.name,
+                    self.proc.returncode, self.log()[-6000:])
+            require(time.monotonic() < deadline, "%s: no reports in %d s",
+                    self.name, RANK_TIMEOUT_S)
+            if poll is not None:
+                poll()
+            time.sleep(PLANE_POLL_S)
+        return _reports(self.out)
+
+    def release(self) -> None:
+        if self.hold is not None:
+            with open(self.hold, "w") as fh:
+                fh.write("go\n")
+
+    def finish(self) -> tuple:
+        """Release the ranks, wait for the launcher (``RANK_TIMEOUT_S``),
+        kill what is left of its session: (reports by rank, log, wall
+        seconds)."""
+        self.release()
+        try:
+            self.proc.wait(timeout=RANK_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            code = self.proc.poll()
+            self.kill()
+        seconds = time.perf_counter() - self.t0
+        text = self.log()
+        require(code == 0, "%s: the launcher %s:\n%s", self.name,
+                "did not finish" if code is None else "exited %s" % code,
+                text[-6000:])
+        return _reports(self.out), text, seconds
+
+
+def hold_plane_views(what, job, ranks, epochs=None) -> dict:
+    """The live plane of ``job``: /workers lists ``ranks`` (each at
+    ``epochs[r]`` published epochs when given), the merged /trace holds
+    spans of every rank in one monotonic timeline, the merged /metrics
+    carries a ``rank=`` label for each. The ranks' reports are written by
+    then: only the last heartbeats may still be in flight."""
+    deadline = time.monotonic() + 30
+    while True:
+        workers = job.get_json("/workers")
+        got = workers["workers"]
+        done = sorted(got) == [str(r) for r in ranks] and (
+            epochs is None or all(got[str(r)]["epoch"] == epochs[r]
+                                  for r in ranks))
+        if done or time.monotonic() > deadline:
+            break
+        time.sleep(PLANE_POLL_S)
+    require(sorted(got) == [str(r) for r in ranks], "%s: /workers lists "
+            "ranks %s, want %s", what, sorted(got), ranks)
+    if epochs is not None:
+        require(all(got[str(r)]["epoch"] == epochs[r] for r in ranks),
+                "%s: /workers epochs %s, want %s", what,
+                {r: v["epoch"] for r, v in got.items()}, epochs)
+    trace = job.get_json("/trace")
+    events = trace["traceEvents"]
+    ts = [e["ts"] for e in events]
+    span_ranks = sorted({e["pid"] for e in events if e.get("ph") == "X"})
+    require(span_ranks == list(ranks) and ts == sorted(ts) and ts[0] == 0,
+            "%s: /trace spans of ranks %s, monotonic %s", what, span_ranks,
+            ts == sorted(ts))
+    code, _, body = job.get("/metrics")
+    text = body.decode()
+    for r in ranks:
+        require('rank="%d"' % r in text, "%s: /metrics has no rank=%d "
+                "label", what, r)
+    return {"workers": {r: {k: v[k] for k in ("epoch", "payloads", "spans",
+                                               "spans_dropped", "info")}
+                        for r, v in got.items()},
+            "world_version": workers["world_version"],
+            "events": [e["kind"] for e in workers["events"]],
+            "trace_spans": len(events),
+            "trace_offsets_ns": trace["metadata"]["offsets_ns"]}
+
+
+def run_tool(argv) -> tuple:
+    """``dmlc_tpu_torch.tools.main(argv)`` in this process, as ``python -m
+    dmlc_tpu_torch.tools <argv>`` runs it: (exit code, stdout, stderr)."""
+    import io
+
+    from dmlc_tpu_torch import tools
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tools.main([str(a) for a in argv])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def drive_status_plane(kernels, dev, fit_files, paths, fit_params,
+                       recovery, tmp) -> dict:
+    """Phase 25 (the module docstring): the status plane and the
+    launchers on the card. A failed check kills the jobs it left
+    running."""
+    jobs = []
+
+    def launch(*args, **kw) -> LaunchedJob:
+        jobs.append(LaunchedJob(*args, **kw))
+        return jobs[-1]
+
+    try:
+        return _drive_status_plane(kernels, dev, fit_files, paths,
+                                   fit_params, recovery, tmp, launch)
+    finally:
+        for job in jobs:
+            job.kill()
+
+
+def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
+                        recovery, tmp, launch) -> dict:
+    csr = fit_files["csr"]
+    csr_steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
+    report = {}
+
+    def gpu_args(hosts, *extra):
+        return ["--cluster", "gpu", "-n", len(hosts.split(",")),
+                "--gpu-hosts", hosts, "--gpu-coordinator-port", free_port(),
+                *extra]
+
+    def hold_rank_fit(what, rep, epochs, history, params) -> None:
+        steps = epochs * (-(-CRITEO_ROWS // CRITEO_BATCH))
+        require(rep["history"] == list(history), "%s: loss history %s, "
+                "want %s", what, rep["history"], list(history))
+        got = dict(np.load(os.path.join(rep["out"], "params-rank0.npz")))
+        for k in ("w", "b"):
+            require(np.array_equal(got[k], params[k]), "%s: %s differs "
+                    "from phase 6's bits", what, k)
+        require(rep["launches"]["coo_segment_sum"] == steps, "%s: %d "
+                "coo_segment_sum launches for %d steps", what,
+                rep["launches"]["coo_segment_sum"], steps)
+        require(rep["launches"]["tokenize_boundaries"]
+                == rep["chunk_parts"] > 0, "%s: %d tokenizer launches for "
+                "%d chunk parts", what, rep["launches"]["tokenize_boundaries"],
+                rep["chunk_parts"])
+
+    # (a) world 1 over NCCL through --cluster gpu, the plane armed
+    t0 = time.perf_counter()
+    rec_dir = os.path.join(tmp, "a_rec")
+    job = launch(
+        tmp, "a_world1", gpu_args("localhost"), "--plane-rank",
+        {"file": csr, "epochs": EPOCHS, "nccl": True, "profile": True},
+        status=True, hold=True,
+        env={"DMLC_TPU_TRACE": os.path.join(tmp, "a_rank.trace.json"),
+             "DMLC_TPU_AUDIT": "full", "DMLC_TPU_FLIGHTREC": rec_dir})
+    job.wait_up()
+    asked = job.get_json("/profile?seconds=%d" % PLANE_PROFILE_S)
+    require(asked == {"profile_req": 1, "seconds": PLANE_PROFILE_S},
+            "(a): /profile answered %s", asked)
+    seen = {}
+
+    def poll_all():
+        for path, ctype in PLANE_ENDPOINTS.items():
+            if path == "/profile":
+                continue  # one request: a second would capture again
+            code, got_ctype, body = job.get(path)
+            require(code == 200 and got_ctype == ctype, "(a): %s answered "
+                    "%s %s", path, code, got_ctype)
+            seen[path] = seen.get(path, 0) + 1
+
+    reports = job.reports(1, poll=poll_all)
+    poll_all()
+    code = job.get("/nope")[0]
+    require(code == 404, "(a): an unknown path answered %s", code)
+    views = hold_plane_views("(a)", job, [0], {0: EPOCHS})
+    audit = job.get_json("/audit")
+    require(audit["enabled"] and audit["divergences"] == [],
+            "(a): /audit %s", {k: audit[k] for k in ("enabled",
+                                                    "divergences")})
+    goodput = job.get_json("/goodput")
+    require("0" in goodput["ranks"], "(a): /goodput has no window of rank "
+            "0: %s", goodput)
+    status = "127.0.0.1:%d" % job.status
+    top_rc, top_out, top_err = run_tool(["obs-top", "--once", "--status",
+                                         status])
+    require(top_rc == 0 and any(line.split()[:1] == ["0"]
+                                for line in top_out.splitlines()[1:]),
+            "(a): obs-top exited %s:\n%s%s", top_rc, top_out, top_err)
+    rep_rc, rep_out, rep_err = run_tool(["obs-report", "--status", status,
+                                         "--top", "--attribution", "--xla",
+                                         "--audit"])
+    require(rep_rc == 0 and "== workers ==" in rep_out, "(a): obs-report "
+            "--status exited %s:\n%s", rep_rc, rep_err)
+    merged = os.path.join(tmp, "a_merged.trace.json")
+    with open(merged, "wb") as fh:
+        fh.write(job.get("/trace")[2])
+    reports, _, seconds = job.finish()
+    rep = dict(reports[0], out=job.out)
+    hold_rank_fit("(a) world 1 over NCCL", rep, EPOCHS,
+                  paths["csr"]["loss_history"], fit_params["csr"])
+    require(rep["backend"] == "nccl" and rep["cuda_visible_devices"] == "0",
+            "(a): backend %s, CUDA_VISIBLE_DEVICES %s", rep["backend"],
+            rep["cuda_visible_devices"])
+    require(rep["profile"]["seg_sum_kernels"] > 0, "(a): the /profile "
+            "window holds no coo_segment_sum kernel: %s",
+            rep["profile"]["kernels"])
+    after = {}
+    for argv in (["--trace", merged],
+                 ["--trace", os.path.join(tmp, "a_rank.trace.json")],
+                 ["--diff", os.path.join(tmp, "a_rank.trace.json"), merged]):
+        rc, out, err = run_tool(["obs-report", *argv])
+        require(rc == 0 and "==" in out, "(a): obs-report %s exited %s:\n%s",
+                argv, rc, err)
+        after[argv[0] + " " + os.path.basename(argv[-1])] = rc
+    report["a"] = {
+        "seconds": seconds, "rows_per_s": rep["rows_per_s"],
+        "fit_seconds": rep["seconds"], "endpoint_polls": seen,
+        "plane": views, "profile_kernels": rep["profile"]["kernels"],
+        "profile_seg_sum_kernels": rep["profile"]["seg_sum_kernels"],
+        "launches": {k: rep["launches"][k] for k in ("coo_segment_sum",
+                                                     "tokenize_boundaries")},
+        "chunk_parts": rep["chunk_parts"], "obs_top_rc": top_rc,
+        "obs_report_status_rc": rep_rc, "obs_report_after": after,
+        "phase_seconds": time.perf_counter() - t0}
+    print(json.dumps({"plane_world1": report["a"]}), flush=True)
+
+    # (b) world 2 on the one card over gloo: phase 18's device-engine
+    # ranks through --cluster gpu, clean and with two crashes
+    t0 = time.perf_counter()
+    digest = recovery["clean"]["digest"]
+    crashes = [{"rank": 0, "epoch": RECOVER_CRASH_EPOCH},
+               {"rank": 1, "epoch": RECOVER_CRASH_EPOCH + 1}]
+    world2 = {}
+    for name, crash in (("clean", []), ("crash", crashes)):
+        job = launch(
+            tmp, "b_" + name, gpu_args("localhost,localhost",
+                                       "--max-attempts", 3),
+            "--recover-rank",
+            {"file": csr, "ckpt": os.path.join(tmp, "b_%s.ckpt" % name),
+             "engine": "device", "sync": "spmd", "backend": "gloo",
+             "devices": ["cuda:0", "cuda:0"], "crashes": crash},
+            status=True, hold=True, env={"DMLC_TPU_RECOVER_TIMEOUT": 60})
+        job.wait_up()
+        job.reports(2)
+        # a crashed rank's relaunched process publishes its epochs from 1
+        epochs = {r: RECOVER_EPOCHS for r in (0, 1)}
+        for c in crash:
+            epochs[c["rank"]] = RECOVER_EPOCHS - c["epoch"]
+        views = hold_plane_views("(b) " + name, job, [0, 1], epochs)
+        reports, text, seconds = job.finish()
+        held = hold_recover_job("(b) " + name, reports, 2, digest)
+        exits = re.findall(r"gpu task exited (-?\d+); restarting", text)
+        require(sorted(exits).count("17") == len(crash) and all(
+            reports[c["rank"]]["attempt"] >= 1 for c in crash),
+            "(b) %s: relaunches after exits %s, attempts %s", name, exits,
+            {r: rep["attempt"] for r, rep in reports.items()})
+        world2[name] = dict(held, seconds=seconds, plane=views,
+                            relaunched_after_exits=exits)
+        spec = {"out": job.out}
+        for c in crash:
+            # a survivor re-initializes in process, or exits 41 and is
+            # relaunched (fail-stop); the relaunch's start, split
+            fault = fault_marker(spec, "crashed-rank%d.json" % c["rank"])
+            world2[name]["rank%d_crash" % c["rank"]] = {
+                "survivor_route": "fail-stop exit 41, relaunched"
+                if exits.count("41") else "re-initialized in process",
+                "crash_to_replay_s": replay_seconds(fault, reports),
+                "relaunch_s": relaunch_seconds(fault, reports[c["rank"]])}
+    world2["vs_clean"] = world2["crash"]["seconds"] / world2["clean"][
+        "seconds"]
+    world2["phase18_clean_digest"] = digest
+    world2["phase_seconds"] = time.perf_counter() - t0
+    report["b"] = world2
+    print(json.dumps({"plane_world2": world2}), flush=True)
+
+    # (c) dispatch --status-port: one serve worker feeds phase 6's csr fit
+    t0 = time.perf_counter()
+    n = DATA_CHUNKS
+    root = os.path.dirname(os.path.abspath(__file__))
+    disp = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_tpu_torch.tools", "dispatch", "-",
+         "--nchunks", str(n), "--host", "127.0.0.1", "--status-port", "0",
+         "--job", "csr0=" + csr, "--job", "csr1=" + csr, "--job",
+         "tail=" + csr],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    worker = None
+    try:
+        status_line = disp.stdout.readline().split()
+        addr_line = disp.stdout.readline().split()
+        require(status_line[:1] == ["status"] and addr_line[:1]
+                == ["dispatching"], "(c): dispatch printed %s / %s",
+                status_line, addr_line)
+        address = (addr_line[1], int(addr_line[2]))
+        worker = Worker(address, tmp, "c_worker", dev,
+                        DMLC_TPU_DATA_CACHE_MB=0)
+        worker.serving()
+        got = fleet_fit(kernels, address, dev, "csr", CRITEO_BATCH,
+                        CRITEO_DIM + 1, EPOCHS, None)
+        same_fit_bits("(c) csr fit fed through dispatch --status-port", got,
+                      (paths["csr"]["loss_history"], fit_params["csr"]))
+        require(got[3]["coo_segment_sum"] == csr_steps, "(c): %d launches "
+                "for %d steps", got[3]["coo_segment_sum"], csr_steps)
+        import urllib.request
+
+        url = "http://127.0.0.1:%s/data" % status_line[2]
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            ctype = resp.headers["Content-Type"]
+            data = json.loads(resp.read())
+        require(ctype == "application/json" and data["attached"],
+                "(c): /data %s %s", ctype, data.get("attached"))
+        for job_name in ("csr0", "csr1"):
+            ledger = data["jobs"][job_name]
+            require(ledger["chunks"] == {"total": n, "queued": 0,
+                                         "leased": 0, "delivered": 0,
+                                         "acked": n}
+                    and len(ledger["lease_table"]) == n
+                    and all(row["state"] == "acked"
+                            for row in ledger["lease_table"]),
+                    "(c): job %s ledger %s", job_name, ledger["chunks"])
+        # the third job ends the dispatcher's epoch
+        tail_digest = served_read(address, "tail", dev)[0]
+        out, err = disp.communicate(timeout=RANK_TIMEOUT_S)
+        require(disp.returncode == 0 and "(%d acked" % (3 * n) in out,
+                "(c): dispatch exited %s:\n%s%s", disp.returncode, out, err)
+        served = worker.finish(0)
+    finally:
+        if worker is not None:
+            worker.kill()
+        if disp.poll() is None:
+            _kill_group(disp)
+    parts = 3 * split_parts(csr, n)
+    tokens = served["launches"]["tokenize_boundaries"]
+    require(tokens == parts > 0, "(c): the worker launched the tokenizer "
+            "%d times for %d chunk parts", tokens, parts)
+    report["c"] = {"rows_per_s": EPOCHS * CRITEO_ROWS / got[2],
+                   "fit_seconds": got[2], "worker": served,
+                   "tail_rows_digest": tail_digest,
+                   "phase_seconds": time.perf_counter() - t0}
+    print(json.dumps({"plane_dispatch": report["c"]}), flush=True)
+
+    # (d) --cluster ssh with a fake ssh: one epoch of phase 6's fit
+    t0 = time.perf_counter()
+    bindir = os.path.join(tmp, "fake_bin")
+    os.makedirs(bindir)
+    with open(os.path.join(bindir, "ssh"), "w") as fh:
+        fh.write(FAKE_SSH)
+    os.chmod(os.path.join(bindir, "ssh"), 0o755)
+    hostfile = os.path.join(tmp, "ssh_hosts")
+    with open(hostfile, "w") as fh:
+        fh.write("localhost\n")
+    one_history, one_params, _ = run_fit(csr, "csr", CRITEO_BATCH,
+                                         CRITEO_DIM + 1, dev, epochs=1)
+    job = launch(
+        tmp, "d_ssh", ["--cluster", "ssh", "-n", 1, "-H", hostfile],
+        "--plane-rank", {"file": csr, "epochs": 1, "nccl": False},
+        env={"PATH": bindir + os.pathsep + os.environ.get("PATH", "")})
+    reports, _, seconds = job.finish()
+    rep = dict(reports[0], out=job.out)
+    hold_rank_fit("(d) through --cluster ssh", rep, 1, one_history,
+                  one_params)
+    require(rep["cluster"] == "ssh", "(d): the rank saw cluster %s",
+            rep["cluster"])
+    report["d"] = {"seconds": seconds, "rows_per_s": rep["rows_per_s"],
+                   "launches": {k: rep["launches"][k] for k in (
+                       "coo_segment_sum", "tokenize_boundaries")},
+                   "phase_seconds": time.perf_counter() - t0}
+    print(json.dumps({"plane_ssh": report["d"]}), flush=True)
+
+    # (e) what the plane costs the launched fit: its rank publishing and
+    # not, in turns
+    t0 = time.perf_counter()
+    job = launch(
+        tmp, "e_turns", gpu_args("localhost"), "--plane-rank",
+        {"file": csr, "epochs": EPOCHS, "nccl": True,
+         "turns": list(PLANE_COST_TURNS)}, status=True)
+    reports, _, seconds = job.finish()
+    rep = dict(reports[0], out=job.out)
+    hold_rank_fit("(e)", rep, EPOCHS, paths["csr"]["loss_history"],
+                  fit_params["csr"])
+    turns = {0: [], 1: []}
+    for armed, rows_per_s in zip(PLANE_COST_TURNS, rep["turn_rows_per_s"]):
+        turns[armed].append(rows_per_s)
+    report["e"] = {"rows_per_s_unarmed": turns[0],
+                   "rows_per_s_armed": turns[1],
+                   "armed_vs_unarmed": statistics.mean(turns[1])
+                   / statistics.mean(turns[0]),
+                   "turns": list(PLANE_COST_TURNS), "job_seconds": seconds,
+                   "phase_seconds": time.perf_counter() - t0}
+    print(json.dumps({"plane_cost": report["e"]}), flush=True)
+    return report
+
+
+def plane_summary(card, report) -> dict:
+    """Phase 25's line: rows/s of each launched fit, the crash job against
+    the clean one, the plane's cost in turns."""
+    return {
+        "card": card,
+        "world1_nccl_rows_per_s": report["a"]["rows_per_s"],
+        "profile_seg_sum_kernels": report["a"]["profile_seg_sum_kernels"],
+        "world2_gloo_seconds": {k: report["b"][k]["seconds"]
+                                for k in ("clean", "crash")},
+        "world2_crash_vs_clean": report["b"]["vs_clean"],
+        "dispatch_fit_rows_per_s": report["c"]["rows_per_s"],
+        "dispatch_worker_tokenize_launches":
+            report["c"]["worker"]["launches"]["tokenize_boundaries"],
+        "ssh_rows_per_s": report["d"]["rows_per_s"],
+        "cost": report["e"],
+        "phase_seconds": {k: report[k]["phase_seconds"]
+                          for k in ("a", "b", "c", "d", "e")}}
+
+
 def remote_read_times(dev) -> dict:
     """``--remote-read``: phase 12's file from the fake ``s3://`` and from
     the local disk, in turns, through ``create_input_split`` alone (every
@@ -5739,17 +6302,19 @@ def main() -> int:
         return recover_rank(sys.argv[2])
     if sys.argv[1:2] == ["--moe-rank"] and len(sys.argv) == 4:
         return moe_rank(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--plane-rank"] and len(sys.argv) == 3:
+        return plane_rank(sys.argv[2])
     require(not sys.argv[1:], "unknown arguments %s (only --times and "
             "--remote-read)",
             sys.argv[1:])
-    # phases 5-6 and 12 write their files here, and phases 13-24 read
+    # phases 5-6 and 12 write their files here, and phases 13-25 read
     # them again
     with tempfile.TemporaryDirectory() as fit_dir:
         return smoke(fit_dir)
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-24 (the module docstring), with the fit files in
+    """Phases 1-25 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -6097,6 +6662,15 @@ def smoke(fit_dir: str) -> int:
     lap("24")
     print(json.dumps({"feed_detail": feed}), flush=True)
 
+    # ---- 25. the status plane and the launchers on the card -----------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        plane = drive_status_plane(kernels, dev, fit_files, paths,
+                                   fit_params, recovery, tmp)
+    torch.cuda.synchronize()
+    plane["seconds"] = time.perf_counter() - t0
+    lap("25")
+
     print(json.dumps({"paths": {
         k: {"steps": v["steps"], "seconds": v["seconds"],
             "steps_per_s": v["steps_per_s"], "rows_per_s": v["rows_per_s"],
@@ -6153,11 +6727,6 @@ def smoke(fit_dir: str) -> int:
         "elastic_s": recovery["elastic"]["seconds"],
         "elastic_vs_clean": recovery["elastic"]["vs_clean"],
         "kill_to_replay_s": recovery["elastic"]["kill_to_replay_s"],
-        "device_routes": {b: d["routes"] for b, d in
-                          recovery["device"].items() if isinstance(d, dict)},
-        "device_crash_to_replay_s": {
-            b: d["crash_to_replay_s"] for b, d in
-            recovery["device"].items() if isinstance(d, dict)},
         "phase_seconds": recovery["seconds"]}}))
     print(json.dumps({"moe": moe_summary(card, moe)}))
     print(json.dumps({"pipeline": dict(pipeline, card=card)}))
@@ -6167,6 +6736,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"data_service": data_service_summary(card,
                                                            data_service)}))
     print(json.dumps({"feed": feed_summary(card, feed)}))
+    print(json.dumps({"plane": plane_summary(card, plane)}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

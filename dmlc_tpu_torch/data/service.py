@@ -799,10 +799,18 @@ class BlockService:
         self._hb_stop.set()
         if self._hb_thread is not None:
             self._hb_thread.join(timeout=5)
+        # a close alone does not wake the thread blocked in accept: the
+        # accept thread would outlive the service (one a closed worker),
+        # so the listening socket is shut down first
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
             pass
+        self._accept_thread.join(timeout=5)
         # closing live connections wakes threads blocked in recv — exit is
         # prompt instead of a join-timeout per idle consumer
         for conn in list(self._conns):

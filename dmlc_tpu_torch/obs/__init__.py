@@ -32,8 +32,12 @@ and file formats).
   (io_read/parse/batch/model), epoch self-checks, ``audit-rank<k>.json``
   replay bundles (``DMLC_TPU_AUDIT``)
 
-The reference's ``obs.plane`` (the tracker's HTTP status plane) is not
-ported yet. Metric names follow ``dmlc_<area>_<name>_<unit>``, and every
+- ``obs.plane`` — the job-wide status plane: workers publish payloads on
+  their tracker heartbeats, and the tracker serves them merged over HTTP
+  (``DMLC_TPU_STATUS_PORT``; ``/profile`` captures ``torch.profiler`` in
+  every publishing rank)
+
+Metric names follow ``dmlc_<area>_<name>_<unit>``, and every
 registered name is documented in docs/observability.md
 (``tests/test_torch_metric_names.py``).
 """

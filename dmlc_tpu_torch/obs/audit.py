@@ -25,8 +25,8 @@ idea one level up: content digests at every pipeline stage.
 - **Cross-rank** — :meth:`Auditor.export` is the payload a tracker
   compares; :class:`AuditPlane` merges chains from every (rank, epoch)
   into one reference per (stage, shard) and flags the first forking seq.
-  The reference feeds it from its tracker's status plane, which the port
-  does not have yet: the class is here, its tracker wiring is not.
+  The tracker's status plane (obs/plane.py) feeds it every heartbeat
+  payload's ``audit`` key and serves its view as ``/audit``.
 - **On divergence** — a typed ``audit.divergence`` flight event,
   ``dmlc_audit_divergences_total{stage=}``, and a minimal replay bundle
   ``audit-rank<k>.json`` beside the flightrec dump (shard window, the

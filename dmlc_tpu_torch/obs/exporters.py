@@ -137,9 +137,10 @@ def summary_line(prefix: Optional[str] = None,
 def export_epoch(reg: Optional[Registry] = None,
                  log_prefix: Optional[str] = None) -> str:
     """Epoch-boundary export: write the ``DMLC_TPU_METRICS_EXPORT`` file
-    (if configured), flush the active trace (if any), note the metric
-    deltas in the flight recorder, and return the log-sink summary line (callers decide whether/at what level to log
-    it). Export failures degrade to a summary-only return — telemetry
+    (if configured), flush the active trace (if any), publish an obs
+    heartbeat to the tracker (if running under an armed one), note the
+    metric deltas in the flight recorder, and return the log-sink summary
+    line (callers decide whether/at what level to log it). Export failures degrade to a summary-only return — telemetry
     must never fail a fit loop."""
     reg = reg or registry()
     path = metrics_export_path()
@@ -155,9 +156,10 @@ def export_epoch(reg: Optional[Registry] = None,
         trace.flush()
     except OSError:
         pass
-    # the reference publishes an obs heartbeat to its tracker's status
-    # plane here (obs/plane.py); the port has no status plane yet
-    from dmlc_tpu_torch.obs import flight
+    # the worker side of the status plane: metrics and spans ride a
+    # tracker heartbeat; one cached check outside an armed tracker job
+    from dmlc_tpu_torch.obs import flight, plane
 
+    plane.publish_epoch()
     flight.recorder().note_metrics(reg)
     return summary_line(prefix=log_prefix, reg=reg)

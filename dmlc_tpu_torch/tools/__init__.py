@@ -9,6 +9,8 @@
 | ``dataiter``     | ``tools/dataiter.py``       | RowBlockIter epochs through the feed     |
 | ``dispatch``     | ``tools/dispatch.py``       | the data service's chunk lease tables    |
 | ``filesys``      | ``tools/filesys.py``        | ls / cat / cp over any uri scheme        |
+| ``obs_report``   | ``tools/obs_report.py``     | post-run report: dumps, traces, a plane  |
+| ``obs_top``      | ``tools/obs_top.py``        | live per-rank table of a status server   |
 | ``parity``       | ``tools/parity.py``         | socket-engine world vs one process, ulps |
 | ``parse``        | ``tools/parse.py``          | parser MB/s (libsvm, libfm, csv, ...)    |
 | ``recordio``     | ``tools/recordio.py``       | RecordIO round trip (recordio_test.cc)   |
@@ -19,8 +21,9 @@
 | ``strtonum``     | ``tools/strtonum.py``       | number-scan fuzz against ``float()``     |
 
 Run ``python -m dmlc_tpu_torch.tools <command> [args]`` (or ``python -m
-dmlc_tpu_torch.tools.<module>``); each module's ``main(argv) -> int``
-runs in-process too. The tools that parse text, and ``serve``, take
+dmlc_tpu_torch.tools.<module>``); a command may be spelled with ``-`` for
+``_`` (``obs-report``, ``obs-top``, ``audit-report``, the JAX package's
+names). Each module's ``main(argv) -> int`` runs in-process too. The tools that parse text, and ``serve``, take
 ``--device`` (the card unless ``--device cpu``).
 """
 
@@ -38,6 +41,8 @@ _COMMANDS = {
     "dataiter": "dmlc_tpu_torch.tools.dataiter",
     "dispatch": "dmlc_tpu_torch.tools.dispatch",
     "filesys": "dmlc_tpu_torch.tools.filesys",
+    "obs_report": "dmlc_tpu_torch.tools.obs_report",
+    "obs_top": "dmlc_tpu_torch.tools.obs_top",
     "parity": "dmlc_tpu_torch.tools.parity",
     "parse": "dmlc_tpu_torch.tools.parse",
     "recordio": "dmlc_tpu_torch.tools.recordio",
@@ -57,9 +62,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(__doc__)
         print("commands:", " ".join(sorted(_COMMANDS)))
         return 0 if argv else 2
-    cmd = argv[0]
+    cmd = argv[0].replace("-", "_")
     if cmd not in _COMMANDS:
-        raise DMLCError(f"unknown or unported command {cmd!r}; the port "
+        raise DMLCError(f"unknown or unported command {argv[0]!r}; the port "
                         f"has: {' '.join(sorted(_COMMANDS))}")
     import importlib
 

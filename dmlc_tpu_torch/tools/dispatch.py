@@ -11,7 +11,8 @@ Usage::
 
     python -m dmlc_tpu_torch.tools dispatch <uri> [--nchunks N] [--host H]
         [--port P] [--format auto|libsvm|libfm|csv|recordio]
-        [--lease-s SECS] [--dead-after-s SECS] [--job NAME=URI ...]
+        [--lease-s SECS] [--dead-after-s SECS] [--status-port P]
+        [--job NAME=URI ...]
 
 Prints ``dispatching HOST PORT`` once listening, then blocks until every
 chunk is acked and prints a summary with the requeue count, and one
@@ -20,11 +21,13 @@ more jobs over the same workers (the positional ``uri`` is the
 ``default`` job; ``-`` runs named jobs only); a consumer picks its ledger
 with ``RemoteBlockParser(addr, dispatcher=True, job=NAME)``.
 
+``--status-port`` also serves the live ``/data`` lease view (and the
+status plane's other endpoints) over HTTP (obs/plane.py; 0 = any free
+port, printed as ``status HOST PORT``).
+
 The dispatcher parses nothing and holds no tensor, so it takes no
 device and runs on any host, as the JAX package's does; each ``serve``
-worker takes its own ``--device``. ``--status-port`` (the ``/data`` view
-over HTTP) needs the status plane, which the port does not have yet: it
-raises.
+worker takes its own ``--device``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import sys
 from typing import List, Optional
 
 from dmlc_tpu_torch.data import DataDispatcher
-from dmlc_tpu_torch.utils.logging import DMLCError
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -56,8 +58,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="worker heartbeat-silence death threshold "
                          "(default: DMLC_TPU_DATA_DEAD_S, 10)")
     ap.add_argument("--status-port", type=int, default=None,
-                    help="the /data view over HTTP (needs the status "
-                         "plane, not ported yet)")
+                    help="serve the /data lease view over HTTP on this "
+                         "port (0 = any free port; default: no server)")
     ap.add_argument("--job", action="append", default=[],
                     metavar="NAME=URI",
                     help="register another job over the same workers "
@@ -74,12 +76,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     root_uri = None if args.uri == "-" else args.uri
     if root_uri is None and not jobs:
         ap.error("uri '-' needs at least one --job NAME=URI")
-    if args.status_port is not None:
-        raise DMLCError(
-            "--status-port needs the status plane (obs/plane.py), which "
-            "the port does not have yet; read DataDispatcher.snapshot() "
-            "instead")
-
     disp = DataDispatcher(
         root_uri, nchunks=args.nchunks, host=args.host, port=args.port,
         lease_s=args.lease_s, dead_after_s=args.dead_after_s,
@@ -87,6 +83,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     for name, uri in jobs:
         disp.add_job(name, uri, nchunks=args.nchunks,
                      data_format=args.format)
+    status = None
+    if args.status_port is not None:
+        from dmlc_tpu_torch.obs.plane import StatusPlane, StatusServer
+
+        plane = StatusPlane()
+        disp.attach_plane(plane)
+        status = StatusServer(plane, port=args.status_port)
+        status.start()
+        print(f"status {args.host} {status.port}", flush=True)
     host, port = disp.address
     print(f"dispatching {host} {port}", flush=True)
     try:
@@ -95,6 +100,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         pass
     finally:
         snap = disp.snapshot()
+        if status is not None:
+            status.close()
         disp.close()
     chunks = snap["chunks"]
     print(

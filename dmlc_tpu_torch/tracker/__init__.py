@@ -1,12 +1,15 @@
 """Launch and rendezvous: the rabit tracker (``tracker.rendezvous``: fixed
-worlds, recovery, heartbeats, warm spares and elastic generations), the
-worker-side ``send_heartbeat`` / ``request_join``, and the local launcher
-behind ``python -m dmlc_tpu_torch.tracker.submit`` (``tracker.opts``,
-``tracker.launchers``)."""
+worlds, recovery, heartbeats with the status plane's payloads, warm spares
+and elastic generations), the PS scheduler bootstrap (``PSTracker``), the
+worker-side ``send_heartbeat`` / ``request_join``, the launchers behind
+``python -m dmlc_tpu_torch.tracker.submit`` (``tracker.opts``,
+``tracker.launchers``: local, gpu, ssh, mpi, sge, slurm, yarn, mesos,
+kubernetes) and the in-container shim (``tracker.shim``)."""
 
 from dmlc_tpu_torch.tracker.rendezvous import (
     MAGIC,
     FramedSocket,
+    PSTracker,
     RabitTracker,
     SpareUnused,
     build_link_maps,
@@ -16,6 +19,6 @@ from dmlc_tpu_torch.tracker.rendezvous import (
     submit_with_tracker,
 )
 
-__all__ = ["MAGIC", "FramedSocket", "RabitTracker", "SpareUnused",
+__all__ = ["MAGIC", "FramedSocket", "PSTracker", "RabitTracker", "SpareUnused",
            "build_link_maps", "get_host_ip", "request_join",
            "send_heartbeat", "submit_with_tracker"]

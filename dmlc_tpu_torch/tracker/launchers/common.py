@@ -2,11 +2,13 @@
 ``dmlc_tpu/tracker/launchers/common.py``): every task gets the tracker's
 env, DMLC_TASK_ID / DMLC_ROLE / DMLC_JOB_CLUSTER / DMLC_NUM_ATTEMPT
 (local.py:12-44, ssh.py:55-79) and the submitter's values of
-``PASS_ENV_KEYS`` (ssh.py:26-31)."""
+``PASS_ENV_KEYS`` (ssh.py:26-31); ``export_prefix`` is the shell prefix
+that carries an env to a remote task (ssh.py:72-79)."""
 
 from __future__ import annotations
 
 import os
+import shlex
 from typing import Dict, Optional
 
 #: forwarded from the submitter's environment when set (ssh.py:26-31); the
@@ -40,3 +42,11 @@ def task_env(base_envs: Dict[str, object], task_id: int, role: str,
     if extra:
         env.update(extra)
     return env
+
+
+def export_prefix(env: Dict[str, str]) -> str:
+    """``export k=v; ...`` shell prefix for remote execution
+    (ssh.py:72-79), in key order."""
+    parts = [f"export {k}={shlex.quote(str(v))};"
+             for k, v in sorted(env.items())]
+    return " ".join(parts)

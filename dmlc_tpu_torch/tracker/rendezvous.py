@@ -40,23 +40,36 @@ re-entry is refused and the survivors drain into a smaller world.
 Transitions are kept as membership events (``join``, ``evict``,
 ``rebuild``; :meth:`RabitTracker.membership`) and logged at the job's end.
 
-The status plane of the JAX package (HTTP /workers, obs payloads, the
-profile word) and the PS scheduler are not ported: a heartbeat's second
-ack frame is always 0, "no profile request".
+The status plane (obs/plane.py) rides the same command: with
+``DMLC_TPU_STATUS_PORT`` set the tracker starts an HTTP status server
+(/healthz /workers /metrics /trace /data /goodput /audit /xla /profile),
+advertises ``DMLC_TPU_OBS_PUBLISH`` / ``DMLC_TPU_STATUS_URI`` to its
+workers, feeds the plane the ``PAYLOAD_MARK`` suffix of their heartbeats
+and its membership events, and sends the ``/profile`` request word as the
+heartbeat ack's second frame. With it unset there is no socket and no
+thread: heartbeats go to the shared no-op plane and the word is 0.
+
+:class:`PSTracker` is the parameter-server scheduler bootstrap
+(tracker.py:336-386), the route of :func:`submit_with_tracker` for
+``nserver`` > 0.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import socket
 import struct
+import subprocess
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.obs import flight
+from dmlc_tpu_torch.obs import plane as obs_plane
+from dmlc_tpu_torch.params.env import get_env
 from dmlc_tpu_torch.resilience.faults import InjectedFault, faultpoint
 from dmlc_tpu_torch.resilience.retry import RetryPolicy
 from dmlc_tpu_torch.utils.logging import DMLCError
@@ -294,6 +307,13 @@ def _env_float(name: str, default: float) -> float:
     return float(os.environ.get(name, default))
 
 
+def status_port() -> Optional[int]:
+    """The status server's port (``DMLC_TPU_STATUS_PORT``; 0 = any free
+    port). None, the default, means no server at all."""
+    val = get_env("DMLC_TPU_STATUS_PORT", -1)
+    return None if val < 0 else val
+
+
 class RabitTracker:
     """The rendezvous tracker (tracker.py:137-334): binds the first free
     port in [port, port_end) on ``host_ip``; ``start`` serves rendezvous,
@@ -352,20 +372,59 @@ class RabitTracker:
         self._m_straggler_recoveries = obs.registry().counter(
             "dmlc_tracker_straggler_recoveries_total",
             "flagged stragglers that resumed heartbeating")
+        # the status plane: live only with DMLC_TPU_STATUS_PORT set, else
+        # the shared no-op plane and no HTTP server at all
+        sp = status_port()
+        self.status: Optional[obs_plane.StatusServer] = None
+        if sp is None:
+            self.plane = obs_plane.NOOP_PLANE
+        else:
+            self.plane = obs_plane.StatusPlane(
+                num_workers=num_workers, heartbeat_gap=self.heartbeat_gap)
+            try:
+                self.status = obs_plane.StatusServer(self.plane, port=sp)
+            except OSError:
+                sock.close()
+                raise
+            self.status.start()
+            logger.info("status server on http://%s:%d (/healthz /workers "
+                        "/metrics /trace /data /goodput /audit /xla "
+                        "/profile)", host_ip, self.status.port)
         logger.info("tracker listening on %s:%d", host_ip, self.port)
 
     def worker_envs(self) -> Dict[str, object]:
-        """The env contract handed to workers (tracker.py:177-183)."""
-        return {"DMLC_TRACKER_URI": self.host_ip,
-                "DMLC_TRACKER_PORT": self.port}
+        """The env contract handed to workers (tracker.py:177-183); with
+        the status plane armed, also the order to publish obs payloads and
+        the status server's address."""
+        envs: Dict[str, object] = {"DMLC_TRACKER_URI": self.host_ip,
+                                   "DMLC_TRACKER_PORT": self.port}
+        if self.status is not None:
+            envs["DMLC_TPU_OBS_PUBLISH"] = 1
+            envs["DMLC_TPU_STATUS_URI"] = "%s:%d" % (self.host_ip,
+                                                     self.status.port)
+        return envs
+
+    def attach_data_dispatcher(self, dispatcher) -> None:
+        """Serve a ``DataDispatcher``'s snapshot as this tracker's
+        ``/data`` (a no-op on the no-op plane)."""
+        self.plane.set_data_provider(dispatcher.snapshot)
 
     # ---- heartbeats ------------------------------------------------------
     def _note_heartbeat(self, rank: int, payload: str) -> None:
         """Record a worker's liveness report and flag stragglers: any other
         rank whose last report is older than ``heartbeat_gap`` seconds is
         warned about once a lapse; a flagged rank that reports again is
-        logged as recovered, counted and re-armed."""
-        now = time.time()
+        logged as recovered, counted and re-armed. A ``PAYLOAD_MARK``
+        suffix (obs/plane.py) is split off and fed to the status plane."""
+        recv_unix_ns = time.time_ns()
+        now = recv_unix_ns / 1e9
+        obs_obj = None
+        if obs_plane.PAYLOAD_MARK in payload:
+            payload, _sep, blob = payload.partition(obs_plane.PAYLOAD_MARK)
+            try:
+                obs_obj = json.loads(blob)
+            except ValueError:
+                logger.warning("undecodable obs payload from rank %d", rank)
         with self._hb_lock:
             recovered = rank in self._hb_flagged
             self._last_seen[rank] = now
@@ -385,6 +444,9 @@ class RabitTracker:
             logger.warning("straggler: rank %d last heartbeat %.1fs ago "
                            "(threshold %.1fs); last report: %s", r, gap,
                            self.heartbeat_gap, self._hb_info.get(r, ""))
+        self.plane.note_live(rank, now, payload)
+        if obs_obj is not None:
+            self.plane.note_payload(rank, obs_obj, recv_unix_ns)
 
     def heartbeats(self) -> Dict[int, Tuple[float, str]]:
         """rank → (last seen, unix seconds; last payload line)."""
@@ -396,6 +458,7 @@ class RabitTracker:
     def _note_membership(self, kind: str, **fields) -> None:
         with self._hb_lock:
             self._events.append(dict(fields, kind=kind, at=time.time()))
+        self.plane.note_membership(kind, **fields)
 
     def membership(self) -> List[Dict[str, object]]:
         """The membership events so far, oldest first: dicts with ``kind``
@@ -572,11 +635,12 @@ class RabitTracker:
             elif worker is not None and worker.cmd == "heartbeat":
                 try:
                     payload = worker.conn.recv_str()
-                    # ack first: the target generation, then the JAX
-                    # package's profile-request word (0: none), which a
-                    # worker that does not ask for it never reads
+                    # ack first (the worker's RTT probe must not time the
+                    # parse): the target generation, then the /profile
+                    # request word (0: none), which a worker that does not
+                    # ask for it never reads
                     worker.conn.send_int(self._target_version)
-                    worker.conn.send_int(0)
+                    worker.conn.send_int(self.plane.profile_word())
                     self._note_heartbeat(worker.rank, payload)
                 except (ConnectionError, OSError) as err:
                     logger.warning("heartbeat from %s failed: %s",
@@ -790,9 +854,11 @@ class RabitTracker:
         return self.thread is not None and self.thread.is_alive()
 
     def close(self) -> None:
-        """Close the listening socket; a running accept loop ends within
-        its 0.25 s accept timeout."""
+        """Close the listening socket (a running accept loop ends within
+        its 0.25 s accept timeout) and the status server."""
         self.sock.close()
+        if self.status is not None:
+            self.status.close()
 
 
 def _handshake(conn: FramedSocket, rank: int, world_size: int, jobid: str,
@@ -810,12 +876,18 @@ def _handshake(conn: FramedSocket, rank: int, world_size: int, jobid: str,
 
 def send_heartbeat(tracker_uri: str, tracker_port: int, rank: int,
                    epoch: int = -1, metrics: str = "",
-                   timeout: float = 10.0) -> int:
+                   timeout: float = 10.0, obs_json: Optional[str] = None,
+                   want_profile: bool = False):
     """Worker-side heartbeat: one short connection with cmd="heartbeat"
     and a payload line ``epoch=N [metrics]``. Returns the tracker's ack,
     its target ``world_version``: larger than the engine's generation
     means a membership transition is pending (``collective.elastic_sync``).
-    A tracker before generations acks 0, which means "no change"."""
+    A tracker before generations acks 0, which means "no change".
+
+    ``obs_json`` (``obs.plane.build_payload``) rides the same string frame
+    behind ``PAYLOAD_MARK``. ``want_profile=True`` also reads the ack's
+    second frame, the ``/profile`` request word, and returns ``(ack,
+    word)``; a tracker without that frame reads as word 0."""
     sock = socket.create_connection((tracker_uri, tracker_port),
                                     timeout=timeout)
     conn = FramedSocket(sock)
@@ -824,8 +896,17 @@ def send_heartbeat(tracker_uri: str, tracker_port: int, rank: int,
         payload = f"epoch={epoch}"
         if metrics:
             payload += " " + metrics
+        if obs_json:
+            payload += obs_plane.PAYLOAD_MARK + obs_json
         conn.send_str(payload)
-        return conn.recv_int()
+        ack = conn.recv_int()
+        if not want_profile:
+            return ack
+        try:
+            profile_word = conn.recv_int()
+        except (ConnectionError, OSError, struct.error):
+            profile_word = 0  # a tracker without the second frame
+        return ack, profile_word
     finally:
         conn.close()
 
@@ -877,23 +958,99 @@ def request_join(tracker_uri: str, tracker_port: int, jobid: str = "NULL",
     return generation
 
 
+class PSTracker:
+    """Parameter-server scheduler bootstrap (tracker.py:336-386): runs the
+    command ``cmd`` as DMLC_ROLE=scheduler on a thread and advertises
+    DMLC_PS_ROOT_URI / DMLC_PS_ROOT_PORT (the first free port of [port,
+    port_end)). ``cmd`` None starts nothing and advertises nothing."""
+
+    def __init__(self, host_ip: str, cmd: Optional[str], port: int = 9091,
+                 port_end: int = 9999,
+                 envs: Optional[Dict[str, object]] = None):
+        self.cmd = cmd
+        self.host_ip = host_ip
+        self.port: Optional[int] = None
+        if cmd is None:
+            return
+        for p in range(port, port_end):
+            with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as probe:
+                try:
+                    probe.bind(("", p))
+                except OSError:
+                    continue
+            self.port = p
+            break
+        if self.port is None:
+            raise OSError(f"no free scheduler port in [{port},{port_end})")
+        env = os.environ.copy()
+        env["DMLC_ROLE"] = "scheduler"
+        env["DMLC_PS_ROOT_URI"] = str(host_ip)
+        env["DMLC_PS_ROOT_PORT"] = str(self.port)
+        for k, v in (envs or {}).items():
+            env[k] = str(v)
+        self.thread = threading.Thread(
+            target=lambda: subprocess.check_call(self.cmd, env=env,
+                                                 shell=True),
+            daemon=True, name="ps-scheduler")
+        self.thread.start()
+
+    def worker_envs(self) -> Dict[str, object]:
+        if self.cmd is None:
+            return {}
+        return {"DMLC_PS_ROOT_URI": self.host_ip,
+                "DMLC_PS_ROOT_PORT": self.port}
+
+    def alive(self) -> bool:
+        return self.cmd is not None and self.thread.is_alive()
+
+    def join(self, tasks_alive: Optional[Callable[[], bool]] = None,
+             grace_s: float = 5.0) -> None:
+        """Wait for the scheduler to finish. As :meth:`RabitTracker.join`:
+        once ``tasks_alive`` has reported no live task for ``grace_s``
+        seconds while the scheduler still runs, raise DMLCError (the
+        workers died before registering) instead of waiting for ever."""
+        if self.cmd is None:
+            return
+        deadline = None
+        while self.thread.is_alive():
+            self.thread.join(0.1)
+            if tasks_alive is None or tasks_alive():
+                deadline = None
+                continue
+            now = time.time()
+            if deadline is None:
+                deadline = now + grace_s  # let in-flight exits drain
+            elif now > deadline:
+                raise DMLCError(
+                    "all PS worker processes exited but the scheduler is "
+                    "still running: workers likely died before registering "
+                    "(check their logs)")
+
+
 def submit_with_tracker(nworker: int, nserver: int,
                         fun_submit: Callable[[int, int, Dict[str, object]],
                                              None],
                         host_ip: str = "auto",
+                        pscmd: Optional[str] = None,
                         tasks_alive: Optional[Callable[[], bool]] = None
                         ) -> None:
     """Start a tracker, hand its env to the launcher callback, and wait
     for the job (tracker.py:410-433). ``tasks_alive`` lets a launcher
     that owns the worker processes report their liveness, so a crash
-    before rendezvous ends the job instead of hanging it. Parameter
-    servers (``nserver`` > 0) need the PS scheduler, which is not ported."""
-    if nserver:
-        raise DMLCError("parameter servers (-s > 0) need the PS scheduler, "
-                        "which dmlc_tpu_torch does not port yet")
+    before rendezvous ends the job instead of hanging it. With parameter
+    servers (``nserver`` > 0) the tracker is a :class:`PSTracker` running
+    ``pscmd`` as the scheduler."""
     envs: Dict[str, object] = {"DMLC_NUM_WORKER": nworker,
                                "DMLC_NUM_SERVER": nserver}
-    tracker = RabitTracker(host_ip=get_host_ip(host_ip), num_workers=nworker)
+    ip = get_host_ip(host_ip)
+    if nserver:
+        ps = PSTracker(host_ip=ip, cmd=pscmd, envs=envs)
+        envs.update(ps.worker_envs())
+        if ps.alive() or pscmd is None:
+            fun_submit(nworker, nserver, envs)
+        ps.join(tasks_alive=tasks_alive)
+        return
+    tracker = RabitTracker(host_ip=ip, num_workers=nworker)
     try:
         envs.update(tracker.worker_envs())
         tracker.start(nworker)

@@ -3,10 +3,14 @@
 and hands the options to the cluster's launcher (submit.py:43-56).
 
     python -m dmlc_tpu_torch.tracker.submit --cluster local -n 2 \\
-        [--max-attempts 2] [--elastic --spares 1] python train.py ...
+        [--max-attempts 2] [--elastic --spares 1] [--status-port P] \\
+        python train.py ...
 
-``--elastic`` sets DMLC_TPU_ELASTIC for the tracker and, through the
-inherited env, for every task.
+The clusters: ``local``, ``gpu`` (one process per card, ``--gpu-hosts``),
+``ssh``, ``mpi``, ``sge``, ``slurm``, ``yarn``, ``mesos``, ``kubernetes``.
+``--status-port`` sets DMLC_TPU_STATUS_PORT, which arms the tracker's
+status plane (obs/plane.py); ``--elastic`` sets DMLC_TPU_ELASTIC for the
+tracker and, through the inherited env, for every task.
 """
 
 from __future__ import annotations
@@ -30,6 +34,9 @@ def config_logger(args) -> None:
 
 
 def submit(args) -> None:
+    # the tracker is built deep inside the launcher: it reads the env
+    if args.status_port is not None:
+        os.environ["DMLC_TPU_STATUS_PORT"] = str(args.status_port)
     if args.elastic:
         os.environ["DMLC_TPU_ELASTIC"] = "1"
     get_launcher(args.cluster).submit(args)
@@ -38,7 +45,6 @@ def submit(args) -> None:
 def main(argv=None) -> None:
     try:
         args = get_opts(argv)
-        get_launcher(args.cluster)  # an unported cluster fails here
     except ValueError as err:
         print(f"dmlc_tpu_torch.tracker.submit: {err}", file=sys.stderr)
         raise SystemExit(2)

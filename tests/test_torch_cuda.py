@@ -752,3 +752,47 @@ def test_the_card_feed_at_every_depth_is_the_cpu_feed(cuda, tmp_path,
         extra = 0 if layout == "dense" else 2
         assert pool["allocated"] <= arrays * (depth + window + 3) + extra
         assert pool["allocated"] + pool["reused"] == arrays * len(got)
+
+
+def test_profile_request_on_the_heartbeat_captures_coo_segment_sum(
+        cuda, tmp_path, monkeypatch):
+    """A status plane's /profile request reaches a publisher on its
+    heartbeat ack; the torch.profiler window it starts holds the csr
+    step's coo_segment_sum kernel."""
+    import json
+    import time
+    import urllib.request
+
+    from dmlc_tpu_torch.obs import flight, plane
+    from dmlc_tpu_torch.tracker.rendezvous import RabitTracker
+
+    monkeypatch.setenv("DMLC_TPU_STATUS_PORT", "0")
+    monkeypatch.delenv("DMLC_TASK_ID", raising=False)
+    path = _write_svm(tmp_path / "d.svm", 1000)
+    flight.configure(str(tmp_path), install=False)
+    tracker = RabitTracker("127.0.0.1", 1, port=21990, port_end=22000)
+    pub = None
+    try:
+        tracker.start(1)
+        pub = plane.ObsPublisher("127.0.0.1", tracker.port, rank=0)
+        url = "http://127.0.0.1:%d/profile?seconds=2" % tracker.status.port
+        with urllib.request.urlopen(url, timeout=10) as resp:
+            assert json.loads(resp.read())["profile_req"] == 1
+        assert pub.publish(epoch=1) is True  # the ack starts the window
+        kernels.reset_launch_counts()
+        LinearLearner(objective="logistic").fit_uri(
+            path, batch_size=128, epochs=2, layout="csr", num_features=30)
+        torch.cuda.synchronize()
+        assert kernels.KERNELS["coo_segment_sum"].launches == 16
+        out = tmp_path / "profile-rank0-req1" / "trace.json"
+        deadline = time.time() + 60
+        while not out.exists() and time.time() < deadline:
+            time.sleep(0.1)
+        events = json.loads(out.read_text())["traceEvents"]
+    finally:
+        if pub is not None:
+            pub.close()
+        tracker.close()
+        flight.reset()
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    assert any("seg_sum_kernel" in n for n in names), sorted(names)[:20]

@@ -4,8 +4,9 @@ dispatcher.py``) on the CPU: the cases of the JAX package's
 exactly-once state machine, worker liveness, requeues, jobs, fair share,
 quotas, drains, cache-aware grants, the CLIs), then the port held against
 the JAX package: the wire both ways, a worker crash mid-epoch, the fleet
-on the card's device rule. The status plane and ``obs-report`` cases wait
-for those modules. Every socket binds port 0.
+on the card's device rule, and ``/data`` through the status plane
+(``dispatch --status-port``, the port's plane against the JAX package's).
+Every socket binds port 0.
 """
 
 import json
@@ -942,11 +943,105 @@ def test_the_fleet_refuses_a_missing_card(svm_file, monkeypatch):
 
 
 def test_dispatch_status_port_waits_for_the_status_plane(svm_file):
-    from dmlc_tpu_torch.tools import dispatch
-    from dmlc_tpu_torch.utils.logging import DMLCError
+    """``dispatch --status-port 0`` serves the live ``/data`` lease view
+    (the status plane's other endpoints too) while it dispatches, then
+    ends when every chunk is acked."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    import urllib.request
 
-    with pytest.raises(DMLCError, match="status plane"):
-        dispatch.main([svm_file, "--status-port", "0"])
+    root = pathlib.Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_tpu_torch.tools", "dispatch", svm_file,
+         "--nchunks", "3", "--host", "127.0.0.1", "--status-port", "0",
+         "--lease-s", "1", "--dead-after-s", "1"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        status = proc.stdout.readline().split()
+        addr = proc.stdout.readline().split()
+        assert status[0] == "status" and addr[0] == "dispatching", (
+            status, addr)
+        url = f"http://127.0.0.1:{status[2]}"
+        disp = (addr[1], int(addr[2]))
+
+        def get(path):
+            with urllib.request.urlopen(url + path, timeout=10) as resp:
+                return resp.headers["Content-Type"], resp.read()
+
+        ctype, body = get("/data")
+        view = json.loads(body)
+        assert ctype == "application/json" and view["attached"] is True
+        assert view["chunks"]["total"] == 3 and view["chunks"]["queued"] == 3
+        cli = DispatcherClient(disp)
+        wid = cli.call({"op": "register",
+                        "addr": ("127.0.0.1", 7)})["worker_id"]
+        cli.call({"op": "lease", "worker": wid})
+        view = json.loads(get("/data")[1])
+        assert view["chunks"]["leased"] == 1
+        assert view["workers"][str(wid)]["leased"] == 1
+        assert len(view["lease_table"]) == 3
+        assert json.loads(get("/healthz")[1])["status"] == "ok"
+        cli.close()
+        # a real worker and consumer finish the epoch; the silent fake
+        # worker's lease requeues
+        with BlockService(dispatcher=disp, nthread=1, device="cpu"):
+            parser = RemoteBlockParser(disp, dispatcher=True, device="cpu")
+            rows = sum(len(b.offset) - 1 for b in parser)
+            parser.close()
+            out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert rows == ROWS
+    assert proc.returncode == 0, err
+    assert "dispatched 3 chunks (3 acked" in out
+
+
+def test_data_endpoint_matches_the_reference_plane(svm_file):
+    """One dispatcher behind a port and a reference status server: the
+    two ``/data`` bodies are equal, before any attach and after a lease."""
+    import urllib.request
+
+    from dmlc_tpu.obs.plane import StatusPlane as RefPlane
+    from dmlc_tpu.obs.plane import StatusServer as RefServer
+    from dmlc_tpu_torch.obs.plane import StatusPlane, StatusServer
+
+    planes = (StatusPlane(), RefPlane())
+    servers = (StatusServer(planes[0], port=0), RefServer(planes[1], port=0))
+    for srv in servers:
+        srv.start()
+
+    def views():
+        out = []
+        for srv in servers:
+            url = f"http://127.0.0.1:{srv.port}/data"
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                out.append(json.loads(resp.read()))
+        return out
+
+    try:
+        assert views() == [{"attached": False}] * 2
+        with DataDispatcher(svm_file, nchunks=3, plane=planes[0]) as d:
+            d.attach_plane(planes[1])
+            cli = DispatcherClient(d.address)
+            wid = cli.call({"op": "register",
+                            "addr": ("127.0.0.1", 7)})["worker_id"]
+            cli.call({"op": "lease", "worker": wid})
+            got, want = views()
+            cli.close()
+        for view in (got, want):
+            for w in view["workers"].values():
+                w.pop("lag_s")
+        assert got == want
+        assert got["chunks"] == {"total": 3, "queued": 2, "leased": 1,
+                                 "delivered": 0, "acked": 0}
+    finally:
+        for srv in servers:
+            srv.close()
 
 
 def test_attach_plane_hands_over_the_snapshot(svm_file):

@@ -63,10 +63,9 @@ def test_every_env_name_is_a_known_knob(lint):
     assert unknown == [], {k: knobs[k] for k in unknown}
 
 
-# the status plane and its two HTTP readers are not ported yet (ROADMAP
-# queue 1 item 5); no other reference module registers a metric the port
-# leaves out
-NOT_PORTED = ("obs/plane.py", "tools/obs_top.py", "tools/obs_report.py")
+# every reference module that registers a metric is ported, the status
+# plane and its two HTTP readers included
+NOT_PORTED = ()
 
 
 def _registered(pkg, skip=()):

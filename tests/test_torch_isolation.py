@@ -142,8 +142,8 @@ split.close()
 assert shard.cache_token(dtsh, "shard")[0] == shard.SHARD_FORMAT_VERSION
 assert sorted(tools._COMMANDS) == [
     "audit_report", "bake", "bench_gate", "dataiter", "dispatch", "filesys",
-    "parity", "parse", "recordio", "rowrec", "serve", "split_read",
-    "stream_read", "strtonum"]
+    "obs_report", "obs_top", "parity", "parse", "recordio", "rowrec",
+    "serve", "split_read", "stream_read", "strtonum"]
 # the remote filesystems: a parser read and a csr fit from a fake s3://,
 # the fit's snapshot and the model written there too
 import dmlc_tpu_torch.io.azure
@@ -208,6 +208,44 @@ assert dataiter.main([sys.argv[1], "--batch-size", "4", "--device",
 assert split_read.main([sys.argv[1], "0", "1"]) == 0
 assert strtonum.main(["--n", "200", "--device", "cpu"]) == 0
 assert bench_gate.main(["--smoke"]) == 0
+# the status plane armed: a tracker with its HTTP server, a csr fit that
+# publishes at each epoch, the obs tools against the live server, a
+# dispatcher behind a plane, every launcher and the shim
+import urllib.request
+from dmlc_tpu_torch.obs import plane
+from dmlc_tpu_torch.tools import obs_report, obs_top
+from dmlc_tpu_torch.tracker import PSTracker, shim
+from dmlc_tpu_torch.tracker.launchers import (gpu, kubernetes, mesos, mpi,
+                                              sge, slurm, ssh, yarn,
+                                              yarn_controller)
+os.environ["DMLC_TPU_STATUS_PORT"] = "0"
+armed = RabitTracker("127.0.0.1", 1, port=21400, port_end=21500)
+assert armed.status is not None
+armed.start(1)
+for key, value in armed.worker_envs().items():
+    os.environ[key] = str(value)
+os.environ["DMLC_TASK_ID"] = "0"
+plane.reset_default_publisher()
+assert len(LinearLearner(device="cpu").fit_uri(
+    sys.argv[1], batch_size=4, epochs=2, layout="csr", num_features=8,
+    part_index=0, num_parts=1)) == 2
+import time
+deadline = time.time() + 30  # the tracker acks a heartbeat, then reads it
+while (armed.plane.workers().get("0", {}).get("payloads", 0) < 2
+       and time.time() < deadline):
+    time.sleep(0.05)
+assert armed.plane.workers()["0"]["payloads"] == 2
+status_uri = os.environ["DMLC_TPU_STATUS_URI"]
+assert obs_top.main(["--once", "--status", status_uri]) == 0
+assert obs_report.main(["--status", status_uri, "--top"]) == 0
+with DataDispatcher(sys.argv[1], nchunks=3) as disp:
+    armed.attach_data_dispatcher(disp)
+    with urllib.request.urlopen("http://%s/data" % status_uri) as resp:
+        assert b'"attached": true' in resp.read()
+assert gpu.plan(opts.get_opts(["--cluster", "gpu", "-n", "1", "x"]), 1, 0,
+                {})[0][3]["CUDA_VISIBLE_DEVICES"] == "0"
+plane.reset_default_publisher()
+armed.close()
 loaded = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "dmlc_tpu")

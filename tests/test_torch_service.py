@@ -659,3 +659,82 @@ def test_chunks_without_rows_are_acked_at_once(tmp_path):
             feed.close()
             assert d.join(timeout=10), d.snapshot()
     assert rows == 2  # the third row falls in the dropped remainder
+
+
+def _open_sockets() -> int:
+    """The process's open sockets (``/proc/self/fd`` links ``socket:``)."""
+    import os
+
+    count = 0
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            if os.readlink(f"/proc/self/fd/{fd}").startswith("socket:"):
+                count += 1
+        except OSError:
+            pass  # closed while listed
+    return count
+
+
+def _settled(before_threads, before_sockets, timeout=10.0):
+    """(live threads not in ``before_threads``, open sockets) once both
+    are back to ``before`` or ``timeout`` passed: closing threads may
+    take a poll interval to end."""
+    deadline = time.monotonic() + timeout
+    while True:
+        extra = [t for t in threading.enumerate()
+                 if t not in before_threads and t.is_alive()]
+        sockets = _open_sockets()
+        if (not extra and sockets <= before_sockets) \
+                or time.monotonic() > deadline:
+            return extra, sockets
+        time.sleep(0.05)
+
+
+@pytest.mark.parametrize("with_plane", [False, True],
+                         ids=["bare", "plane"])
+def test_a_closed_fleet_leaves_nothing_behind(tmp_path, with_plane):
+    """A dispatcher, two workers and a fleet-fed fit, all closed, leave
+    no thread and no socket of theirs in the process, also with the
+    status plane attached to the dispatcher and its server polled (a
+    second round of fleets in one process must start from a clean
+    process)."""
+    import json
+    import urllib.request
+
+    from dmlc_tpu_torch.data import DataDispatcher
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner
+    from dmlc_tpu_torch.obs.plane import StatusPlane, StatusServer
+
+    path = _fit_file(tmp_path)
+    before_threads = set(threading.enumerate())
+    before_sockets = _open_sockets()
+    for _round in range(2):
+        status = None
+        with DataDispatcher(path, nchunks=4) as d:
+            if with_plane:
+                plane = StatusPlane()
+                d.attach_plane(plane)
+                status = StatusServer(plane, port=0)
+                status.start()
+            workers = [BlockService(dispatcher=d.address, nthread=1,
+                                    device="cpu") for _ in range(2)]
+            feed = DeviceFeed(
+                RemoteBlockParser(d.address, dispatcher=True, device="cpu"),
+                BatchSpec(batch_size=64, layout="csr", num_features=FIT_NF),
+                device="cpu")
+            assert len(LinearLearner(device="cpu", **HYPER).fit_feed(
+                feed)) == 1
+            feed.close()
+            assert d.join(timeout=30), d.snapshot()
+            if status is not None:
+                url = "http://127.0.0.1:%d/data" % status.port
+                with urllib.request.urlopen(url, timeout=10) as resp:
+                    view = json.loads(resp.read())
+                assert view["attached"] and view["chunks"]["acked"] == 4
+                status.close()
+            for w in workers:
+                w.close()
+        extra, sockets = _settled(before_threads, before_sockets)
+        assert extra == [], [t.name for t in extra]
+        assert sockets == before_sockets

@@ -4,9 +4,14 @@
 
 - ``task_env`` gives the JAX package's env for a task, without the
   JAX-only forwarded settings;
-- ``get_opts`` parses the ported options to the JAX package's values and
-  defaults, and fails where it fails;
-- a cluster that is not ported raises;
+- ``get_opts`` parses the options to the JAX package's values and
+  defaults, and fails where it fails; ``build_parser`` has every flag of
+  the reference's under the same name and default, but the ``tpu`` names,
+  which are ``gpu`` here; ``get_memory_mb`` and ``get_cache_file_set``;
+- every cluster of ``CLUSTERS`` has a launcher, an unknown one raises;
+- ``--status-port`` arms the tracker's status plane;
+- parameter servers run under ``PSTracker``: its scheduler command, the
+  workers' env, and the fail-fast when every worker died;
 - a task that exits with ``EXIT_PREEMPTED`` (75) is relaunched without
   spending an attempt, up to ``MAX_PREEMPT_RELAUNCHES``;
 - a warm spare the job never calls up exits 0.
@@ -83,7 +88,8 @@ def test_get_opts_defaults_match_reference(monkeypatch):
     assert (got.cluster, got.num_servers, got.max_attempts, got.spares,
             got.elastic, got.log_level) == ("local", 0, None, 0, False,
                                             "INFO")
-    assert opts.CLUSTERS == ref_opts.CLUSTERS
+    assert opts.CLUSTERS == tuple("gpu" if c == "tpu" else c
+                                  for c in ref_opts.CLUSTERS)
 
 
 @pytest.mark.parametrize("argv,error", [
@@ -103,20 +109,37 @@ def test_get_opts_errors_match_reference(monkeypatch, argv, error):
 
 @pytest.mark.parametrize("cluster", ["ssh", "mpi", "slurm", "tpu"])
 def test_cluster_not_ported_raises(cluster, capsys):
-    with pytest.raises(ValueError, match="not ported"):
-        get_launcher(cluster)
-    with pytest.raises(SystemExit) as exc:
-        main(["--cluster", cluster, "-n", "1", "true"])
-    assert exc.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    """Every cluster of ``CLUSTERS`` is ported now; the JAX package's
+    ``tpu`` is the one name the port does not know (its ``gpu``)."""
+    if cluster == "tpu":
+        with pytest.raises(ValueError, match="unknown cluster"):
+            get_launcher(cluster)
+        with pytest.raises(SystemExit) as exc:
+            main(["--cluster", cluster, "-n", "1", "true"])
+        assert exc.value.code == 2
+        assert "invalid choice: 'tpu'" in capsys.readouterr().err
+    else:
+        mod = get_launcher(cluster)
+        assert mod.__name__ == f"dmlc_tpu_torch.tracker.launchers.{cluster}"
+        assert callable(mod.submit)
     assert get_launcher("local") is local
+    assert [get_launcher(c).__name__.rsplit(".", 1)[1]
+            for c in opts.CLUSTERS] == list(opts.CLUSTERS)
 
 
-def test_parameter_servers_are_not_ported():
-    args = opts.get_opts(["--cluster", "local", "-n", "1", "-s", "1",
-                          "true"])
-    with pytest.raises(DMLCError, match="PS scheduler"):
-        local.submit(args)
+def test_parameter_servers_are_not_ported(tmp_path):
+    """``-s`` > 0 now runs under ``PSTracker``: with no scheduler command
+    the local launcher starts the workers and the servers with the PS
+    env (no rabit tracker), each with its role and id."""
+    out = tmp_path / "roles"
+    args = opts.get_opts([
+        "--cluster", "local", "-n", "2", "-s", "1", "--host-ip",
+        "127.0.0.1", "sh", "-c",
+        f"'echo $DMLC_ROLE $DMLC_TASK_ID $DMLC_NUM_SERVER "
+        f"${{DMLC_TRACKER_URI:-none}} >> {out}'"])
+    local.submit(args)
+    assert sorted(out.read_text().splitlines()) == [
+        "server 0 1 none", "worker 0 1 none", "worker 1 1 none"]
 
 
 # a worker that exits 75 (preempted) until its count file has N lines,
@@ -202,3 +225,120 @@ def test_spare_never_called_up_exits_zero(tmp_path):
     assert "never activated" in out
     assert "exited" not in out  # the spare spent no attempt
     assert "events=rebuild,join" in out or "events=join,rebuild" in out
+
+
+def _flags(parser):
+    """option string -> (dest, default, choices) of every optional flag."""
+    return {o: (a.dest, a.default, a.choices)
+            for a in parser._actions for o in a.option_strings
+            if o not in ("-h", "--help")}
+
+
+def test_build_parser_matches_the_reference_but_the_gpu_names():
+    got, want = _flags(opts.build_parser()), _flags(ref_opts.build_parser())
+    renamed = {"--tpu-hosts": "--gpu-hosts",
+               "--tpu-coordinator-port": "--gpu-coordinator-port"}
+    for flag, (dest, default, choices) in want.items():
+        port_flag = renamed.get(flag, flag)
+        assert port_flag in got, flag
+        gdest, gdefault, gchoices = got[port_flag]
+        assert gdefault == default, flag
+        if flag == "--cluster":
+            assert list(gchoices) == ["gpu" if c == "tpu" else c
+                                      for c in choices]
+        else:
+            assert gchoices == choices, flag
+            assert gdest == dest.replace("tpu_", "gpu_"), flag
+    # the one flag of the port's own: the card a host entry sees
+    assert set(got) - {renamed.get(f, f) for f in want} \
+        == {"--gpus-per-host"}
+    assert got["--gpus-per-host"][1] == 1
+    assert got["--gpu-coordinator-port"][1] == 8476
+
+
+@pytest.mark.parametrize("text,mb", [("1g", 1024), ("512m", 512),
+                                      ("2048", 2048), ("1.5g", 1536),
+                                      (" 3G ", 3072)])
+def test_get_memory_mb_matches_reference(text, mb):
+    assert opts.get_memory_mb(text) == ref_opts.get_memory_mb(text) == mb
+
+
+@pytest.mark.parametrize("auto", ["1", "0"])
+def test_get_cache_file_set_matches_reference(tmp_path, auto):
+    script = tmp_path / "train.py"
+    script.write_text("print('hi')\n")
+    data = tmp_path / "data.txt"
+    data.write_text("x\n")
+    argv = ["--cluster", "yarn", "-n", "1", "--auto-file-cache", auto,
+            "--files", "extra.cfg", str(script), str(data), "--lr=1",
+            str(tmp_path)]
+    got = opts.get_cache_file_set(opts.get_opts(argv))
+    want = ref_opts.get_cache_file_set(ref_opts.get_opts(argv))
+    assert got == want
+    if auto == "1":
+        assert got[1] == ["python train.py", "./data.txt", "--lr=1",
+                          str(tmp_path)]
+        assert got[0] == {"extra.cfg", str(script), str(data)}
+
+
+def test_status_port_arms_the_tracker(tmp_path, monkeypatch):
+    """``--status-port`` sets DMLC_TPU_STATUS_PORT for the tracker, which
+    then advertises the status server to its workers."""
+    from dmlc_tpu_torch.tracker import submit as submit_mod
+
+    # set, then unset: the monkeypatch restores the variable's absence
+    # after submit() sets it
+    monkeypatch.setenv("DMLC_TPU_STATUS_PORT", "-1")
+    monkeypatch.delenv("DMLC_TPU_STATUS_PORT")
+    out = tmp_path / "env"
+    script = tmp_path / "worker.py"
+    script.write_text(textwrap.dedent(f"""
+        import os, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        from dmlc_tpu_torch import collective
+        collective.init()
+        with open({str(out)!r}, "w") as fh:
+            fh.write(os.environ["DMLC_TPU_STATUS_URI"] + " "
+                     + os.environ["DMLC_TPU_OBS_PUBLISH"])
+        collective.finalize()
+    """))
+    args = opts.get_opts(["--cluster", "local", "-n", "1", "--host-ip",
+                          "127.0.0.1", "--status-port", "0",
+                          sys.executable, str(script)])
+    assert args.status_port == 0
+    submit_mod.submit(args)
+    assert os.environ["DMLC_TPU_STATUS_PORT"] == "0"
+    uri, publish = out.read_text().split()
+    assert uri.startswith("127.0.0.1:") and int(uri.split(":")[1]) > 0
+    assert publish == "1"
+
+
+def test_ps_tracker_runs_the_scheduler_and_fails_fast(tmp_path):
+    from dmlc_tpu_torch.tracker.rendezvous import (PSTracker,
+                                                    submit_with_tracker)
+
+    out = tmp_path / "sched"
+    seen = {}
+
+    def fun_submit(nworker, nserver, envs):
+        seen.update(envs, n=(nworker, nserver))
+
+    submit_with_tracker(
+        1, 1, fun_submit, host_ip="127.0.0.1",
+        # a scheduler that runs until its workers have been launched
+        # (submit_with_tracker launches them only while it is alive)
+        pscmd=f"echo $DMLC_ROLE $DMLC_PS_ROOT_URI $DMLC_PS_ROOT_PORT "
+              f"$DMLC_NUM_WORKER > {out}; sleep 1")
+    role, uri, port, nworker = out.read_text().split()
+    assert (role, uri, nworker) == ("scheduler", "127.0.0.1", "1")
+    assert seen["DMLC_PS_ROOT_URI"] == "127.0.0.1"
+    assert seen["DMLC_PS_ROOT_PORT"] == int(port)
+    assert seen["n"] == (1, 1) and seen["DMLC_NUM_SERVER"] == 1
+    # a scheduler that outlives every worker: the job fails fast
+    ps = PSTracker("127.0.0.1", "sleep 3", port=21960, port_end=21980)
+    assert ps.alive()
+    assert ps.worker_envs()["DMLC_PS_ROOT_PORT"] in range(21960, 21980)
+    with pytest.raises(DMLCError, match="scheduler is still running"):
+        ps.join(tasks_alive=lambda: False, grace_s=0.2)
+    ps.join()  # the scheduler's own end
+    assert PSTracker("127.0.0.1", None).worker_envs() == {}

@@ -106,17 +106,21 @@ def test_rowrec_cli_writes_what_the_library_writes(tmp_path):
 
 def test_dispatcher_names_the_ported_commands(capsys):
     names = ("audit_report bake bench_gate dataiter dispatch filesys "
-             "parity parse recordio rowrec serve split_read stream_read "
-             "strtonum")
+             "obs_report obs_top parity parse recordio rowrec serve "
+             "split_read stream_read strtonum")
     assert sorted(tools._COMMANDS) == names.split()
     assert tools.main(["--help"]) == 0
     assert names in capsys.readouterr().out
     assert tools.main([]) == 2
     with pytest.raises(DMLCError, match=names):
-        tools.main(["obs_top", "x"])
-    out = _run("obs-report")
+        tools.main(["obs_nope", "x"])
+    out = _run("no-such-tool")
     assert out.returncode != 0
     assert "the port has: " + names in out.stderr
+    # the JAX package's spellings name the same modules
+    out = _run("obs-report")
+    assert out.returncode == 2
+    assert "nothing to report" in out.stderr
 
 
 def test_parity_runs_through_the_dispatcher_and_its_module():

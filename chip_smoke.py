@@ -22,7 +22,11 @@ non-zero exit and no result line:
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a)
    and print ptxas's registers and spills of each kernel; every flash
-   kernel and ``fused_linear_grads`` must show 0 spill bytes;
+   kernel (``flash_fwd_kernel`` and ``flash_bwd_kernel``, each at D 32, 64
+   and 128, causal or not) and ``fused_linear_grads`` must show 0 spill
+   bytes; where the toolkit has ``cuobjdump``, the warpgroup products
+   (``HGMMA``) in each ``flash_bwd_kernel`` variant's SASS are counted and
+   must be there;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
    [16384, 29] (HIGGS), a ragged [1000, 29] and a wide [4096, 2048]:
    integer-valued data with the squared and hinge objectives must match bit
@@ -63,7 +67,7 @@ non-zero exit and no result line:
    the one PyTorch call that computes the same function where there is
    one, beside the least time the card could take (``fused_linear_grads``'s
    row carries the floor as ``launch_floor_ms``);
-8. the flash-attention kernels (forward, dQ, dK/dV) against their plain
+8. the flash-attention kernels (forward and backward) against their plain
    version with autograd at the (B, T, H, Hkv, D, causal) of
    ``FLASH_CASES`` (T 4096 at D 128 MHA and GQA, a ragged T = 1000, D 32,
    MQA at T = 33): outputs and the row logsumexp within rtol 2e-4 /
@@ -86,18 +90,20 @@ non-zero exit and no result line:
    backward faults of phase 8, run through the same schedule, fail those
    limits; one step at T = 32768, where the scores alone would take 34 GB;
    the ring schedule at world 1 matches ``full_attention`` at T = 4096;
-10. at the path's shape (1, 16384, 8, 8, 128, causal): the three flash
+10. at the path's shape (1, 16384, 8, 8, 128, causal): the two flash
    kernels held against the plain version on the same inputs (the
    ``max_abs_err`` of their rows) and the one-TF32-pass faults read there,
    and their times beside the plain version's,
    ``scaled_dot_product_attention``'s (its backward alone for the
-   backward rows) and their bound. Every flash row's ``bound_ms`` is the
+   backward row) and their bound. Every flash row's ``bound_ms`` is the
    kernels' tensor-core route (3 TF32 products per f32 product at 495
-   TFLOP/s), with the f32 CUDA-core figure under
-   ``f32_cuda_core_bound_ms``. ``flash_timing_extra`` adds ``port_bwd_ms``
-   (delta and both kernels, as the autograd Function runs them) beside
-   ``sdpa_bwd_ms``, ``kernels_bwd_ms`` and ``sdpa_backend``, which an
-   earlier ``sdpa_backend`` line names from the kernels of one
+   TFLOP/s; the backward's five products), with the f32 CUDA-core figure
+   under ``f32_cuda_core_bound_ms``. One call of the backward wrapper must
+   run exactly one kernel (``flash_bwd_kernel``) and no memset, counted as
+   phase 7 counts (``flash_bwd_device_ops``). ``flash_timing_extra`` adds
+   ``port_bwd_ms`` (delta and the kernel, as the autograd Function runs
+   them) beside ``sdpa_bwd_ms``, ``kernels_bwd_ms`` and ``sdpa_backend``,
+   which an earlier ``sdpa_backend`` line names from the kernels of one
    torch.profiler step;
 11. ``tokenize_boundaries`` against its plain version on the card, masks
    equal bit for bit: the sizes of ``TOKEN_SIZES`` (ragged n, separators
@@ -368,7 +374,7 @@ non-zero exit and no result line:
    and ``DMLC_TPU_AUDIT=full``: phase 6's csr fit over a one-rank NCCL
    group from the launcher's coordinator; while it runs every endpoint
    of the plane answers 200 with its content type (an unknown path 404),
-   ``/profile?seconds=1`` sent before its first heartbeat makes the rank
+   ``/profile?seconds=3`` sent before its first heartbeat makes the rank
    capture ``torch.profiler`` at its first epoch boundary, and the
    window's trace must hold ``coo_segment_sum``'s CUDA kernel; /workers,
    the merged /trace and /metrics show the rank, /audit has no fork,
@@ -407,8 +413,10 @@ path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
 ``data_service`` line (phase 23), the ``feed`` line (phase 24), the
-``plane`` line (phase 25) and ``phase_seconds`` (each phase's wall
-seconds); the last lines are the
+``plane`` line (phase 25), the ``fleet_rounds`` line (the fleet-fed csr
+fit's consumer in phases 23, 24 (b) and 25 (c), three fleet rounds of one
+process: each epoch's feed stage times and fetch seconds) and
+``phase_seconds`` (each phase's wall seconds); the last lines are the
 ``kernels`` line, the card line again, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -755,6 +763,33 @@ def ptxas_spills(log: str) -> dict:
                                 if w == "spill")
             entry = None
     return spills
+
+
+def sass_hgmma(library: str):
+    """{kernel entry (mangled): HGMMA instructions} of every
+    ``flash_bwd_kernel`` variant in ``cuobjdump -sass`` of the kernels'
+    library: the warpgroup products the build kept. None where the toolkit
+    has no cuobjdump."""
+    import shutil
+    import subprocess
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          timeout=300).stdout
+    counts, entry = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            entry = line.split("Function :", 1)[1].strip()
+            if "flash_bwd_kernel" in entry:
+                counts[entry] = 0
+            else:
+                entry = None
+        elif entry is not None and "HGMMA" in line:
+            counts[entry] += 1
+    return counts
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple:
@@ -1126,7 +1161,7 @@ def randn(gen, shape, dev, grad=False):
 
 
 def flash_kernels(q, k, v, dout, causal):
-    """(out, lse, dq, dk, dv) from the three flash kernels."""
+    """(out, lse, dq, dk, dv) from the two flash kernels."""
     from dmlc_tpu_torch.ops import kernels
     from dmlc_tpu_torch.ops.flash_attention import flash_attention_bwd
 
@@ -1342,8 +1377,7 @@ def drive_attention(kernels, dev, group):
     out, grads, times = attention_steps(flash, q, k, v, PATH_STEPS)
     launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
         require(launches[name] == PATH_STEPS,
                 "attention path: %s launched %d times in %d steps", name,
                 launches[name], PATH_STEPS)
@@ -1429,10 +1463,11 @@ def sdpa_backend(fn) -> dict:
 
 
 def flash_timing_rows(kernels, dev, launches):
-    """Phase 10: the three flash kernels at the path's shape, held against
+    """Phase 10: the two flash kernels at the path's shape, held against
     the plain version on the same inputs and timed beside it,
     scaled_dot_product_attention and their bound; the one-TF32-pass fault
-    read there; the port's whole backward (delta and both kernels) beside
+    read there; one backward call's device operations (one kernel, no
+    memset); the port's whole backward (delta and the kernel) beside
     SDPA's, and SDPA's backend."""
     import torch.nn.functional as F
 
@@ -1450,14 +1485,15 @@ def flash_timing_rows(kernels, dev, launches):
     ms = {
         "flash_attention_fwd": time_ms(
             lambda: kernels.flash_attention_fwd(q, k, v, True), flush, 10),
-        "flash_attention_bwd_dq": time_ms(
-            lambda: kernels.flash_attention_bwd_dq(
-                q, k, v, dout, lse, delta, True), flush, 10),
-        "flash_attention_bwd_dkv": time_ms(
-            lambda: kernels.flash_attention_bwd_dkv(
+        "flash_attention_bwd": time_ms(
+            lambda: kernels.flash_attention_bwd(
                 q, k, v, dout, lse, delta, True), flush, 10),
     }
-    # the backward as the autograd Function runs it: delta, dQ, dK/dV
+    bwd_ops = one_call_ops(lambda: kernels.flash_attention_bwd(
+        q, k, v, dout, lse, delta, True))
+    require_one_kernel(bwd_ops, "flash_attention_bwd", "flash_bwd_kernel")
+    print(json.dumps({"flash_bwd_device_ops": bwd_ops}), flush=True)
+    # the backward as the autograd Function runs it: delta, the kernel
     port_bwd_ms = time_ms(lambda: flash_attention_bwd(
         q, k, v, out, lse, dout, True), flush, 10)
     # the plain version keeps several [B, H, T, T] f32 tensors (8.6 GB
@@ -1484,9 +1520,9 @@ def flash_timing_rows(kernels, dev, launches):
     errors = {
         "flash_attention_fwd": max(report["out_max_abs_err"],
                                    report["lse_max_abs_err"]),
-        "flash_attention_bwd_dq": report["dq_max_abs_err"],
-        "flash_attention_bwd_dkv": max(report["dk_max_abs_err"],
-                                       report["dv_max_abs_err"]),
+        "flash_attention_bwd": max(report["dq_max_abs_err"],
+                                   report["dk_max_abs_err"],
+                                   report["dv_max_abs_err"]),
     }
     del plain
     torch.cuda.empty_cache()
@@ -1515,8 +1551,8 @@ def flash_timing_rows(kernels, dev, launches):
              "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
              "sdpa_fwd_bwd_ms": sdpa_both, "plain_fwd_ms": plain_fwd_ms,
              "plain_bwd_ms": plain_bwd_ms, "port_bwd_ms": port_bwd_ms,
-             "kernels_bwd_ms": ms["flash_attention_bwd_dq"]
-             + ms["flash_attention_bwd_dkv"],
+             "kernels_bwd_ms": ms["flash_attention_bwd"],
+             "flash_bwd_device_ops": bwd_ops,
              "sdpa_backend": backend["backend"]}
     del flush, leaves, o
     torch.cuda.empty_cache()
@@ -1524,20 +1560,18 @@ def flash_timing_rows(kernels, dev, launches):
     pairs = b * h * t * (t + 1) / 2  # causal (query, key) pairs
     qkv = 4 * b * t * h * d  # bytes of one [B, T, H, D] f32 tensor
     rows_lse = 4 * b * h * t
-    work = {  # (bytes moved once, f32 flops): 2 products per matmul-pair
+    work = {  # (bytes moved once, f32 flops): 2 flops a pair a product
+        # forward: S, P V; q, k, v read, out written, lse written
         "flash_attention_fwd": (4 * qkv + rows_lse, 2 * 2 * d * pairs),
-        "flash_attention_bwd_dq": (5 * qkv + 2 * rows_lse, 3 * 2 * d * pairs),
-        "flash_attention_bwd_dkv": (6 * qkv + 2 * rows_lse,
-                                    4 * 2 * d * pairs),
+        # backward: S, dP, dV, dK, dQ; q, k, v, dout read, dq, dk, dv
+        # written, lse and delta read
+        "flash_attention_bwd": (7 * qkv + 2 * rows_lse, 5 * 2 * d * pairs),
     }
     sources = {
         "flash_attention_fwd": (
             "dmlc_tpu_torch/ops/csrc/flash_attention_fwd.cu",
             "dmlc_tpu/ops/sequence_parallel.py:423"),
-        "flash_attention_bwd_dq": (
-            "dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "dmlc_tpu/ops/sequence_parallel.py:423"),
-        "flash_attention_bwd_dkv": (
+        "flash_attention_bwd": (
             "dmlc_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "dmlc_tpu/ops/sequence_parallel.py:423"),
     }
@@ -5024,7 +5058,11 @@ def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
     replay) through a DeviceFeed (its producer thread at
     ``host_prefetch``, None for the default) and continues the same
     learner. Returns (history, params as numpy, seconds, launches, seq
-    orders, each epoch's rows digest)."""
+    orders, each epoch's rows digest, the consumer's trace). The trace has
+    one entry an epoch: the feed's stage times (``DeviceFeed.stats``, ns)
+    and, where the epoch reads a dispatcher's job, the seconds each
+    ``next_block`` of the consumer took (the fetch of a served chunk):
+    count, sum, median and max."""
     from dmlc_tpu_torch.data import RemoteBlockParser
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
     from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
@@ -5033,7 +5071,9 @@ def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
         """The consumer, noting each chunk's seq and rows as they land."""
 
         def next_block(self):
+            t0 = time.perf_counter()
             block = super().next_block()
+            fetches[-1].append(time.perf_counter() - t0)
             if block is not None:
                 orders[-1].append(block.seq_id)
                 prints[-1].append(row_fingerprints(block))
@@ -5041,12 +5081,13 @@ def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
 
     learner = LinearLearner(device=dev, objective="logistic",
                             learning_rate=0.1)
-    history, orders, prints = [], [], []
+    history, orders, prints, fetches, trace = [], [], [], [], []
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for epoch in range(epochs):
         orders.append([])
         prints.append([])
+        fetches.append([])
         parser = parser_of(epoch) if parser_of is not None else Recorder(
             address, dispatcher=True, job="%s%d" % (layout, epoch),
             device=dev)
@@ -5056,13 +5097,22 @@ def fleet_fit(kernels, address, dev, layout, batch_size, nf, epochs,
         try:
             history = learner.fit_feed(feed, epochs=epoch + 1,
                                        start_epoch=epoch, history=history)
+            stats = feed.stats()
         finally:
             feed.close()
+        took = sorted(fetches[-1])
+        trace.append({
+            "stages_ns": {k: stats.get(k) for k in (
+                "batches", "host_batch_ns", "dispatch_ns", "host_wait_ns",
+                "consume_ns")},
+            "fetch_s": {"count": len(took), "sum": sum(took),
+                        "median": statistics.median(took) if took else None,
+                        "max": took[-1] if took else None}})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     return history, params_to_numpy(learner.params), seconds, launches, \
-        orders, [rows_digest(p) for p in prints]
+        orders, [rows_digest(p) for p in prints], trace
 
 
 def same_fit_bits(what, got, want) -> None:
@@ -5190,7 +5240,8 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
             fits[layout + "_one_worker"] = {
                 "seconds": got[2], "rows_per_s": EPOCHS * rows / got[2],
                 "local_rows_per_s": paths[layout]["rows_per_s"],
-                "launches": got[3][kernel_of[layout]], "steps": steps}
+                "launches": got[3][kernel_of[layout]], "steps": steps,
+                "consumer": got[6]}
         snap = one.snapshot()
         hold_ledger("one-worker fleet", snap, {
             j: n for j in (*reads_of, "dense0", "dense1", "csr0", "csr1")})
@@ -5468,6 +5519,7 @@ def drive_feed(kernels, dev, ingest_file, fit_files, paths, fit_params,
             k: v["rows_per_s"] for k, v in data_service["fits"].items()},
         "crash_requeued": fits["csr_crashed"]["requeued"],
         "crashed_fit_seconds": fits["csr_crashed"]["seconds"],
+        "csr_one_worker_consumer": fits["csr_one_worker"]["consumer"],
         "clean_two_worker_fit_seconds": fits["csr_two_workers"]["seconds"],
         "two_worker_seq_orders": fits["csr_two_workers"]["seq_orders"],
         "worker_tokenize_launches": fleet["worker_tokenize_launches"],
@@ -5540,7 +5592,10 @@ PLANE_ENDPOINTS = {
     "/data": "application/json", "/goodput": "application/json",
     "/audit": "application/json", "/xla": "application/json",
     "/profile": "application/json"}
-PLANE_PROFILE_S = 1  # (a): the /profile window a rank captures
+# (a): the /profile window a rank captures from its first epoch boundary:
+# an epoch's length (~1.5 s), so that it covers steps and not only the
+# next epoch's first parse (a 1 s window has caught no step at all)
+PLANE_PROFILE_S = 3
 PLANE_POLL_S = 0.2
 #: (e): turns of the launched csr fit in one rank, 0 not publishing (as
 #: without --status-port), 1 publishing to the armed tracker
@@ -6093,6 +6148,7 @@ def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
             "%d times for %d chunk parts", tokens, parts)
     report["c"] = {"rows_per_s": EPOCHS * CRITEO_ROWS / got[2],
                    "fit_seconds": got[2], "worker": served,
+                   "consumer": got[6],
                    "tail_rows_digest": tail_digest,
                    "phase_seconds": time.perf_counter() - t0}
     print(json.dumps({"plane_dispatch": report["c"]}), flush=True)
@@ -6245,11 +6301,8 @@ def kernel_times(kernels, dev) -> dict:
             "flash_attention_fwd": [
                 time_ms(lambda: kernels.flash_attention_fwd(q, k, v, True),
                         flush, 10) for _ in range(2)],
-            "flash_attention_bwd_dq": time_ms(
-                lambda: kernels.flash_attention_bwd_dq(
-                    q, k, v, dout, lse, delta, True), flush, 10),
-            "flash_attention_bwd_dkv": time_ms(
-                lambda: kernels.flash_attention_bwd_dkv(
+            "flash_attention_bwd": time_ms(
+                lambda: kernels.flash_attention_bwd(
                     q, k, v, dout, lse, delta, True), flush, 10),
             "sdpa_fwd": time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), flush, 10),
@@ -6351,10 +6404,15 @@ def smoke(fit_dir: str) -> int:
             print("  ptxas:", line.strip())
     spills = ptxas_spills(text)
     flash = {name: n for name, n in spills.items() if "flash_" in name}
-    require(len(flash) == 3 * 3 * 2,
-            "ptxas reported %d flash kernel variants, expected 18", len(flash))
+    require(len(flash) == 2 * 3 * 2,
+            "ptxas reported %d flash kernel variants, expected 12", len(flash))
     require(not any(flash.values()), "flash kernels spill: %s",
             {name: n for name, n in flash.items() if n})
+    hgmma = sass_hgmma(str(_build.library_path()))
+    print(json.dumps({"flash_bwd_hgmma": hgmma}), flush=True)
+    require(hgmma is None or (len(hgmma) == 3 * 2 and all(hgmma.values())),
+            "flash_bwd_kernel: HGMMA counts %s, expected 6 variants with "
+            "warpgroup products", hgmma)
     fused = [n for name, n in spills.items()
              if "fused_linear_grads_kernel" in name]
     require(fused == [0], "fused_linear_grads_kernel: ptxas spills %s",
@@ -6737,6 +6795,18 @@ def smoke(fit_dir: str) -> int:
                                                            data_service)}))
     print(json.dumps({"feed": feed_summary(card, feed)}))
     print(json.dumps({"plane": plane_summary(card, plane)}))
+    # ROADMAP fault 3.1: the fleet-fed csr fit's consumer in the first
+    # (phase 23, depth 0), second (24 (b)) and third (25 (c)) fleet round
+    print(json.dumps({"fleet_rounds": {
+        "card": card,
+        "round1_phase23": {
+            "rows_per_s": data_service["fits"]["csr_one_worker"]["rows_per_s"],
+            "consumer": data_service["fits"]["csr_one_worker"]["consumer"]},
+        "round2_phase24b": {
+            "rows_per_s": feed["fleet"]["rows_per_s"]["csr_one_worker"],
+            "consumer": feed["fleet"]["csr_one_worker_consumer"]},
+        "round3_phase25c": {"rows_per_s": plane["c"]["rows_per_s"],
+                            "consumer": plane["c"]["consumer"]}}}))
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows

@@ -4,10 +4,10 @@ parallelism (``ops.moe``), GPipe pipeline parallelism
 (``ops.pipeline_parallel``) and the CUDA
 kernels of the port with their plain versions (``ops.kernels``, sources in
 ``ops/csrc``): ``fused_linear_grads``, ``coo_segment_sum``,
-``flash_attention_fwd``, ``flash_attention_bwd_dq`` and
-``flash_attention_bwd_dkv``. ``ops.kernels.KERNELS`` holds every wrapper
-and its launch count; ``ops.flash_attention`` joins the three flash kernels
-into an autograd Function."""
+``flash_attention_fwd`` and ``flash_attention_bwd``.
+``ops.kernels.KERNELS`` holds every wrapper and its launch count;
+``ops.flash_attention`` joins the two flash kernels into an autograd
+Function."""
 
 from dmlc_tpu_torch.ops.flash_attention import flash_attention
 from dmlc_tpu_torch.ops.moe import (

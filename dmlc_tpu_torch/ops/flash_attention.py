@@ -1,4 +1,4 @@
-"""Flash attention with a backward: the three kernels of ``ops/kernels.py``
+"""Flash attention with a backward: the two kernels of ``ops/kernels.py``
 joined into one ``torch.autograd.Function``.
 
 The counterpart of JAX's TPU ``flash_attention`` (a ``custom_vjp`` over
@@ -17,7 +17,7 @@ from dmlc_tpu_torch.ops.attention import full_attention
 
 
 def softmax_delta(out, dout):
-    """delta = rowsum(dout·out) as [B, H, T]: the backward kernels' third
+    """delta = rowsum(dout·out) as [B, H, T]: the backward kernel's third
     row input (a small torch reduction, the one place torch does
     arithmetic on the flash path)."""
     return (dout * out).sum(dim=-1).transpose(1, 2).contiguous()
@@ -25,12 +25,10 @@ def softmax_delta(out, dout):
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool):
     """(dq, dk, dv) of :func:`kernels.flash_attention_fwd`'s ``(out, lse)``
-    for the output gradient ``dout``: the dQ kernel, then the dK/dV
+    for the output gradient ``dout``: delta, then the one backward
     kernel."""
-    args = (q, k, v, dout, lse, softmax_delta(out, dout), causal)
-    dq = kernels.flash_attention_bwd_dq(*args)
-    dk, dv = kernels.flash_attention_bwd_dkv(*args)
-    return dq, dk, dv
+    return kernels.flash_attention_bwd(q, k, v, dout, lse,
+                                       softmax_delta(out, dout), causal)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -8,9 +8,9 @@ flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
   of FM's packed row sums, one or more columns (csrc/coo_segment_sum.cu);
 - :func:`flash_attention_fwd` — attention output and row logsumexp
   (csrc/flash_attention_fwd.cu);
-- :func:`flash_attention_bwd_dq` and :func:`flash_attention_bwd_dkv` — its
-  gradients (csrc/flash_attention_bwd.cu). ``ops/flash_attention.py`` joins
-  the three into an autograd Function;
+- :func:`flash_attention_bwd` — its gradients dQ, dK and dV in one kernel
+  (csrc/flash_attention_bwd.cu). ``ops/flash_attention.py`` joins the two
+  into an autograd Function;
 - :func:`tokenize_boundaries` — the libsvm token start/end masks of a
   chunk of bytes (csrc/tokenize_boundaries.cu), for the parsers.
 
@@ -73,10 +73,8 @@ def _lib() -> ctypes.CDLL:
         dims = [ctypes.c_int] * 6 + [_P]  # B T H Hkv D causal, stream
         lib.dmlc_flash_attention_fwd.argtypes = [_P] * 5 + dims
         lib.dmlc_flash_attention_fwd.restype = ctypes.c_int
-        lib.dmlc_flash_attention_bwd_dq.argtypes = [_P] * 7 + dims
-        lib.dmlc_flash_attention_bwd_dq.restype = ctypes.c_int
-        lib.dmlc_flash_attention_bwd_dkv.argtypes = [_P] * 8 + dims
-        lib.dmlc_flash_attention_bwd_dkv.restype = ctypes.c_int
+        lib.dmlc_flash_attention_bwd.argtypes = [_P] * 11 + dims
+        lib.dmlc_flash_attention_bwd.restype = ctypes.c_int
         lib.dmlc_tokenize_boundaries.argtypes = [_P, _I64, _P, _P, _P]
         lib.dmlc_tokenize_boundaries.restype = ctypes.c_int
         lib.dmlc_empty_launches.argtypes = [ctypes.c_int, _P]
@@ -267,7 +265,7 @@ coo_segment_sum.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# flash attention: forward, dQ, dK/dV
+# flash attention: forward, backward
 # ---------------------------------------------------------------------------
 
 #: head dims the CUDA kernels are compiled for (csrc/flash_attention.cuh)
@@ -353,58 +351,67 @@ def _flash_bwd_inputs(q, k, v, dout, lse, delta):
     return b, t, h, hk, d
 
 
-def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False):
-    """dQ [B, T, H, D] of :func:`flash_attention_fwd` for the output
-    gradient ``dout``, from its ``lse`` and ``delta`` = rowsum(dout·out)
-    as [B, H, T].
+#: keys of the backward kernel's work item and queries of its streamed
+#: tile: kKvRows and kQRows in csrc/flash_attention_bwd.cu
+FLASH_BWD_KV_ROWS = 64
+FLASH_BWD_Q_ROWS = 32
 
-    On a CUDA tensor this launches the dQ kernel of
-    csrc/flash_attention_bwd.cu; on a CPU tensor it runs
+#: (device index, stream handle) -> the int32 flags of
+#: csrc/flash_attention_bwd.cu on that stream (two item counters, then one
+#: flag per (b, h, Q tile)), zeroed when made or grown; each call
+#: leaves them at 0, and calls on one stream run one after another
+_FLASH_BWD_SYNC = {}
+
+
+def flash_bwd_sync_ints(b: int, t: int, h: int) -> int:
+    """int32s of the backward kernel's flags for a [B, T, H, D] call."""
+    return 2 + b * h * -(-t // FLASH_BWD_Q_ROWS)
+
+
+def _flash_bwd_sync(dev, stream, ints: int):
+    key = (dev.index, stream.cuda_stream)
+    with _LAUNCH_LOCK:
+        sync = _FLASH_BWD_SYNC.get(key)
+        if sync is None or sync.numel() < ints:
+            # zeroed on the current stream, ahead of the launch that reads it
+            sync = torch.zeros(ints, dtype=torch.int32, device=dev)
+            _FLASH_BWD_SYNC[key] = sync
+    return sync
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False):
+    """(dq [B, T, H, D], dk, dv [B, T, Hkv, D]) of
+    :func:`flash_attention_fwd` for the output gradient ``dout``, from its
+    ``lse`` and ``delta`` = rowsum(dout·out) as [B, H, T]. Under GQA each
+    KV head's gradient sums over the H / Hkv query heads that read it.
+
+    On a CUDA tensor this launches csrc/flash_attention_bwd.cu once: dq is
+    summed across the kernel's CTAs in a fixed order through an f32 scratch
+    of dq's shape, counted by int32 flags kept on the stream (zeroed once,
+    left at 0 by each call). On a CPU tensor it runs
     :func:`flash_attention_bwd_plain` (``lse`` and ``delta`` are checked,
     and the plain route recomputes them)."""
     b, t, h, hk, d = _flash_bwd_inputs(q, k, v, dout, lse, delta)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, causal)[0]
+        return tuple(flash_attention_bwd_plain(q, k, v, dout, causal))
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        rc = _lib().dmlc_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, h, hk, d,
-            int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _launch_check(rc, "flash_attention_bwd_dq")
-    count_launch(flash_attention_bwd_dq)
-    return dq
-
-
-flash_attention_bwd_dq.launches = 0
-
-
-def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False):
-    """(dK, dV), each [B, T, Hkv, D], of :func:`flash_attention_fwd`; the
-    inputs as for :func:`flash_attention_bwd_dq`. Under GQA each KV head's
-    gradient sums over the H / Hkv query heads that read it.
-
-    On a CUDA tensor this launches the dK/dV kernel of
-    csrc/flash_attention_bwd.cu; on a CPU tensor it runs
-    :func:`flash_attention_bwd_plain`."""
-    b, t, h, hk, d = _flash_bwd_inputs(q, k, v, dout, lse, delta)
-    if q.device.type == "cpu":
-        return tuple(flash_attention_bwd_plain(q, k, v, dout, causal)[1:])
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    dq_acc = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device)
+    sync = _flash_bwd_sync(q.device, stream, flash_bwd_sync_ints(b, t, h))
     with torch.cuda.device(q.device):
-        rc = _lib().dmlc_flash_attention_bwd_dkv(
+        rc = _lib().dmlc_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, hk, d, int(bool(causal)),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _launch_check(rc, "flash_attention_bwd_dkv")
-    count_launch(flash_attention_bwd_dkv)
-    return dk, dv
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dq_acc.data_ptr(), sync.data_ptr(), b, t, h, hk,
+            d, int(bool(causal)), stream.cuda_stream)
+    _launch_check(rc, "flash_attention_bwd")
+    count_launch(flash_attention_bwd)
+    return dq, dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -498,8 +505,7 @@ KERNELS = {
     "fused_linear_grads": fused_linear_grads,
     "coo_segment_sum": coo_segment_sum,
     "flash_attention_fwd": flash_attention_fwd,
-    "flash_attention_bwd_dq": flash_attention_bwd_dq,
-    "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+    "flash_attention_bwd": flash_attention_bwd,
     "tokenize_boundaries": tokenize_boundaries,
 }
 

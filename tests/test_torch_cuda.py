@@ -188,7 +188,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("b,t,h,hk,d,causal", FLASH_CASES)
 def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
-    """chip_smoke.py's phase 8 for one shape: forward and both backward
+    """chip_smoke.py's phase 8 for one shape: the forward and backward
     kernels against the plain version with autograd, within
     tests/test_sequence_parallel.py's tolerances (outputs rtol 2e-4 /
     atol 2e-5, gradients rtol 2e-3 / atol 2e-4: f32 sums over the keys in
@@ -200,8 +200,7 @@ def test_flash_kernels_match_plain(cuda, b, t, h, hk, d, causal):
     before = {n: kernels.KERNELS[n].launches for n in kernels.KERNELS}
     report = flash_case(kernels, cuda, b, t, h, hk, d, causal,
                         seed=t + hk + d)
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
         assert kernels.KERNELS[name].launches == before[name] + 2
     assert report["dq_tol_ratio"] <= 1.0
     assert report["diagonal_detached_dq_tol_ratio"] > 1.0
@@ -230,8 +229,8 @@ def test_flash_path_trains_through_the_kernels(cuda):
     got = [out.detach()] + [x.grad.clone() for x in leaves]
     assert {n: kernels.KERNELS[n].launches for n in kernels.KERNELS} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
-        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
-        "flash_attention_bwd_dkv": 1, "tokenize_boundaries": 0}
+        "flash_attention_fwd": 1, "flash_attention_bwd": 1,
+        "tokenize_boundaries": 0}
     for x in leaves:
         x.grad = None
     out = make_ulysses_attention(causal=True)(*leaves)
@@ -251,6 +250,36 @@ def test_flash_rejects_what_it_does_not_take(cuda):
     with pytest.raises(Exception, match="aligned"):
         flat = torch.zeros(1 + 64 * 4 * 128, device=cuda)
         kernels.flash_attention_fwd(flat[1:].view(1, 64, 4, 128), q, q)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_is_one_kernel_and_leaves_its_flags_at_zero(cuda,
+                                                                 causal):
+    """One call of kernels.flash_attention_bwd runs one kernel
+    (flash_bwd_kernel) and no memset, counted from a captured CUDA graph
+    (and by torch.profiler where CUPTI traces); afterwards the stream's
+    flags (the work counters and every dQ flag) are back at 0, so the next
+    call needs no memset either, and a second call gives the same bits."""
+    rng = np.random.RandomState(3)
+    b, t, h, hk, d = 2, 1000, 8, 2, 64
+    q, k, v, dout = (torch.tensor(rng.randn(*shape).astype(np.float32),
+                                  device=cuda)
+                     for shape in ((b, t, h, d), (b, t, hk, d), (b, t, hk, d),
+                                   (b, t, h, d)))
+    out, lse = kernels.flash_attention_fwd(q, k, v, causal)
+    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+
+    def call():
+        return kernels.flash_attention_bwd(q, k, v, dout, lse, delta, causal)
+
+    ops = one_call_ops(call)
+    require_one_kernel(ops, "flash_attention_bwd", "flash_bwd_kernel")
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+    stream = torch.cuda.current_stream(q.device)
+    sync = kernels._FLASH_BWD_SYNC[(q.device.index, stream.cuda_stream)]
+    assert int(sync.abs().sum()) == 0
 
 
 def _write_svm(path, rows):

@@ -3,9 +3,12 @@ and may not drop to one.
 
 The forward kernel (``dmlc_tpu_torch/ops/csrc/flash_attention_fwd.cu``)
 computes its two products (S = Q K^T, then P V a tile of keys at a time
-under the online softmax) and the dQ and dK/dV kernels
-(``flash_attention_bwd.cu``) their five (S, dP, dV, dK, dQ) on the tensor
-cores, whose TF32 operands keep 10 bits of mantissa. Each f32 operand x is
+under the online softmax) and the backward kernel
+(``flash_attention_bwd.cu``) its five (S, dP, dV, dK, dQ) on the tensor
+cores, whose TF32 operands keep 10 bits of mantissa. The backward kernel
+sums dQ across its CTAs: each K/V tile of ``FLASH_BWD_KV_ROWS`` keys forms
+its part dS[:, tile] K[tile], and the parts are added in f32 from tile 0
+up to the highest (``fused_model_backward``). Each f32 operand x is
 split as big = tf32(x), small = tf32(x - big), and a product is
 small·big + big·small + big·big. This file models those products on the
 CPU (TF32 rounding to nearest, ties away from zero, by masking the low 13
@@ -28,6 +31,7 @@ import torch
 
 from chip_smoke import FLASH_CASES, GRAD_TOL, OUT_TOL, TF32_FAULT_MIN_T
 from dmlc_tpu.ops import sequence_parallel as jsp
+from dmlc_tpu_torch.ops.kernels import FLASH_BWD_KV_ROWS
 
 SMALL_CASES = [c for c in FLASH_CASES if c[1] <= 1024]
 FAULT_CASES = [c for c in SMALL_CASES if c[1] >= TF32_FAULT_MIN_T]
@@ -53,11 +57,12 @@ def one_pass_matmul(a, b):
     return tf32(a) @ tf32(b)
 
 
-def model_backward(matmul, q, k, v, dout, causal):
-    """(dq, dk, dv) of attention by the kernels' recipe with every product
-    formed by ``matmul``; lse and delta from the plain f32 forward, as the
-    forward kernel hands them over. q, dout [B, T, H, D]; k, v
-    [B, T, Hk, D]."""
+def _model_scores(matmul, q, k, v, dout, causal):
+    """The backward's shared steps: (qh, doh, kh, vh, p, ds, unflatten)
+    with S and dP formed once by ``matmul``, lse and delta from the plain
+    f32 forward, as the forward kernel hands them over. q, dout
+    [B, T, H, D]; k, v [B, T, Hk, D]; the head-major tensors are
+    [B, Hk, G, T, D] (k and v with G = 1)."""
     b, t, h, d = q.shape
     hk = k.shape[2]
     g = h // hk
@@ -81,14 +86,49 @@ def model_backward(matmul, q, k, v, dout, causal):
     p = torch.where(keep, torch.exp(s * scale - lse), torch.zeros(()))
     dp = matmul(doh, vh.transpose(-1, -2).expand(-1, -1, g, -1, -1))
     ds = p * (dp - delta)
-    dq = matmul(ds, kh.expand(-1, -1, g, -1, -1)) * scale
-    dk = (matmul(ds.transpose(-1, -2), qh) * scale).sum(2, keepdim=True)
-    dv = matmul(p.transpose(-1, -2), doh).sum(2, keepdim=True)
 
     def back(x, n):  # [B, Hk, n, T, D] -> [B, T, Hk*n, D]
         return x.permute(0, 3, 1, 2, 4).reshape(b, t, hk * n, d)
 
+    return qh, doh, kh, vh, p, ds, back
+
+
+def model_backward(matmul, q, k, v, dout, causal):
+    """(dq, dk, dv) of attention by the kernels' recipe with every product
+    formed by ``matmul``; lse and delta from the plain f32 forward, as the
+    forward kernel hands them over. q, dout [B, T, H, D]; k, v
+    [B, T, Hk, D]."""
+    qh, doh, kh, vh, p, ds, back = _model_scores(matmul, q, k, v, dout,
+                                                 causal)
+    scale = 1.0 / math.sqrt(float(q.shape[3]))
+    g = qh.shape[2]
+    dq = matmul(ds, kh.expand(-1, -1, g, -1, -1)) * scale
+    dk = (matmul(ds.transpose(-1, -2), qh) * scale).sum(2, keepdim=True)
+    dv = matmul(p.transpose(-1, -2), doh).sum(2, keepdim=True)
     return back(dq, g), back(dk, 1), back(dv, 1)
+
+
+def fused_model_backward(matmul, q, k, v, dout, causal,
+                         kv_rows=FLASH_BWD_KV_ROWS):
+    """(dq, dk, dv) by the fused backward kernel's recipe: S and dP once
+    (as :func:`model_backward`), dV and dK as there, and dQ from one part
+    a K/V tile of ``kv_rows`` keys, dS[:, tile] K[tile] formed by
+    ``matmul``, summed in f32 in the kernel's fixed order (tile 0's part
+    first, the highest tile's last, each added to the running sum), then
+    scaled."""
+    qh, doh, kh, vh, p, ds, back = _model_scores(matmul, q, k, v, dout,
+                                                 causal)
+    t = q.shape[1]
+    scale = 1.0 / math.sqrt(float(q.shape[3]))
+    g = qh.shape[2]
+    dq = None
+    for n0 in range(0, t, kv_rows):
+        part = matmul(ds[..., n0:n0 + kv_rows],
+                      kh[..., n0:n0 + kv_rows, :].expand(-1, -1, g, -1, -1))
+        dq = part if dq is None else dq + part
+    dk = (matmul(ds.transpose(-1, -2), qh) * scale).sum(2, keepdim=True)
+    dv = matmul(p.transpose(-1, -2), doh).sum(2, keepdim=True)
+    return back(dq * scale, g), back(dk, 1), back(dv, 1)
 
 
 def model_forward(matmul, q, k, v, causal, tile=32):
@@ -143,12 +183,12 @@ def _jax_grads(q, k, v, dout, causal):
     return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
 
 
-def _ratios(matmul, case):
+def _ratios(matmul, case, model=model_backward):
     b, t, h, hk, d, causal = case
     q, k, v, dout = _inputs(b, t, h, hk, d, seed=t + hk + d)
     want = _jax_grads(q, k, v, dout, causal)
-    got = model_backward(matmul, *(torch.from_numpy(x)
-                                   for x in (q, k, v, dout)), causal)
+    got = model(matmul, *(torch.from_numpy(x) for x in (q, k, v, dout)),
+                causal)
     return [tol_ratio(g.numpy(), w, GRAD_TOL) for g, w in zip(got, want)]
 
 
@@ -204,6 +244,44 @@ def test_one_tf32_pass_fails_gradient_tolerance(case):
     GRAD_TOL on each of dq, dk and dv: why the split stays."""
     ratios = _ratios(one_pass_matmul, case)
     assert min(ratios) > 1.0, ratios
+
+
+@pytest.mark.parametrize("case", SMALL_CASES, ids=str)
+def test_fused_recipe_three_pass_holds_gradient_tolerance(case):
+    """The fused kernel's recipe (S and dP once, dQ summed from per-K/V-tile
+    parts in ascending tile order) with 3-pass products stays inside
+    GRAD_TOL against the JAX package's full_attention + jax.vjp, with a
+    margin of 4."""
+    ratios = _ratios(split_matmul, case, fused_model_backward)
+    assert max(ratios) < 0.25, ratios
+
+
+@pytest.mark.parametrize("case", FAULT_CASES, ids=str)
+def test_fused_recipe_one_tf32_pass_fails_gradient_tolerance(case):
+    """The same recipe with one TF32 pass per product falls outside
+    GRAD_TOL on each of dq, dk and dv."""
+    ratios = _ratios(one_pass_matmul, case, fused_model_backward)
+    assert min(ratios) > 1.0, ratios
+
+
+def test_fused_dq_parts_cover_every_key_once():
+    """fused_model_backward's per-tile parts are slices of the whole
+    product: with exact (f64) products its dQ is model_backward's to f32
+    rounding, at a T that leaves a ragged last tile, and dK, dV are
+    model_backward's bit for bit."""
+    rng = np.random.RandomState(9)
+    b, t, h, hk, d = 1, 3 * FLASH_BWD_KV_ROWS + 5, 2, 1, 32
+    q, k, v, dout = (torch.from_numpy(rng.randint(-2, 3, s).astype(
+        np.float32)) for s in ((b, t, h, d), (b, t, hk, d), (b, t, hk, d),
+                               (b, t, h, d)))
+
+    def exact(a, c):
+        return (a.double() @ c.double()).float()
+
+    whole = model_backward(exact, q, k, v, dout, True)
+    fused = fused_model_backward(exact, q, k, v, dout, True)
+    assert torch.allclose(fused[0], whole[0], rtol=1e-6, atol=1e-6)
+    assert torch.equal(fused[1], whole[1]) and torch.equal(fused[2], whole[2])
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():

@@ -132,8 +132,8 @@ def test_plain_route_counts_no_launch():
                                              dtype=torch.uint8))
     assert {k: fn.launches for k, fn in kernels.KERNELS.items()} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
-        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0, "tokenize_boundaries": 0}
+        "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+        "tokenize_boundaries": 0}
 
 
 def test_launch_counts_lose_nothing_under_threads():
@@ -195,3 +195,28 @@ def test_tokenize_boundaries_takes_uint8_vectors_only():
         kernels.tokenize_boundaries(torch.zeros(4, dtype=torch.int32))
     with pytest.raises(Exception, match="1-d"):
         kernels.tokenize_boundaries(torch.zeros(2, 2, dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bwd_cpu_route_is_the_plain_version(causal):
+    """On CPU tensors the one backward wrapper returns (dq, dk, dv) of the
+    plain version, after the same input checks as on the card (lse and
+    delta as [B, H, T]), and counts no launch."""
+    rng = np.random.RandomState(11)
+    b, t, h, hk, d = 2, 37, 4, 2, 32
+    q, k, v, dout = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                     for s in ((b, t, h, d), (b, t, hk, d), (b, t, hk, d),
+                               (b, t, h, d)))
+    lse = torch.zeros(b, h, t)
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention_bwd(q, k, v, dout, lse, lse, causal)
+    want = kernels.flash_attention_bwd_plain(q, k, v, dout, causal)
+    assert len(got) == 3
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert kernels.flash_attention_bwd.launches == 0
+    with pytest.raises(Exception, match="lse must have shape"):
+        kernels.flash_attention_bwd(q, k, v, dout, lse[:, :, 1:], lse,
+                                    causal)
+    with pytest.raises(Exception, match="delta must have shape"):
+        kernels.flash_attention_bwd(q, k, v, dout, lse, lse.transpose(1, 2),
+                                    causal)

@@ -25,8 +25,8 @@ non-zero exit and no result line:
    kernel (``flash_fwd_kernel`` and ``flash_bwd_kernel``, each at D 32, 64
    and 128, causal or not) and ``fused_linear_grads`` must show 0 spill
    bytes; where the toolkit has ``cuobjdump``, the warpgroup products
-   (``HGMMA``) in each ``flash_bwd_kernel`` variant's SASS are counted and
-   must be there;
+   (``HGMMA``) in each flash kernel variant's SASS (``flash_fwd_kernel``
+   and ``flash_bwd_kernel``, 12 in all) are counted and must be there;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
    [16384, 29] (HIGGS), a ragged [1000, 29] and a wide [4096, 2048]:
    integer-valued data with the squared and hinge objectives must match bit
@@ -98,9 +98,11 @@ non-zero exit and no result line:
    backward row) and their bound. Every flash row's ``bound_ms`` is the
    kernels' tensor-core route (3 TF32 products per f32 product at 495
    TFLOP/s; the backward's five products), with the f32 CUDA-core figure
-   under ``f32_cuda_core_bound_ms``. One call of the backward wrapper must
-   run exactly one kernel (``flash_bwd_kernel``) and no memset, counted as
-   phase 7 counts (``flash_bwd_device_ops``). ``flash_timing_extra`` adds
+   under ``f32_cuda_core_bound_ms``. One call of each wrapper must run
+   exactly one kernel and no memset (``flash_fwd_kernel``,
+   ``flash_bwd_kernel``), counted as phase 7 counts
+   (``flash_fwd_device_ops``, ``flash_bwd_device_ops``).
+   ``flash_timing_extra`` adds
    ``port_bwd_ms`` (delta and the kernel, as the autograd Function runs
    them) beside ``sdpa_bwd_ms``, ``kernels_bwd_ms`` and ``sdpa_backend``,
    which an earlier ``sdpa_backend`` line names from the kernels of one
@@ -442,7 +444,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12  # tensor cores, dense
 # the flash kernels compute each f32 product as three TF32 products on the
-# tensor cores (csrc/flash_mma.cuh)
+# tensor cores (csrc/flash_mma.cuh, the split; csrc/flash_hopper.cuh, wgmma)
 TF32_PASSES = 3
 # the one-TF32-pass faults must fail OUT_TOL (forward) and GRAD_TOL
 # (backward) from this T on; below it (T = 33) they are only recorded
@@ -767,9 +769,9 @@ def ptxas_spills(log: str) -> dict:
 
 def sass_hgmma(library: str):
     """{kernel entry (mangled): HGMMA instructions} of every
-    ``flash_bwd_kernel`` variant in ``cuobjdump -sass`` of the kernels'
-    library: the warpgroup products the build kept. None where the toolkit
-    has no cuobjdump."""
+    ``flash_fwd_kernel`` and ``flash_bwd_kernel`` variant in ``cuobjdump
+    -sass`` of the kernels' library: the warpgroup products the build kept.
+    None where the toolkit has no cuobjdump."""
     import shutil
     import subprocess
 
@@ -783,7 +785,7 @@ def sass_hgmma(library: str):
     for line in sass.splitlines():
         if "Function :" in line:
             entry = line.split("Function :", 1)[1].strip()
-            if "flash_bwd_kernel" in entry:
+            if "flash_fwd_kernel" in entry or "flash_bwd_kernel" in entry:
                 counts[entry] = 0
             else:
                 entry = None
@@ -1489,6 +1491,10 @@ def flash_timing_rows(kernels, dev, launches):
             lambda: kernels.flash_attention_bwd(
                 q, k, v, dout, lse, delta, True), flush, 10),
     }
+    fwd_ops = one_call_ops(lambda: kernels.flash_attention_fwd(
+        q, k, v, True))
+    require_one_kernel(fwd_ops, "flash_attention_fwd", "flash_fwd_kernel")
+    print(json.dumps({"flash_fwd_device_ops": fwd_ops}), flush=True)
     bwd_ops = one_call_ops(lambda: kernels.flash_attention_bwd(
         q, k, v, dout, lse, delta, True))
     require_one_kernel(bwd_ops, "flash_attention_bwd", "flash_bwd_kernel")
@@ -1552,6 +1558,7 @@ def flash_timing_rows(kernels, dev, launches):
              "sdpa_fwd_bwd_ms": sdpa_both, "plain_fwd_ms": plain_fwd_ms,
              "plain_bwd_ms": plain_bwd_ms, "port_bwd_ms": port_bwd_ms,
              "kernels_bwd_ms": ms["flash_attention_bwd"],
+             "flash_fwd_device_ops": fwd_ops,
              "flash_bwd_device_ops": bwd_ops,
              "sdpa_backend": backend["backend"]}
     del flush, leaves, o
@@ -6409,10 +6416,12 @@ def smoke(fit_dir: str) -> int:
     require(not any(flash.values()), "flash kernels spill: %s",
             {name: n for name, n in flash.items() if n})
     hgmma = sass_hgmma(str(_build.library_path()))
-    print(json.dumps({"flash_bwd_hgmma": hgmma}), flush=True)
-    require(hgmma is None or (len(hgmma) == 3 * 2 and all(hgmma.values())),
-            "flash_bwd_kernel: HGMMA counts %s, expected 6 variants with "
-            "warpgroup products", hgmma)
+    print(json.dumps({"flash_hgmma": hgmma}), flush=True)
+    require(hgmma is None or (len(hgmma) == 2 * 3 * 2
+                              and all(hgmma.values())),
+            "flash kernels: HGMMA counts %s, expected 12 variants "
+            "(flash_fwd_kernel and flash_bwd_kernel) with warpgroup "
+            "products", hgmma)
     fused = [n for name, n in spills.items()
              if "fused_linear_grads_kernel" in name]
     require(fused == [0], "fused_linear_grads_kernel: ptxas spills %s",

@@ -54,9 +54,9 @@
 //   [B, T, H, D], [32 queries][32 floats] boxes with the 128-byte swizzle,
 //   rows past T as zeros) into one raw stage tracked by an mbarrier, as
 //   soon as the split of the previous tile has read it: the copy of tile
-//   i + 1 runs while tile i is multiplied. The encoder comes from the
-//   driver through cudaGetDriverEntryPoint, so the library links no
-//   libcuda. K and V arrive once an item by per-row cp.async.bulk into rows
+//   i + 1 runs while tile i is multiplied (flash_hopper.cuh's box_map,
+//   whose encoder comes from the driver: the library links no libcuda).
+//   K and V arrive once an item by per-row cp.async.bulk into rows
 //   padded to D + 4 floats (fragment loads conflict-free at constant
 //   offsets; swizzled boxes cost an address computation a load, which the
 //   issue rate felt), rows past T zeroed; lse and delta by plain loads a
@@ -93,9 +93,6 @@
 //   (48 KB): 210 KB, one CTA an SM, from a 1024-byte aligned base. 64-query
 //   tiles, or K and V held split, would not fit.
 // - A wait (mbarrier or flag) that lasts 20 s traps instead of hanging.
-
-#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the
-                   // driver at run time)
 
 #include "flash_attention.cuh"
 #include "flash_hopper.cuh"
@@ -150,12 +147,6 @@ struct Layout {
   static_assert(kQb % 32 == 0, "operand tiles 128-byte aligned");
   static_assert(kOr % 256 == 0, "TMA boxes 1024-byte aligned");
 };
-
-// element (row, d) of a tensor held as D / 32 TMA boxes of `rows` rows
-template <int D>
-__device__ __forceinline__ int boxed(int rows, int r, int d) {
-  return (d >> 5) * rows * 32 + swizzled(r, d & 31);
-}
 
 // 64-row blocks of a head-dim-major product (dV^T, dK^T)
 template <int D>
@@ -512,7 +503,7 @@ flash_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
         const int c = 4 * ((x >> 3) % (D / 4));
         const bool is_o = f >= kPerTile;
         const float4 raw = *reinterpret_cast<const float4*>(
-            sm + (is_o ? L::kOr : L::kQr) + boxed<D>(kQRows, query, c));
+            sm + (is_o ? L::kOr : L::kQr) + boxed(kQRows, query, c));
         uint4 big, small;
         split(raw.x, big.x, small.x);
         split(raw.y, big.y, small.y);
@@ -633,55 +624,6 @@ flash_bwd_kernel(const float* __restrict__ k, const float* __restrict__ v,
       atomicExch(finished, 0);
     }
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found at run time: the library
-// links no libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// [B, T, H, D] f32 as a 4-d map (d, h, t, b) of [rows][32] boxes with the
-// 128-byte swizzle; rows past T read as zeros
-bool box_map(CUtensorMap* map, const float* x, int B, int T, int heads,
-             int D, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(T),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(D) * 4, static_cast<cuuint64_t>(heads) * D * 4,
-      static_cast<cuuint64_t>(T) * heads * D * 4};
-  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t steps[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                const_cast<float*>(x), dims, strides, box, steps,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 struct Args {

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of flash_attention_bwd.cu: warpgroup
-// products (wgmma) on TF32 operands, TMA and bulk copies into shared memory
-// tracked by mbarriers, named barriers, and the integer flags of a
+// Hopper (sm_90a) building blocks of flash_attention_fwd.cu and
+// flash_attention_bwd.cu: warpgroup products (wgmma) on TF32 operands, TMA
+// and bulk copies into shared memory tracked by mbarriers, the tensor maps
+// the copies read through, named barriers, and the integer flags of a
 // fixed-order sum across CTAs.
 //
 // wgmma.mma_async m64nNk8 .f32.tf32.tf32 takes both operands K-major (the
@@ -21,6 +22,8 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the
+                   // driver at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,6 +117,43 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// An m64n32k8 product whose B descriptor is moved by a compile-time offset
+// in its 16-byte units inside the instruction's own registers: a k-step
+// loop then keeps one descriptor of each tile live, not one a k-step. A
+// from registers, a0..a3 as in wgmma_tf32.
+template <int kOffB>
+__device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "add.s64 db, %20, %22;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate),
+        "n"(kOffB));
+}
+
+// keeps the compiler from reusing the registers of an A operand that a
+// wgmma in flight may still read: call it after the wait that ends it
+template <int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+template <int S, int M>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[S][M]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) fence_operands(a[s]);
 }
 
 template <int N>
@@ -240,6 +280,12 @@ __device__ __forceinline__ int swizzled(int r, int c) {
   return (r << 5) + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
 }
 
+// element (r, c) of a [rows][D] tile held as D / 32 such boxes, one after
+// the other (box_map's boxes of one tile)
+__device__ __forceinline__ int boxed(int rows, int r, int c) {
+  return (c >> 5) * rows * 32 + swizzled(r, c & 31);
+}
+
 // shared-memory writes by this thread become visible to the async proxy
 // (wgmma's operand reads) after a barrier
 __device__ __forceinline__ void fence_proxy_async() {
@@ -250,6 +296,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// counts this warp's threads toward barrier `id` without waiting on it
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---- integer flags across CTAs ---------------------------------------------
@@ -284,6 +335,57 @@ __device__ __forceinline__ void wait_flag(const int* p, int want) {
 __device__ __forceinline__ void add_relaxed(int* p) {
   asm volatile("red.relaxed.gpu.global.add.s32 [%0], 1;\n" ::"l"(p)
                : "memory");
+}
+
+// ---- tensor maps (host) ----------------------------------------------------
+
+// cuTensorMapEncodeTiled from the driver, found at run time: the library
+// links no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [B, T, heads, D] f32 as a 4-d map (d, head, t, b) of [rows][32] boxes with
+// the 128-byte swizzle; rows past T read as zeros
+inline bool box_map(CUtensorMap* map, const float* x, int B, int T,
+                    int heads, int D, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 4, static_cast<cuuint64_t>(heads) * D * 4,
+      static_cast<cuuint64_t>(T) * heads * D * 4};
+  const cuuint32_t box[4] = {32, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<float*>(x), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace dmlc_flash_hopper

@@ -351,6 +351,11 @@ def _flash_bwd_inputs(q, k, v, dout, lse, delta):
     return b, t, h, hk, d
 
 
+#: query rows of the forward kernel's CTA and keys of its streamed K/V
+#: tile: kQRows and kKvRows in csrc/flash_attention_fwd.cu
+FLASH_FWD_Q_ROWS = 128
+FLASH_FWD_KV_ROWS = 32
+
 #: keys of the backward kernel's work item and queries of its streamed
 #: tile: kKvRows and kQRows in csrc/flash_attention_bwd.cu
 FLASH_BWD_KV_ROWS = 64

@@ -253,6 +253,28 @@ def test_flash_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_is_one_kernel_and_repeats_its_bits(cuda, causal):
+    """One call of kernels.flash_attention_fwd runs one kernel
+    (flash_fwd_kernel) and no memset, counted from a captured CUDA graph
+    (and by torch.profiler where CUPTI traces), and a second call gives the
+    same bits, at a ragged T under GQA."""
+    rng = np.random.RandomState(4)
+    b, t, h, hk, d = 2, 1000, 8, 2, 64
+    q, k, v = (torch.tensor(rng.randn(*shape).astype(np.float32),
+                            device=cuda)
+               for shape in ((b, t, h, d), (b, t, hk, d), (b, t, hk, d)))
+
+    def call():
+        return kernels.flash_attention_fwd(q, k, v, causal)
+
+    ops = one_call_ops(call)
+    require_one_kernel(ops, "flash_attention_fwd", "flash_fwd_kernel")
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_is_one_kernel_and_leaves_its_flags_at_zero(cuda,
                                                                  causal):
     """One call of kernels.flash_attention_bwd runs one kernel

@@ -2,8 +2,9 @@
 and may not drop to one.
 
 The forward kernel (``dmlc_tpu_torch/ops/csrc/flash_attention_fwd.cu``)
-computes its two products (S = Q K^T, then P V a tile of keys at a time
-under the online softmax) and the backward kernel
+computes its two products (S = Q K^T, then P V a tile of
+``FLASH_FWD_KV_ROWS`` keys at a time under the online softmax, each
+tile's part added to O in f32) and the backward kernel
 (``flash_attention_bwd.cu``) its five (S, dP, dV, dK, dQ) on the tensor
 cores, whose TF32 operands keep 10 bits of mantissa. The backward kernel
 sums dQ across its CTAs: each K/V tile of ``FLASH_BWD_KV_ROWS`` keys forms
@@ -31,7 +32,7 @@ import torch
 
 from chip_smoke import FLASH_CASES, GRAD_TOL, OUT_TOL, TF32_FAULT_MIN_T
 from dmlc_tpu.ops import sequence_parallel as jsp
-from dmlc_tpu_torch.ops.kernels import FLASH_BWD_KV_ROWS
+from dmlc_tpu_torch.ops.kernels import FLASH_BWD_KV_ROWS, FLASH_FWD_KV_ROWS
 
 SMALL_CASES = [c for c in FLASH_CASES if c[1] <= 1024]
 FAULT_CASES = [c for c in SMALL_CASES if c[1] >= TF32_FAULT_MIN_T]
@@ -131,12 +132,13 @@ def fused_model_backward(matmul, q, k, v, dout, causal,
     return back(dq * scale, g), back(dk, 1), back(dv, 1)
 
 
-def model_forward(matmul, q, k, v, causal, tile=32):
+def model_forward(matmul, q, k, v, causal, tile=FLASH_FWD_KV_ROWS):
     """(out [B, T, H, D], lse [B, H, T]) by the forward kernel's recipe:
     S = Q K^T by ``matmul``, scaled and masked; an online softmax over
-    ``tile`` keys at a time (running max and sum, O rescaled); each tile's
-    P V by ``matmul``, added to O in f32. q [B, T, H, D]; k, v
-    [B, T, Hk, D]."""
+    ``tile`` keys at a time (the kernel's streamed K/V tile: running max
+    and sum, O rescaled); each tile's P V by ``matmul`` (a fresh
+    tensor-core sum in the kernel), added to the rescaled O in f32.
+    q [B, T, H, D]; k, v [B, T, Hk, D]."""
     b, t, h, d = q.shape
     hk = k.shape[2]
     g = h // hk

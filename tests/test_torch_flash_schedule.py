@@ -16,6 +16,12 @@ once, in ascending K/V-tile order, and that its waits cost no steps
 against the mirror image (the highest K/V tile first, walks from the
 diagonal up), which never waits when causal but leaves a longer tail: the
 longest walks come last.
+
+The forward kernel (``flash_attention_fwd.cu``) runs one CTA per (Q tile,
+b, h) in a fixed order, the heaviest causal Q tiles first with all heads
+of one Q tile side by side; the last part of this file reads its tile
+sizes and that order from the source and simulates the grid on ``SMS``
+SMs, one CTA an SM, each SM taking the next CTA when it is free.
 """
 
 import re
@@ -27,13 +33,14 @@ from chip_smoke import ATTN_DIM, ATTN_HEADS, FLASH_CASES, PATH_T
 from dmlc_tpu_torch.ops import kernels
 
 SRC = Path(kernels.__file__).parent / "csrc" / "flash_attention_bwd.cu"
+FWD_SRC = Path(kernels.__file__).parent / "csrc" / "flash_attention_fwd.cu"
 SMS = 132
 PATH_SHAPE = (1, PATH_T, ATTN_HEADS, ATTN_HEADS, ATTN_DIM, True)
 
 
-def source_constants():
+def source_constants(src=SRC):
     return {m.group(1): int(m.group(2)) for m in re.finditer(
-        r"constexpr int (k\w+) = (\d+);", SRC.read_text())}
+        r"constexpr int (k\w+) = (\d+);", src.read_text())}
 
 
 def work_items(b, t, h, hk, causal, mirror=False):
@@ -175,3 +182,76 @@ def test_path_shape_tail():
     assert steps <= 1.02 * total / SMS, (steps, total / SMS)
     assert all(dep < i for dep, i in pointers)
     assert mirror_waits == 0 and mirror_steps > 1.05 * total / SMS
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's grid
+# ---------------------------------------------------------------------------
+
+
+def forward_ctas(b, t, h, causal):
+    """[((b, h, Q tile), K/V tiles)] in the kernel's CTA order: CTA x takes
+    Q tile num_m - 1 - x // (B·H) and (b, h) = divmod(x % (B·H), H); its
+    K/V tiles reach the diagonal when causal, else the end."""
+    qr, kv = kernels.FLASH_FWD_Q_ROWS, kernels.FLASH_FWD_KV_ROWS
+    num_m, bh = -(-t // qr), b * h
+    out = []
+    for x in range(num_m * bh):
+        m = num_m - 1 - x // bh
+        n_end = min(t, m * qr + qr) if causal else t
+        out.append(((x % bh // h, x % bh % h, m), -(-n_end // kv)))
+    return out
+
+
+def run_grid(ctas, workers=SMS):
+    """The steps a grid takes when each of ``workers`` SMs holds one CTA
+    at a time, a CTA takes as many steps as it has K/V tiles, and a free
+    SM takes the next CTA in order."""
+    free = [0] * workers
+    for _, work in ctas:
+        i = min(range(workers), key=free.__getitem__)
+        free[i] += work
+    return max(free)
+
+
+def test_forward_tile_rows_match_the_kernel_source():
+    """kernels.FLASH_FWD_Q_ROWS / FLASH_FWD_KV_ROWS (the CPU model's tile
+    and this simulation) are the kernel's kQRows / kKvRows."""
+    consts = source_constants(FWD_SRC)
+    assert consts["kQRows"] == kernels.FLASH_FWD_Q_ROWS
+    assert consts["kKvRows"] == kernels.FLASH_FWD_KV_ROWS
+
+
+def test_forward_cta_order_is_read_from_the_kernel_source():
+    src = " ".join(FWD_SRC.read_text().split())
+    for line in ("const int m0 = (num_m - 1 - static_cast<int>(blockIdx.x) "
+                 "/ BH) * kQRows;",
+                 "const int bh = static_cast<int>(blockIdx.x) % BH;",
+                 "const int b = bh / H;", "const int h = bh % H;",
+                 "const int n_end = kCausal ? min(T, m0 + kQRows) : T;",
+                 "static_cast<int64_t>((T + kQRows - 1) / kQRows) * B * H;"):
+        assert line in src, line
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_forward_grid_covers_every_tile_once(case):
+    """Every (b, h, Q tile) is one CTA, and the order (heaviest first) ends
+    no later than the lightest-first order would."""
+    b, t, h, _, _, causal = case
+    ctas = forward_ctas(b, t, h, causal)
+    qr = kernels.FLASH_FWD_Q_ROWS
+    assert sorted(c for c, _ in ctas) == [
+        (bb, hh, m) for bb in range(b) for hh in range(h)
+        for m in range(-(-t // qr))]
+    assert run_grid(ctas) <= run_grid(ctas[::-1])
+
+
+def test_forward_path_shape_tail():
+    """At the path's shape (1024 CTAs of 4 to 512 K/V tiles on 132 SMs) the
+    heaviest-first order ends within 1 % of the work spread evenly, where
+    lightest first leaves a tail of more than 10 %."""
+    b, t, h, _, _, causal = PATH_SHAPE
+    ctas = forward_ctas(b, t, h, causal)
+    even = sum(w for _, w in ctas) / SMS
+    assert run_grid(ctas) <= 1.01 * even, (run_grid(ctas), even)
+    assert run_grid(ctas[::-1]) > 1.10 * even

@@ -8,7 +8,8 @@ Run from the root of a checkout, with no arguments::
 It needs one CUDA device and exits non-zero without one. With ``--times``
 it only builds the kernels and prints one ``{"times": ...}`` line: each
 kernel's cold-L2 CUDA-event time at the main path's shapes beside its
-yardstick, and the launch floor (``launch_floor_ms``: one and two launches
+yardstick (``coo_segment_sum`` also at a full bucket), and the launch
+floor (``launch_floor_ms``: one and two launches
 of an empty kernel, timed the same way), to compare two checkouts in turns
 on one card. With ``--remote-read`` it only builds the kernels and prints
 one ``{"remote_read": ...}`` line: phase 12's file read
@@ -23,8 +24,9 @@ non-zero exit and no result line:
 2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a)
    and print ptxas's registers and spills of each kernel; every flash
    kernel (``flash_fwd_kernel`` and ``flash_bwd_kernel``, each at D 32, 64
-   and 128, causal or not) and ``fused_linear_grads`` must show 0 spill
-   bytes; where the toolkit has ``cuobjdump``, the warpgroup products
+   and 128, causal or not), ``fused_linear_grads`` and both
+   ``seg_sum_kernel`` variants of ``coo_segment_sum`` ([E] and [E, C])
+   must show 0 spill bytes; where the toolkit has ``cuobjdump``, the warpgroup products
    (``HGMMA``) in each flash kernel variant's SASS (``flash_fwd_kernel``
    and ``flash_bwd_kernel``, 12 in all) are counted and must be there;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
@@ -41,8 +43,16 @@ non-zero exit and no result line:
    real offsets with a padded tail) and at the edge cases of
    ``seg_sum_edge_cases`` (no entries, fewer than a warp, one row holding
    every entry, empty rows at the start, middle and end, a -1 pad before
-   row 0, ids past the last row, a row longer than 32 x 32 entries):
-   bit-equal on integer data, the same bits twice; ``spmv_transpose``
+   row 0, ids past the last row, a row longer than 32 x 32 entries, and
+   where the kernel's tiles of 1024 entries can go wrong: a tile boundary
+   between two rows, an empty row at a tile boundary, a row over three
+   tiles, a tile of -1 pad only, the main-path bucket's padded last row of
+   8,231 entries, a single ragged tile): bit-equal on integer data, the
+   same bits twice; the Criteo batch at ``SEG_WIDE_COLS`` columns (two
+   column passes) bit-equal, each column equal to the [E] call; on float
+   data the kernel's bits equal ``seg_sum_schedule``'s (its order,
+   modelled on the CPU) at the Criteo batch as [E] and [E, 17] and at a
+   batch that fills the bucket (40 entries a row); ``spmv_transpose``
    gives the same bits twice, and the same bits again under
    ``torch.use_deterministic_algorithms(True)``;
 5. the dense path: ``LinearLearner(objective="logistic").fit_uri`` over a
@@ -58,10 +68,12 @@ non-zero exit and no result line:
    39 skewed ids in [1, 2^20], labels from a planted sparse rule), batch
    8192, 2^20 + 1 features; the launch count of ``coo_segment_sum`` must
    equal the step count;
-7. one call of ``fused_linear_grads`` must run exactly one kernel on the
-   card and nothing else (no memset), counted from a CUDA graph captured
-   around the call and, where CUPTI traces the card, under
-   torch.profiler too; the launch floor (one and
+7. one call of ``fused_linear_grads``, and one of ``coo_segment_sum`` at
+   the csr [327,680] and FM [327,680, 17] shapes, must each run exactly
+   one kernel on the card and nothing else (no memset), counted from a
+   CUDA graph captured around the call (after a warm-up call on its
+   stream, which makes the wrapper's counters) and, where CUPTI traces the
+   card, under torch.profiler too; the launch floor (one and
    two launches of the empty kernel of ``csrc/launch_floor.cu``); per
    kernel: CUDA-event times (cold L2) of the kernel, its plain version and
    the one PyTorch call that computes the same function where there is
@@ -410,8 +422,10 @@ non-zero exit and no result line:
 Phases 5 and 6 also require the tokenizer to launch once for each chunk
 part of their fits on the card: the parser tokenizes on the learner's
 device. The ``{"kernels": [...]}`` line has a row a kernel at its main
-path's shape, and ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
-(launches from phase 16's fit). Before the last lines come the ``moe``
+path's shape, ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
+(launches from phase 16's fit), and ``coo_segment_sum_full_bucket``, the
+csr shape with no padded tail (40 entries a row; launches the csr path's),
+which keeps the padded tail's cost on record. Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
 ``data_service`` line (phase 23), the ``feed`` line (phase 24), the
@@ -452,6 +466,9 @@ TF32_FAULT_MIN_T = 512
 
 HIGGS_ROWS, HIGGS_FEATURES, HIGGS_BATCH = 262_144, 28, 16_384
 CRITEO_ROWS, CRITEO_NNZ, CRITEO_DIM, CRITEO_BATCH = 65_536, 39, 1 << 20, 8192
+# the feed's entry bucket of a Criteo batch (device/csr.round_up_bucket of
+# 8192 x 39): the padded tail lands on the last row
+SEG_BUCKET = 327_680
 EPOCHS = 2
 # CPU (plain path) vs card (kernels) after 2 epochs of logistic SGD: the
 # gradients sum in another order and the card's expf differs from the
@@ -533,6 +550,8 @@ FM_HYPER = dict(objective="logistic", num_factors=8, init_scale=0.01,
                 learning_rate=0.05)
 FM_COLS = 2 * FM_HYPER["num_factors"] + 1  # [linear | x·v | (x·v)^2]
 FM_SEG_COLS = (1, 3, FM_COLS)
+# a width that takes coo_segment_sum two passes of kColChunk (24) columns
+SEG_WIDE_COLS = 40
 # card vs CPU after 2 epochs, as the linear fits (FIT_LOSS_RTOL,
 # FIT_PARAM_REL): the row and feature sums run in another order and the
 # card's exp differs from the host's by an ulp. Params are read as the
@@ -986,15 +1005,16 @@ def require_one_kernel(ops, what, kernel):
                 "one %s", what, counted, source, kernel)
 
 
-def criteo_batch(dev, seed):
+def criteo_batch(dev, seed, per_row=CRITEO_NNZ):
     """A padded Criteo batch as the feed builds it: 8192 rows of 39
-    entries (319,488) in a 327,680-entry bucket."""
+    entries (319,488) in a 327,680-entry bucket; at ``per_row`` = 40 the
+    entries fill the bucket, with no padded tail."""
     from dmlc_tpu_torch.data.row_block import RowBlock
     from dmlc_tpu_torch.device.csr import pad_to_bucket
 
     rng = np.random.RandomState(seed)
     rows = CRITEO_BATCH
-    counts = np.full(rows, CRITEO_NNZ)
+    counts = np.full(rows, per_row)
     offset = np.concatenate([[0], np.cumsum(counts)])
     nnz = int(offset[-1])
     block = RowBlock(
@@ -1029,7 +1049,180 @@ def seg_sum_edge_cases():
         ("a row longer than 32 x 32", runs((0, 3), (1, 1025), (2, 3000),
                                            (3, 1)), 4),
         ("one entry a row", np.arange(4099, dtype=np.int32), 4099),
+        # where the kernel's tiles of 1024 entries can go wrong
+        ("a tile boundary between two rows",
+         runs((0, 1024), (1, 1024), (2, 5)), 3),
+        ("an empty row at a tile boundary", runs((0, 1024), (2, 100)), 4),
+        ("a row over three tiles", runs((0, 10), (1, 3000), (2, 7)), 3),
+        ("a tile of -1 pad only", runs((-1, 2048), (0, 5), (1, 3)), 2),
+        ("the padded last row of the main-path bucket",
+         runs(*[(r, CRITEO_NNZ) for r in range(CRITEO_BATCH - 1)],
+              (CRITEO_BATCH - 1, SEG_BUCKET - (CRITEO_BATCH - 1)
+               * CRITEO_NNZ)), CRITEO_BATCH),
+        ("a single ragged tile", runs((0, 300), (1, 200)), 3),
     ]
+
+
+def seg_sum_constants() -> dict:
+    """The ``constexpr int`` constants of csrc/coo_segment_sum.cu
+    (kThreads, kPerThread, kColChunk, ...), read from the source."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "dmlc_tpu_torch", "ops", "csrc", "coo_segment_sum.cu")
+    with open(src) as f:
+        return {m.group(1): int(m.group(2)) for m in re.finditer(
+            r"constexpr int (k\w+) = (\d+);", f.read())}
+
+
+def seg_sum_schedule(contrib, row_ids, num_rows: int):
+    """``coo_segment_sum`` summed on the CPU in the order of the CUDA
+    kernel (csrc/coo_segment_sum.cu; its note describes the schedule):
+    returns (y, writes), ``writes[r]`` the times row r was written.
+
+    ``contrib`` is an f32 CPU tensor [E] or [E, C], ``row_ids`` int32
+    numpy ids that never decrease. Per tile: each thread's run pieces in
+    entry order, the warp's Kogge-Stone segmented scan, complete runs
+    written, warp pieces added in warp order, the rows with no entries
+    zeroed; then each run over tiles summed from its tile pieces in tile
+    order, column pass by column pass as the kernel takes them. Every f32
+    add is the kernel's, so on the card the kernel gives these bits."""
+    k = seg_sum_constants()
+    threads, per, chunk = k["kThreads"], k["kPerThread"], k["kColChunk"]
+    tile_n, wn = threads * per, 32 * per
+    warps = threads // 32
+    vals = contrib.reshape(contrib.shape[0], -1 if contrib.numel() else
+                           (1 if contrib.dim() == 1 else contrib.shape[1]))
+    entries, cols = vals.shape
+    ids_all = np.asarray(row_ids, dtype=np.int64)
+    tiles = max(1, -(-entries // tile_n))
+    out = torch.full((num_rows, cols), float("nan"))
+    writes = np.zeros(num_rows, dtype=np.int64)
+    edges = torch.full((tiles, 2, cols), float("nan"))
+    chains = {}  # start tile -> the tiles that arrived, and the row
+
+    def inr(r):
+        return 0 <= r < num_rows
+
+    def write(r, value):
+        out[r] = value
+        writes[r] += 1
+
+    lane = np.arange(threads) % 32
+    warp = np.arange(threads) // 32
+    for b in range(tiles):
+        base = b * tile_n
+        real = min(tile_n, max(entries - base, 0))
+        ids = np.full(tile_n, 2**31 - 1, dtype=np.int64)
+        ids[:real] = ids_all[base:base + real]
+        v = torch.zeros(tile_n, cols)
+        v[:real] = vals[base:base + real]
+        prev = ids_all[base - 1] if b > 0 else ids[0] ^ 1
+        nxt = ids_all[base + tile_n] if base + tile_n < entries \
+            else ids[-1] ^ 1
+        ext = np.concatenate([[prev], ids, [nxt]])  # ext[i + 1] = ids[i]
+        # the rows with no entries
+        for e in range(real):
+            nx = ids_all[base + e + 1] if base + e + 1 < entries else num_rows
+            lo, hi = max(ids[e] + 1, 0), min(nx, num_rows)
+            if lo < hi:
+                out[lo:hi] = 0.0
+                writes[lo:hi] += 1
+        if b == 0:
+            hi = min(max(ids[0], 0), num_rows) if entries else num_rows
+            out[:hi] = 0.0
+            writes[:hi] += 1
+        idt = ids.reshape(threads, per)
+        prev_id = ext[per * np.arange(threads)]
+        next_id = ext[per * np.arange(threads) + per + 1]
+        tile_open_s = b > 0 and prev == ids[0]
+        tile_open_e = base + tile_n < entries and nxt == ids[-1]
+        warp_open_s = [tile_open_s] + [ids[w * wn - 1] == ids[w * wn]
+                                       for w in range(1, warps)]
+        warp_open_e = [ids[(w + 1) * wn - 1] == ids[(w + 1) * wn]
+                       for w in range(warps - 1)] + [tile_open_e]
+        link = warp_open_e[:-1]
+        single = [ids[w * wn] == ids[(w + 1) * wn - 1] for w in range(warps)]
+        head = (lane == 0) | (idt[:, -1] != prev_id)
+        add = []
+        for s in range(5):
+            d = 1 << s
+            add.append(torch.tensor((lane >= d) & ~head)[:, None])
+            head = np.where(lane >= d, head | np.roll(head, d), head)
+        cont = torch.tensor((lane[:, None] > 0) & (idt == prev_id[:, None]))
+        same = torch.tensor(idt[:, 1:] == idt[:, :-1])
+        # the thread's entries j that end a run or the warp
+        nexts = np.concatenate([idt[:, 1:], next_id[:, None]], axis=1)
+        ends = np.argwhere((idt != nexts) | ((lane[:, None] == 31)
+                                             & (np.arange(per) == per - 1)))
+        for c0 in range(0, cols, chunk):
+            vt = v[:, c0:c0 + chunk].reshape(threads, per, -1)
+            loc = [vt[:, 0]]
+            for j in range(1, per):
+                loc.append(torch.where(same[:, j - 1, None],
+                                       loc[-1] + vt[:, j], vt[:, j]))
+            s = loc[-1]
+            for m in range(5):
+                s = torch.where(add[m], torch.roll(s, 1 << m, 0) + s, s)
+            carry = torch.roll(s, 1, 0)
+            value = torch.where(cont[..., None], carry[:, None]
+                                + torch.stack(loc, 1), torch.stack(loc, 1))
+            piece = torch.full((warps, 2, value.shape[2]), float("nan"))
+            for t, j in ends:
+                r, w = idt[t, j], warp[t]
+                if not inr(r):
+                    continue
+                os_ = r == ids[w * wn] and warp_open_s[w]
+                oe = lane[t] == 31 and j == per - 1 and warp_open_e[w]
+                val = value[t, j]
+                if not os_ and not oe:
+                    out[r, c0:c0 + chunk] = val
+                    writes[r] += c0 == 0
+                elif (os_ and w > 0) or (oe and w < warps - 1):
+                    if os_:
+                        piece[w, 0] = val
+                    if oe:
+                        piece[w, 1] = val
+                else:
+                    edges[b, 0 if os_ else 1, c0:c0 + chunk] = val
+            for a in range(warps - 1):
+                r = ids[(a + 1) * wn - 1]
+                if not link[a] or (a > 0 and link[a - 1] and single[a]) \
+                        or not inr(r):
+                    continue
+                acc, w = piece[a, 1], a + 1
+                while True:
+                    acc = acc + piece[w, 0]
+                    if w < warps - 1 and link[w] and single[w]:
+                        w += 1
+                    else:
+                        break
+                os_ = a == 0 and single[0] and tile_open_s
+                oe = w == warps - 1 and single[w] and tile_open_e
+                if not os_ and not oe:
+                    out[r, c0:c0 + chunk] = acc
+                    writes[r] += c0 == 0
+                if os_:
+                    edges[b, 0, c0:c0 + chunk] = acc
+                if oe:
+                    edges[b, 1, c0:c0 + chunk] = acc
+        first, last = ids[0], ids[tile_n - 1]
+        through = tile_open_s and tile_open_e and first == last
+        if tile_open_s and inr(first):
+            a = b - 1
+            while a >= 1 and ids_all[a * tile_n - 1] == first:
+                a -= 1
+            chains.setdefault(a, ([], first))[0].append(b)
+        if tile_open_e and not through and inr(last):
+            chains.setdefault(b, ([], last))[0].append(b)
+    for a, (arrived, r) in chains.items():
+        require(sorted(arrived) == list(range(a, max(arrived) + 1))
+                and len(arrived) >= 2,
+                "seg_sum_schedule: chain %d arrivals %s", a, arrived)
+        acc = edges[a, 1]
+        for k in range(a + 1, max(arrived) + 1):
+            acc = acc + edges[k, 0]
+        write(r, acc)
+    shape = (num_rows,) + tuple(contrib.shape[1:])
+    return out.reshape(shape), writes
 
 
 def hold_seg_sum(kernels, dev, name, row_ids, num_rows):
@@ -1047,6 +1240,49 @@ def hold_seg_sum(kernels, dev, name, row_ids, num_rows):
             "coo_segment_sum %s: kernel and plain differ", name)
     require(torch.equal(got, again), "coo_segment_sum %s: two runs differ",
             name)
+
+
+def hold_seg_schedule(kernels, name, contrib, row_ids, num_rows):
+    """coo_segment_sum on the card against ``seg_sum_schedule`` (its
+    order, on the CPU) on the same float inputs: the same bits. Returns
+    the kernel's result."""
+    got = kernels.coo_segment_sum(contrib, row_ids, num_rows)
+    want, writes = seg_sum_schedule(contrib.cpu(), row_ids.cpu().numpy(),
+                                    num_rows)
+    require(bool((writes == 1).all()), "seg_sum_schedule %s: rows written "
+            "other than once", name)
+    require(torch.equal(got.cpu(), want), "coo_segment_sum %s [%s]: the "
+            "kernel's bits differ from its schedule's (max abs diff %g)",
+            name, list(contrib.shape), float((got.cpu() - want).abs().max()))
+    return got
+
+
+def seg_sum_row(kernels, dev, flush, name, contrib, row_ids, launches,
+                err) -> dict:
+    """The ``kernels`` line's row of ``coo_segment_sum`` at ``contrib``
+    [E] or [E, C]: times of the kernel, its plain version and
+    ``index_add_``, beside its byte bound (E·C·4 + E·4 + rows·C·4)."""
+    entries = contrib.shape[0]
+    cols = 1 if contrib.dim() == 1 else contrib.shape[1]
+    ids64 = row_ids.long()
+    row = {
+        "name": name, "route": "cuda",
+        "source": "dmlc_tpu_torch/ops/csrc/coo_segment_sum.cu",
+        "replaces": "dmlc_tpu/ops/pallas_kernels.py:221",
+        "launches": launches, "max_abs_err": err,
+        "shape": [entries, cols, CRITEO_BATCH],
+        "ms": time_ms(lambda: kernels.coo_segment_sum(
+            contrib, row_ids, CRITEO_BATCH), flush),
+        "plain_ms": time_ms(lambda: kernels.coo_segment_sum_plain(
+            contrib, row_ids, CRITEO_BATCH), flush),
+        "library_ms": time_ms(lambda: torch.zeros(
+            (CRITEO_BATCH,) + tuple(contrib.shape[1:]), device=dev
+        ).index_add_(0, ids64, contrib), flush),
+    }
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (entries * cols + entries + CRITEO_BATCH * cols),
+        entries * cols)
+    return row
 
 
 def run_fit(path, layout, batch_size, num_features, device,
@@ -2792,24 +3028,8 @@ def drive_fm(kernels, dev, fm_file) -> tuple:
         "same_bits_twice": True, "step_profile": profile_call(one_step)}
     # (f) the column kernel timed at FM's shape
     flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
-    ids64 = row_ids.long()
-    row = {
-        "name": "coo_segment_sum_fm", "route": "cuda",
-        "source": "dmlc_tpu_torch/ops/csrc/coo_segment_sum.cu",
-        "replaces": "dmlc_tpu/ops/pallas_kernels.py:221",
-        "launches": launches["coo_segment_sum"], "max_abs_err": seg_err,
-        "shape": [entries, FM_COLS, CRITEO_BATCH],
-        "ms": time_ms(lambda: kernels.coo_segment_sum(
-            packed, row_ids, CRITEO_BATCH), flush),
-        "plain_ms": time_ms(lambda: kernels.coo_segment_sum_plain(
-            packed, row_ids, CRITEO_BATCH), flush),
-        "library_ms": time_ms(lambda: torch.zeros(
-            CRITEO_BATCH, FM_COLS, device=dev).index_add_(0, ids64, packed),
-            flush),
-    }
-    row["bound_ms"], row["bound_by"] = bound(
-        4 * (entries * FM_COLS + entries + CRITEO_BATCH * FM_COLS),
-        entries * FM_COLS)
+    row = seg_sum_row(kernels, dev, flush, "coo_segment_sum_fm", packed,
+                      row_ids, launches["coo_segment_sum"], seg_err)
     del flush
     torch.cuda.synchronize()
     return report, row, start
@@ -6299,6 +6519,10 @@ def kernel_times(kernels, dev) -> dict:
     ids64 = row_ids.long()
     contrib = batch["values"] * 0.5
     packed = contrib[:, None].repeat(1, FM_COLS)
+    full = criteo_batch(dev, 3, per_row=CRITEO_NNZ + 1)
+    full_ids = expand_row_ids(full["offsets"], full["values"].shape[0])
+    full_ids64 = full_ids.long()
+    full_contrib = full["values"] * 0.5
     dense = fused_case(kernels, dev, HIGGS_BATCH, HIGGS_FEATURES + 1,
                        "logistic", False, 2)[1]
     chunk = torch.tensor(token_chunk("mixed", CHUNK_BYTES, seed=1),
@@ -6323,6 +6547,12 @@ def kernel_times(kernels, dev) -> dict:
             "index_add_fm": time_ms(lambda: torch.zeros(
                 CRITEO_BATCH, FM_COLS, device=dev).index_add_(
                     0, ids64, packed), flush),
+            "coo_segment_sum_full_bucket": time_ms(
+                lambda: kernels.coo_segment_sum(full_contrib, full_ids,
+                                                CRITEO_BATCH), flush),
+            "index_add_full_bucket": time_ms(lambda: torch.zeros(
+                CRITEO_BATCH, device=dev).index_add_(
+                    0, full_ids64, full_contrib), flush),
             "fused_linear_grads": time_ms(lambda: kernels.fused_linear_grads(
                 *dense, objective="logistic"), flush),
             "tokenize_boundaries": time_ms(
@@ -6426,6 +6656,9 @@ def smoke(fit_dir: str) -> int:
              if "fused_linear_grads_kernel" in name]
     require(fused == [0], "fused_linear_grads_kernel: ptxas spills %s",
             fused)
+    seg = [n for name, n in spills.items() if "seg_sum_kernel" in name]
+    require(seg == [0, 0], "seg_sum_kernel ([E] and [E, C]): ptxas spills "
+            "%s", seg)
     torch.cuda.synchronize()
 
     lap("2")
@@ -6469,14 +6702,26 @@ def smoke(fit_dir: str) -> int:
     require(torch.equal(got, again), "coo_segment_sum: two runs differ")
     for name, ids, num_rows in seg_sum_edge_cases():
         hold_seg_sum(kernels, dev, name, ids, num_rows)
+    hold_seg_sum_cols(kernels, dev, "criteo batch", row_ids.cpu().numpy(),
+                      CRITEO_BATCH, SEG_WIDE_COLS)
     w_vec = torch.tensor(rng.randn(CRITEO_DIM + 1).astype(np.float32) * 0.1,
                          device=dev)
     contrib = batch["values"] * w_vec.index_select(0, batch["indices"])
-    got = kernels.coo_segment_sum(contrib, row_ids, CRITEO_BATCH)
+    got = hold_seg_schedule(kernels, "criteo batch", contrib, row_ids,
+                            CRITEO_BATCH)
     want = kernels.coo_segment_sum_plain(contrib, row_ids, CRITEO_BATCH)
     seg_err = float((got - want).abs().max())
     require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
             "coo_segment_sum float data: max abs err %g", seg_err)
+    fm_like = batch["values"][:, None] * torch.tensor(
+        0.1 * rng.randn(entries, FM_COLS).astype(np.float32), device=dev)
+    hold_seg_schedule(kernels, "criteo batch", fm_like, row_ids,
+                      CRITEO_BATCH)
+    full = criteo_batch(dev, 3, per_row=CRITEO_NNZ + 1)
+    full_ids = expand_row_ids(full["offsets"], entries)
+    full_contrib = full["values"] * w_vec.index_select(0, full["indices"])
+    hold_seg_schedule(kernels, "full bucket", full_contrib, full_ids,
+                      CRITEO_BATCH)
     row_grads = torch.tensor(rng.randn(CRITEO_BATCH).astype(np.float32),
                              device=dev)
     g1 = spmv_transpose(batch["values"], batch["indices"], row_ids,
@@ -6494,6 +6739,7 @@ def smoke(fit_dir: str) -> int:
     require(torch.equal(g1, g_det),
             "spmv_transpose: bits differ from torch's deterministic mode")
     print(json.dumps({"coo_segment_sum_float_max_abs_err": seg_err,
+                      "coo_segment_sum_bits_equal_schedule": True,
                       "spmv_transpose_same_bits_twice": True}), flush=True)
 
     lap("4")
@@ -6548,22 +6794,23 @@ def smoke(fit_dir: str) -> int:
     fused_row["bound_ms"], fused_row["bound_by"] = bound(
         4 * (rows * features + 2 * rows + 2 * features + 4),
         4 * rows * features)
-    ids64 = row_ids.long()
-    seg_row = {
-        "name": "coo_segment_sum", "route": "cuda",
-        "source": "dmlc_tpu_torch/ops/csrc/coo_segment_sum.cu",
-        "replaces": "dmlc_tpu/ops/pallas_kernels.py:221",
-        "launches": paths["csr"]["launches"]["coo_segment_sum"],
-        "max_abs_err": seg_err,
-        "ms": time_ms(lambda: kernels.coo_segment_sum(
-            contrib, row_ids, CRITEO_BATCH), flush),
-        "plain_ms": time_ms(lambda: kernels.coo_segment_sum_plain(
-            contrib, row_ids, CRITEO_BATCH), flush),
-        "library_ms": time_ms(lambda: torch.zeros(
-            CRITEO_BATCH, device=dev).index_add_(0, ids64, contrib), flush),
-    }
-    seg_row["bound_ms"], seg_row["bound_by"] = bound(
-        8 * entries + 4 * CRITEO_BATCH, entries)
+    seg_ops = {}
+    for what, c in (("csr", contrib), ("fm", fm_like)):
+        seg_ops[what] = one_call_ops(lambda: kernels.coo_segment_sum(
+            c, row_ids, CRITEO_BATCH))
+        require_one_kernel(seg_ops[what], "coo_segment_sum " + what,
+                           "seg_sum_kernel")
+    print(json.dumps({"coo_segment_sum_device_ops": seg_ops}), flush=True)
+    seg_row = seg_sum_row(kernels, dev, flush, "coo_segment_sum", contrib,
+                          row_ids, paths["csr"]["launches"]["coo_segment_sum"],
+                          seg_err)
+    full_err = float((kernels.coo_segment_sum(
+        full_contrib, full_ids, CRITEO_BATCH) - kernels.coo_segment_sum_plain(
+            full_contrib, full_ids, CRITEO_BATCH)).abs().max())
+    full_row = seg_sum_row(kernels, dev, flush, "coo_segment_sum_full_bucket",
+                           full_contrib, full_ids,
+                           paths["csr"]["launches"]["coo_segment_sum"],
+                           full_err)
     torch.cuda.synchronize()
     del flush
 
@@ -6819,7 +7066,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"phase_seconds": laps}))
     print(json.dumps({"seconds": time.perf_counter() - started}))
     print(json.dumps({"kernels": [fused_row, seg_row] + flash_rows
-                      + [token_row, fm_row]}))
+                      + [token_row, fm_row, full_row]}))
     print("card:", card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // fused_linear_grads: the whole dense local step of the linear learner.
 //
-// Replaces dmlc_tpu/ops/pallas_kernels.py, fused_linear_grads /
+// Replaces dmlc_tpu/ops/pallas_kernels.py:108, fused_linear_grads /
 // _fused_step_kernel (the Pallas TPU kernel of the dense layout).
 //
 // For x [B, F] f32 row-major, label and weight [B], w [F] and a scalar b:
@@ -31,19 +31,35 @@
 //      weight come from a butterfly over the warp's rows, then warp order.
 //      The CTA writes one partial row [gw(F), gb, loss_sum, weight_sum].
 //   4. The CTA takes a ticket from an arrival counter with one acq_rel
-//      atomic increment (release: its row is visible before its ticket;
-//      acquire: the CTA with the last ticket then sees every row). That
-//      CTA sums all partial rows in tile order (warp j takes tiles j,
-//      j + kWarps, ..., kBatch loads in flight, then warp order) into gw
-//      and the scalars. The increment wraps the counter back to 0 for the
-//      next call on the stream. The sum reads the partial rows from
-//      memory, so its bits do not depend on which CTA arrived last.
+//      atomic increment (fixed_order.cuh; release: its row is visible
+//      before its ticket; acquire: the CTA with the last ticket then sees
+//      every row). That CTA sums all partial rows in tile order (warp j
+//      takes tiles j, j + kWarps, ..., kBatch loads in flight, then warp
+//      order) into gw and the scalars. The increment wraps the counter
+//      back to 0 for the next call on the stream. The sum reads the
+//      partial rows from memory, so its bits do not depend on which CTA
+//      arrived last.
 // No float atomics: the same inputs give the same bits on every run. Any
 // rows >= 1 and F >= 1: nothing of size F lives in shared memory or
 // registers.
+//
+// Where the time goes (H100 80GB HBM3, 700.00 W, cold L2, HIGGS batch,
+// python3 probe_kernels.py fused-breakdown, variants that each leave one
+// stage out): 0.0094 ms, of which the launch of the grid 0.0051 (one empty
+// launch 0.0048), the x read 0.0019, the objective 0.0003, the rest of
+// steps 2-3 0.0008, the ticket 0.0005 and the last CTA's sum 0.0008. The
+// tail grows with the tiles (256 tiles of 64 rows 0.0106), and fewer,
+// wider tiles lengthen each CTA's chain more (64 of 256 rows 0.0095-
+// 0.0097). A design with clusters of 8 CTAs adding their rows over
+// distributed shared memory, one row and one ticket a cluster (the
+// probe's cluster8 variant), took 0.0102 against this design's 0.0093 in
+// the same turns: its two cluster barriers a chunk cost more than the 112
+// rows and tickets they save. This design stays.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fixed_order.cuh"
 
 namespace {
 
@@ -239,11 +255,7 @@ fused_linear_grads_kernel(const float* __restrict__ x,
   if (warp == 0) {
     __syncwarp();  // warp 0's stores of the row, before lane 0's release
     if (lane == 0) {
-      unsigned ticket;
-      asm volatile("atom.acq_rel.gpu.global.inc.u32 %0, [%1], %2;\n"
-                   : "=r"(ticket) : "l"(counter), "r"(num_tiles - 1)
-                   : "memory");
-      s_ticket = ticket;
+      s_ticket = fixed_order::arrive_ticket(counter, num_tiles - 1);
     }
   }
   __syncthreads();

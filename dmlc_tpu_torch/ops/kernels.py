@@ -6,6 +6,8 @@ flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
   (csrc/fused_linear_grads.cu);
 - :func:`coo_segment_sum` — the row-direction reduce of the csr margin and
   of FM's packed row sums, one or more columns (csrc/coo_segment_sum.cu);
+  it and :func:`fused_linear_grads` sum across CTAs in a fixed order
+  (csrc/fixed_order.cuh), counted by integers kept on each stream;
 - :func:`flash_attention_fwd` — attention output and row logsumexp
   (csrc/flash_attention_fwd.cu);
 - :func:`flash_attention_bwd` — its gradients dQ, dK and dV in one kernel
@@ -50,12 +52,27 @@ from dmlc_tpu_torch.utils.logging import DMLCError, check
 OBJECTIVE_CODES = {"logistic": 0, "squared": 1, "hinge": 2}
 #: rows per CTA tile; must equal kTileRows in csrc/fused_linear_grads.cu
 FUSED_TILE_ROWS = 128
+#: entries per CTA tile; must equal kTile in csrc/coo_segment_sum.cu
+SEG_TILE = 1024
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
+_FLASH_DIMS = [_INT] * 6 + [_P]  # B T H Hkv D causal, stream
+#: ctypes argument types of each C entry point of the kernels' library
+#: (each returns an int, cudaGetLastError())
+SIGNATURES = {
+    "dmlc_fused_linear_grads": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
+                                _P, _P, _P, _P, _P],
+    "dmlc_coo_segment_sum": [_P, _P, _I64, _I64, _I64, _INT, _P, _P, _P, _P],
+    "dmlc_flash_attention_fwd": [_P] * 5 + _FLASH_DIMS,
+    "dmlc_flash_attention_bwd": [_P] * 11 + _FLASH_DIMS,
+    "dmlc_tokenize_boundaries": [_P, _I64, _P, _P, _P],
+    "dmlc_empty_launches": [_INT, _P],
+}
 _declared = False
 #: guards every wrapper's ``launches`` count (a += from two threads can
-#: lose one) and the arrival counters of ``fused_linear_grads``
+#: lose one) and the kernels' arrival counters
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -63,22 +80,10 @@ def _lib() -> ctypes.CDLL:
     global _declared
     lib = _build.load_library()
     if not _declared:
-        lib.dmlc_fused_linear_grads.argtypes = [
-            _P, _P, _P, _P, _P, _I64, _I64, ctypes.c_int, ctypes.c_int,
-            _P, _P, _P, _P, _P]
-        lib.dmlc_fused_linear_grads.restype = ctypes.c_int
-        lib.dmlc_coo_segment_sum.argtypes = [_P, _P, _I64, _I64, _I64, _P,
-                                             _P, _P]
-        lib.dmlc_coo_segment_sum.restype = ctypes.c_int
-        dims = [ctypes.c_int] * 6 + [_P]  # B T H Hkv D causal, stream
-        lib.dmlc_flash_attention_fwd.argtypes = [_P] * 5 + dims
-        lib.dmlc_flash_attention_fwd.restype = ctypes.c_int
-        lib.dmlc_flash_attention_bwd.argtypes = [_P] * 11 + dims
-        lib.dmlc_flash_attention_bwd.restype = ctypes.c_int
-        lib.dmlc_tokenize_boundaries.argtypes = [_P, _I64, _P, _P, _P]
-        lib.dmlc_tokenize_boundaries.restype = ctypes.c_int
-        lib.dmlc_empty_launches.argtypes = [ctypes.c_int, _P]
-        lib.dmlc_empty_launches.restype = ctypes.c_int
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _declared = True
     return lib
 
@@ -118,21 +123,23 @@ def fused_linear_grads_plain(x, label, weight, w, b, objective="logistic"):
     return x.T @ wg, torch.sum(wg), torch.sum(weight * loss), torch.sum(weight)
 
 
-#: (device index, stream handle) -> the int32 arrival counter of
-#: csrc/fused_linear_grads.cu on that stream, zeroed once; each call leaves
-#: it at 0, and calls on one stream run one after another
+#: (kernel name, device index, stream handle) -> the integer counters a
+#: kernel's CTAs arrive at on that stream (csrc/fixed_order.cuh), zeroed
+#: when made or grown; each call leaves them at 0, and calls on one stream
+#: run one after another
 _ARRIVAL_COUNTERS = {}
 
 
-def _arrival_counter(dev, stream):
-    key = (dev.index, stream.cuda_stream)
+def _arrival_counters(kernel: str, dev, stream, count: int,
+                      dtype=torch.int32):
+    key = (kernel, dev.index, stream.cuda_stream)
     with _LAUNCH_LOCK:
-        counter = _ARRIVAL_COUNTERS.get(key)
-        if counter is None:
+        counters = _ARRIVAL_COUNTERS.get(key)
+        if counters is None or counters.numel() < count:
             # zeroed on the current stream, ahead of the launch that reads it
-            counter = torch.zeros(1, dtype=torch.int32, device=dev)
-            _ARRIVAL_COUNTERS[key] = counter
-    return counter
+            counters = torch.zeros(count, dtype=dtype, device=dev)
+            _ARRIVAL_COUNTERS[key] = counters
+    return counters
 
 
 def _fused_cost(x, label, weight, w, b, objective="logistic"):
@@ -175,7 +182,7 @@ def fused_linear_grads(x, label, weight, w, b, objective="logistic"):
     scalars = torch.empty(3, dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev)
-    counter = _arrival_counter(dev, stream)
+    counter = _arrival_counters("fused_linear_grads", dev, stream, 1)
     with torch.cuda.device(dev):
         rc = lib.dmlc_fused_linear_grads(
             x.data_ptr(), label.data_ptr(), weight.data_ptr(), w.data_ptr(),
@@ -218,6 +225,12 @@ def _seg_sum_cost(contrib, row_ids, num_rows: int):
             entries * cols * 4 + entries * 4 + num_rows * cols * 4)
 
 
+def seg_sum_tiles(entries: int) -> int:
+    """CTA tiles of a ``coo_segment_sum`` launch over ``entries`` entries
+    (one even with none: it zeroes the rows)."""
+    return max(1, -(-entries // SEG_TILE))
+
+
 @costed(_seg_sum_cost)
 def coo_segment_sum(contrib, row_ids, num_rows: int):
     """``y[r] = Σ_{e: row_ids[e]==r} contrib[e]`` for r in [0, num_rows).
@@ -225,10 +238,13 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
     contrib [E] or [E, C] f32 (row-major) and row_ids [E] i32 on one
     device; returns [num_rows] or [num_rows, C] f32. Row ids outside
     [0, num_rows) contribute nothing (the reference's -1 pad). On a CUDA
-    tensor this launches csrc/coo_segment_sum.cu (two kernels: each row's
-    first entry, once for all columns, then a warp per output), counted as
-    one launch; each column sums in the order of the [E] call, so column c
-    is bit-equal to ``coo_segment_sum(contrib[:, c].contiguous(), ...)``.
+    tensor this launches csrc/coo_segment_sum.cu once: a CTA a tile of
+    ``SEG_TILE`` entries, each run of equal ids summed in its tile, a row
+    over several tiles summed in tile order from their pieces (an f32
+    scratch of [tiles, 2, C]) by the tile that arrives last at it (u64
+    counters kept on the stream, zeroed once, left at 0 by each call).
+    Each column sums in the order of the [E] call, so column c is
+    bit-equal to ``coo_segment_sum(contrib[:, c].contiguous(), ...)``.
     The kernel requires ``row_ids`` to never decrease — what
     ops/spmv.expand_row_ids produces — which is not checked here, since
     checking would cost a device sync per call. On a CPU tensor it runs
@@ -249,13 +265,17 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
     _check_input(row_ids, "row_ids", torch.int32, (entries,), dev)
     out = torch.empty((num_rows,) + tuple(contrib.shape[1:]),
                       dtype=torch.float32, device=dev)
-    starts = torch.empty(num_rows + 1, dtype=torch.int64, device=dev)
+    tiles = seg_sum_tiles(entries)
+    edges = torch.empty(tiles * 2 * cols, dtype=torch.float32, device=dev)
     lib = _lib()
+    stream = torch.cuda.current_stream(dev)
+    chains = _arrival_counters("coo_segment_sum", dev, stream, tiles,
+                               torch.int64)
     with torch.cuda.device(dev):
         rc = lib.dmlc_coo_segment_sum(
             contrib.data_ptr(), row_ids.data_ptr(), entries, num_rows, cols,
-            starts.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            SEG_TILE, edges.data_ptr(), chains.data_ptr(), out.data_ptr(),
+            stream.cuda_stream)
     _launch_check(rc, "coo_segment_sum")
     count_launch(coo_segment_sum)
     return out
@@ -361,27 +381,11 @@ FLASH_FWD_KV_ROWS = 32
 FLASH_BWD_KV_ROWS = 64
 FLASH_BWD_Q_ROWS = 32
 
-#: (device index, stream handle) -> the int32 flags of
-#: csrc/flash_attention_bwd.cu on that stream (two item counters, then one
-#: flag per (b, h, Q tile)), zeroed when made or grown; each call
-#: leaves them at 0, and calls on one stream run one after another
-_FLASH_BWD_SYNC = {}
-
-
 def flash_bwd_sync_ints(b: int, t: int, h: int) -> int:
-    """int32s of the backward kernel's flags for a [B, T, H, D] call."""
+    """int32s of the backward kernel's flags for a [B, T, H, D] call (two
+    item counters, then one flag per (b, h, Q tile)), kept on the stream
+    by :func:`_arrival_counters`."""
     return 2 + b * h * -(-t // FLASH_BWD_Q_ROWS)
-
-
-def _flash_bwd_sync(dev, stream, ints: int):
-    key = (dev.index, stream.cuda_stream)
-    with _LAUNCH_LOCK:
-        sync = _FLASH_BWD_SYNC.get(key)
-        if sync is None or sync.numel() < ints:
-            # zeroed on the current stream, ahead of the launch that reads it
-            sync = torch.zeros(ints, dtype=torch.int32, device=dev)
-            _FLASH_BWD_SYNC[key] = sync
-    return sync
 
 
 def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False):
@@ -404,7 +408,8 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, causal: bool = False):
     dv = torch.empty_like(v)
     dq_acc = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device)
-    sync = _flash_bwd_sync(q.device, stream, flash_bwd_sync_ints(b, t, h))
+    sync = _arrival_counters("flash_attention_bwd", q.device, stream,
+                             flash_bwd_sync_ints(b, t, h))
     with torch.cuda.device(q.device):
         rc = _lib().dmlc_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_CASES, FM_SEG_COLS, TF32_FAULT_MIN_T,
-                         TOKEN_SIZES, drive_recovery, flash_case,
+from chip_smoke import (FLASH_CASES, FM_COLS, FM_SEG_COLS, SEG_WIDE_COLS,
+                         TF32_FAULT_MIN_T, TOKEN_SIZES, criteo_batch,
+                         drive_recovery, flash_case, hold_seg_schedule,
                          hold_seg_sum, hold_seg_sum_cols, one_call_ops,
                          read_lost_tile, require_one_kernel,
                          seg_sum_edge_cases, token_chunk, write_criteo)
@@ -153,6 +154,58 @@ def test_coo_segment_sum_kernel_matches_plain(cuda, case):
     want = kernels.coo_segment_sum_plain(contrib, row_ids, rows)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("cols", [None, FM_COLS, SEG_WIDE_COLS])
+@pytest.mark.parametrize("case", ["criteo batch"] + sorted(SEG_EDGE_CASES))
+def test_coo_segment_sum_kernel_matches_its_schedule(cuda, case, cols):
+    """On float data the kernel gives the bits of
+    chip_smoke.seg_sum_schedule, its summation order modelled on the CPU
+    (tests/test_torch_segsum_schedule.py holds the model), at [E], FM's
+    [E, 17] and a width of two column passes; every row written once."""
+    if case == "criteo batch":
+        batch = criteo_batch(cuda, 3)
+        ids = expand_row_ids(batch["offsets"], batch["values"].shape[0])
+        rows = 8192
+    else:
+        ids, rows = SEG_EDGE_CASES[case]
+        ids = torch.tensor(ids, device=cuda)
+    rng = np.random.RandomState(len(ids) + (cols or 1))
+    shape = (len(ids),) if cols is None else (len(ids), cols)
+    contrib = torch.tensor(rng.randn(*shape).astype(np.float32),
+                           device=cuda)
+    got = hold_seg_schedule(kernels, case, contrib, ids, rows)
+    assert torch.equal(got, kernels.coo_segment_sum(contrib, ids, rows))
+
+
+@pytest.mark.parametrize("cols", [None, FM_COLS])
+def test_coo_segment_sum_is_one_kernel_on_any_stream(cuda, cols):
+    """One call runs exactly one kernel and no memset (a captured CUDA
+    graph and, where CUPTI traces, torch.profiler) at the Criteo batch, as
+    [E] and at FM's width; two streams at once give the same bits, one
+    counted launch a call, and leave their chain counters at 0."""
+    batch = criteo_batch(cuda, 3)
+    ids = expand_row_ids(batch["offsets"], batch["values"].shape[0])
+    contrib = batch["values"] if cols is None else \
+        batch["values"][:, None].repeat(1, cols)
+    ops = one_call_ops(lambda: kernels.coo_segment_sum(contrib, ids, 8192))
+    require_one_kernel(ops, "coo_segment_sum", "seg_sum_kernel")
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    before = kernels.coo_segment_sum.launches
+    got = []
+    for stream in streams:
+        with torch.cuda.stream(stream):
+            got += [kernels.coo_segment_sum(contrib, ids, 8192)
+                    for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.coo_segment_sum.launches == before + 4
+    assert all(torch.equal(got[0], g) for g in got[1:])
+    for stream in streams:
+        chains = kernels._ARRIVAL_COUNTERS[(
+            "coo_segment_sum", torch.cuda.current_device(),
+            stream.cuda_stream)]
+        assert int(chains.abs().sum()) == 0
 
 
 def test_spmv_transpose_repeats_its_bits(cuda):
@@ -300,7 +353,8 @@ def test_flash_backward_is_one_kernel_and_leaves_its_flags_at_zero(cuda,
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, again))
     stream = torch.cuda.current_stream(q.device)
-    sync = kernels._FLASH_BWD_SYNC[(q.device.index, stream.cuda_stream)]
+    sync = kernels._ARRIVAL_COUNTERS[("flash_attention_bwd", q.device.index,
+                                      stream.cuda_stream)]
     assert int(sync.abs().sum()) == 0
 
 
@@ -534,7 +588,7 @@ def test_sharded_spmv_through_coo_segment_sum(cuda, shards):
     assert torch.equal(got.cpu(), want)
 
 
-@pytest.mark.parametrize("cols", FM_SEG_COLS)
+@pytest.mark.parametrize("cols", FM_SEG_COLS + (SEG_WIDE_COLS,))
 @pytest.mark.parametrize("case", ["criteo batch"] + sorted(SEG_EDGE_CASES))
 def test_column_coo_segment_sum_matches_plain_and_1d(cuda, case, cols):
     """chip_smoke.py's phase 16 (a): the [E, C] call bit-equal to its plain

@@ -29,6 +29,9 @@ non-zero exit and no result line:
    must show 0 spill bytes; where the toolkit has ``cuobjdump``, the warpgroup products
    (``HGMMA``) in each flash kernel variant's SASS (``flash_fwd_kernel``
    and ``flash_bwd_kernel``, 12 in all) are counted and must be there;
+   then the native core from ``dmlc_tpu_torch/native/csrc`` (g++, one
+   process a source), its seconds and SIMD tier printed, loaded from
+   ``native/_build/``;
 3. ``fused_linear_grads`` against its plain PyTorch version on the card at
    [16384, 29] (HIGGS), a ragged [1000, 29] and a wide [4096, 2048]:
    integer-valued data with the squared and hinge objectives must match bit
@@ -57,7 +60,9 @@ non-zero exit and no result line:
    ``torch.use_deterministic_algorithms(True)``;
 5. the dense path: ``LinearLearner(objective="logistic").fit_uri`` over a
    seeded HIGGS-shaped LibSVM file (262,144 rows x 28 features), batch
-   16384, 2 epochs, on the card and on the CPU; the launch count of
+   16384, 2 epochs, on the card and on the CPU, through the native route
+   (``NativePipelineParser``, each epoch's batches staged in C++: the
+   tokenizer launches 0 times); the launch count of
    ``fused_linear_grads`` must equal the step count; the loss must fall;
    the card's loss history must match the CPU's within rtol 1e-5 and its
    params within a relative norm of 1e-5; the same fit on the CPU at half
@@ -126,22 +131,24 @@ non-zero exit and no result line:
    rows, ~120 MB); masks that leave ':' out of the separators must differ
    from the kernel's there. The kernel and its plain version are timed at
    that chunk, and the ``kernel_token_spans`` route step by step;
-12. the ingest path: ``create_row_block_iter`` over that file on the card
-   and on the CPU must give the same RowBlock, bit for bit, and the
-   tokenizer must launch once for each non-empty chunk part handed to
-   ``LibSVMParser.parse_chunk`` (counted here); then the same through a
-   ``#cachefile`` (``DiskRowIter``), cold (parses, launches) and warm
-   (pages only, no launch). MB/s of each route, and the seconds
+12. the Python stack's ingest path (``python_stack_parser``: the
+   ``PipelinedParser`` over an unthreaded parser that ``create_parser``
+   builds where the native route declines): a ``BasicRowIter`` over that
+   file on the card and on the CPU must give the same RowBlock, bit for
+   bit, and the tokenizer must launch once for each non-empty chunk part
+   handed to ``LibSVMParser.parse_chunk`` (counted here); then the same
+   through a ``DiskRowIter`` cache, cold (parses, launches) and warm (pages
+   only, no launch). MB/s of each route, and the seconds
    ``kernel_token_spans`` takes over all the file's chunks; then the MB/s
-   of ``create_parser``'s ``PipelinedParser`` (chunks parsed whole on its
-   worker threads) beside a ``ThreadedParser`` built directly over the
-   same ``LibSVMParser`` (each chunk split over its pool): the same rows,
-   one tokenizer launch a chunk part;
+   of that ``PipelinedParser`` (chunks parsed whole on its worker threads)
+   beside a ``ThreadedParser`` built directly over the same
+   ``LibSVMParser`` (each chunk split over its pool): the same rows, one
+   tokenizer launch a chunk part;
 13. the distributed fit, over phases 5-6's files: world 1 over NCCL
    (``parallel.distributed.initialize``, ``LinearLearner(group=WORLD)``,
    the data-parallel step's ``bucketed_all_reduce``) must give phases
-   5-6's bits, with one launch a step and a tokenizer launch a chunk part,
-   and one step runs under torch.profiler (``step_device_ops``: what the
+   5-6's bits, with one launch a step and no tokenizer launch (the native
+   route), and one step runs under torch.profiler (``step_device_ops``: what the
    NCCL all_reduce puts on the card); world 2 as two rank processes
    (``--fit-rank``) on the one card over gloo (NCCL refuses two ranks on
    one GPU), each reading its own byte range with 3/4 of phases 5-6's
@@ -151,7 +158,7 @@ non-zero exit and no result line:
    ranks must end with the same bits, the two card flavors with the same
    bits, within ``FIT_PARAM_REL`` of the CPU's; each rank launches its
    step's kernel once a step, as many steps as the other, and the
-   tokenizer once a chunk part. World 2 over NCCL runs where a second card
+   tokenizer 0 times (the native route). World 2 over NCCL runs where a second card
    exists (else the report says it was skipped). Rows/s of each world and
    flavor; a rank that fails or hangs (``RANK_TIMEOUT_S``) fails the run.
 
@@ -165,8 +172,8 @@ non-zero exit and no result line:
    torch.profiler (device ops, idle share); the card against the CPU route
    at 65,536 rows: loss history within rtol ``GBDT_LOSS_RTOL``,
    probabilities within a mean absolute ``GBDT_PRED_MEAN_ATOL``, the trees
-   of equal structure counted; ``fit_uri`` over phase 5's HIGGS file with
-   one tokenizer launch a chunk part (both passes); then world 2 on the one
+   of equal structure counted; ``fit_uri`` over phase 5's HIGGS file on
+   the native route, no tokenizer launch (both passes); then world 2 on the one
    card over gloo (``--group-rank``), each rank fitting half of the rows
    with world 1's edges: the ranks bit-identical, their margins within
    ``GBDT_PRED_MEAN_ATOL`` (mean) of world 1's;
@@ -180,7 +187,8 @@ non-zero exit and no result line:
 16. factorization machines (``FMLearner``, ``FM_HYPER``: FMParam's
    defaults, K = 8) at the csr path's width (2^20 + 1 features, batch
    8192) over phase 6's rows written as libfm (``write_libfm``) through
-   ``DeviceFeed(create_parser(format libfm))``: (a) the column
+   ``DeviceFeed(create_parser(format libfm))``, the native route (every
+   feed of the phase staged in C++): (a) the column
    ``coo_segment_sum`` at [327,680, 17] (8192 rows) and at
    ``seg_sum_edge_cases`` with C in ``FM_SEG_COLS``, bit-equal to its
    plain version on integer data, each column bit-equal to the [E] call,
@@ -229,7 +237,7 @@ non-zero exit and no result line:
    generation 2 with ``join`` and ``rebuild`` events, the spare's own
    launches. The device engine's world 2 runs in phase 25 (b). In every
    job each process launches ``coo_segment_sum`` once a step and the
-   tokenizer once a chunk part; (e) rows/s of (a) and the seconds of (b)
+   tokenizer 0 times (the native route); (e) rows/s of (a) and the seconds of (b)
    and (c) against (a);
 19. expert-parallel MoE and the GPipe pipeline at Mixtral-8x7B's MoE
    widths (``MOE_*``: D 4096, expert hidden 14336, 8 experts, top-2; the
@@ -265,7 +273,9 @@ non-zero exit and no result line:
    ``DMLC_TPU_FLIGHTREC``, ``DMLC_TPU_AUDIT=full``, a device-step sample
    every ``OBS_SAMPLE_N`` steps; the cost records forgotten first, so
    each site's first call is recorded under the dispatch mode), the
-   launch counts set to 0 before each: losses, params (trees) and
+   launch counts set to 0 before each, both fits of a pair on the Python
+   stack (``python_stack_parser``; with the audit armed ``create_parser``
+   keeps that stack, checked here): losses, params (trees) and
    launches bit-identical; the kernel of the
    path launched once a step; ``dmlc_fit_steps_total`` = the steps; one
    goodput window an epoch with a binding (the linear and FM windows with
@@ -281,25 +291,27 @@ non-zero exit and no result line:
    least twice, one dense step under torch.profiler beside the feed's
    consume time a batch (the goodput ledger's device_step), and a
    ``capture_profile(1.0)`` during a fit whose trace holds CUDA kernels;
-   (c) the csr fit in a child process with ``OBS_FAULT`` injected and the
-   recorder armed must die and leave ``fault.injected`` in
+   (c) the csr fit in a child process (on the Python stack, whose parse
+   workers pass the ``parse.chunk`` faultpoint) with ``OBS_FAULT``
+   injected and the recorder armed must die and leave ``fault.injected`` in
    ``flightrec-rank0.json``; (d) rows/s of the dense and csr fits and
    rows·trees/s of the GBDT fit with the defaults, with
    ``DMLC_TPU_METRICS=0`` and fully armed, the median of ``OBS_RUNS`` runs
-   each;
+   each, the linear fits on the Python stack in every setting;
 21. the binary ingest formats on the card (``drive_formats``): (a) phase
    12's file converted on the card by ``convert_to_recordio`` (row groups
    of ``REC_ROWS`` rows, then ``build_index``) and by ``bake_dataset``
-   (``BAKE_PARTS`` shard files, windows of ``SHARD_ROWS`` rows), one
-   tokenizer launch a chunk part, each file byte-equal to the same
-   conversion on the CPU route; (b) ``create_row_block_iter`` on the card
+   (``BAKE_PARTS`` shard files, windows of ``SHARD_ROWS`` rows), both
+   parsing on the native route (no tokenizer launch), each file byte-equal
+   to the same conversion on the CPU route; (b) ``create_row_block_iter``
+   on the card
    over the text, the ``.rec`` (``?format=recordio``), the ``.dtsh`` parts
    (mmap, then ``DMLC_TPU_SHARD_MMAP=0``) and a ``shuffle_chunks`` text
-   read, and ``create_parser`` over a text ``#cachefile``
-   (``CachedInputSplit``) cold and warm: every unshuffled route's rows
-   equal the text route's bit for bit, the shuffled read holds the same
-   rows in another order, the binary routes launch the tokenizer 0
-   times; (c) phase 6's csr fit from its ``.rec`` and ``.dtsh``: losses
+   read, and ``create_parser`` over a text ``#cachefile`` (the native
+   row-group cache at ``<cache>.rowrec``) cold and warm: every unshuffled
+   route's rows equal the text route's bit for bit, the shuffled read (1 MB
+   chunks in a seeded order) holds the same rows in another order, and no
+   route launches the tokenizer; (c) phase 6's csr fit from its ``.rec`` and ``.dtsh``: losses
    and params bit-identical to phase 6's text fit on the card,
    ``coo_segment_sum`` once a step, no tokenizer launch; (d) the shuffled
    shard fit (``RESUME_EPOCHS`` epochs) in a ``--snap-rank`` child that
@@ -315,13 +327,15 @@ non-zero exit and no result line:
    (``no_proxy`` covers the fakes; each must have served requests), the
    files of phases 5, 6 and 12 uploaded, phase 6's and phase 5's as two
    part objects under one prefix: (a) phase 12's file read from
-   ``s3://`` by ``create_row_block_iter`` on the card, its rows' digest
-   and tokenizer launches equal to phase 12's, and phase 6's file read
+   ``s3://`` by ``create_row_block_iter`` on the card (the native push
+   route: the readahead reader pushes the bytes into the native pipeline,
+   no tokenizer launch), its rows' digest equal to phase 26's native read
+   of the local file, and phase 6's file read
    from ``s3://``, ``hdfs://`` and ``azure://``, rows equal to the local
    read's bit for bit, launches equal; (b) phase 6's csr fit from the
    three and phase 5's dense fit from ``gs://``: losses and params
    bit-identical to phases 6 and 5, ``coo_segment_sum`` /
-   ``fused_linear_grads`` once a step, the tokenizer as in phases 5-6;
+   ``fused_linear_grads`` once a step, the tokenizer as in phases 5-6 (0);
    (c) the ``s3://`` csr fit again with every response over
    ``REMOTE_FAIL_AFTER`` bytes cut (a dropped connection) and
    ``REMOTE_FAULTS`` armed through ``DMLC_TPU_FAULTS``: the same bits,
@@ -343,7 +357,8 @@ non-zero exit and no result line:
    socket on 127.0.0.1, ``DATA_CHUNKS`` chunks a job, a fleet fit one job
    an epoch. (a) phase 12's file through a one-worker and a two-worker
    fleet, drained by one ``RemoteBlockParser``: the rows' order-insensitive
-   digest equal to phase 12's read; (b) phase 5's dense and phase 6's csr
+   digest equal to phase 26's native read (each worker parses its leased
+   parts on the native route); (b) phase 5's dense and phase 6's csr
    fit fed by the one-worker fleet (a ``DeviceFeed`` over a dispatcher
    consumer, the exactly-once acks back): losses and params bit-identical
    to phases 5 and 6, ``fused_linear_grads`` / ``coo_segment_sum`` once a
@@ -356,10 +371,9 @@ non-zero exit and no result line:
    run's, the fit bit-identical to its replay, every chunk acked, at least
    one requeued; (d) jobs ``a`` and ``b`` over phase 6's file through one
    worker with the source cache on: both digests equal the local read,
-   the worker's tokenizer launches one job's, ``chunks_parsed`` N. Every
-   clean fleet ends with all chunks acked and none requeued, and every
-   worker's tokenizer launches equal the non-empty chunk parts of what it
-   served; each worker's exit code is the one its schedule expects. MB/s
+   the worker's tokenizer launches 0, ``chunks_parsed`` N. Every
+   clean fleet ends with all chunks acked and none requeued, and no
+   worker launches the tokenizer (the native route); each worker's exit code is the one its schedule expects. MB/s
    of each fleet beside phase 12's, rows/s of each fit beside phases 5-6,
    seconds of the crashed fit beside the clean one. The consumers' feeds
    run inline (``host_prefetch=0``), as this phase first measured them.
@@ -375,11 +389,13 @@ non-zero exit and no result line:
    the default depth, held as phase 23 holds them: rows/s beside phase
    23's, requeues, each worker's tokenizer launches; (c) in process,
    through their ``main(argv)``: ``parse``, ``dataiter`` and ``strtonum``
-   over a ``FEED_SLICE_BYTES`` slice of phase 12's file (the tokenizer),
-   ``criteo_sparse.py`` over phase 6's file (``coo_segment_sum``),
-   ``long_context.py`` at T = ``LONG_CONTEXT_T`` (``flash_attention_fwd``)
-   and ``boosted_trees.py`` over phase 5's first ``GBDT_EXAMPLE_ROWS``
-   rows (the tokenizer): each exits 0 having launched its kernel.
+   over a ``FEED_SLICE_BYTES`` slice of phase 12's file and
+   ``boosted_trees.py`` over phase 5's first ``GBDT_EXAMPLE_ROWS`` rows
+   (the native route: each exits 0 with no tokenizer launch), ``strtonum
+   --route python`` (the tokenizer), ``criteo_sparse.py`` over phase 6's
+   file (``coo_segment_sum``) and ``long_context.py`` at T =
+   ``LONG_CONTEXT_T`` (``flash_attention_fwd``): each exits 0 having
+   launched its kernel.
 25. the status plane and the launchers on the card
    (``drive_status_plane``): jobs of ``python -m
    dmlc_tpu_torch.tracker.submit`` whose ranks are ``chip_smoke.py
@@ -394,9 +410,10 @@ non-zero exit and no result line:
    the merged /trace and /metrics show the rank, /audit has no fork,
    /goodput a window; ``obs-top --once`` shows rank 0 and ``obs-report
    --status`` exits 0 against the live server, ``obs-report --trace`` /
-   ``--diff`` over the merged and the rank's own trace after the job;
-   losses and params bit-identical to phase 6, ``coo_segment_sum`` once
-   a step, the tokenizer once a chunk part; (b) ``--cluster gpu
+   ``--diff`` over the merged and the rank's own trace after the job; the
+   armed audit keeps the rank on the Python stack: losses and params
+   bit-identical to phase 26's Python-stack csr fit, ``coo_segment_sum``
+   once a step, the tokenizer once a chunk part; (b) ``--cluster gpu
    --gpu-hosts localhost,localhost --max-attempts 3 --status-port P``:
    phase 18's ranks on the device engine (``sync="spmd"`` over gloo, both
    ranks on the one card), clean and with rank 0 crashing as it starts
@@ -409,8 +426,8 @@ non-zero exit and no result line:
    dispatch - --status-port 0`` with jobs ``csr0``, ``csr1`` (phase 6's
    file) and ``tail``, one ``serve`` worker: phase 6's csr fit one job an
    epoch, bit-identical to phase 6, then /data shows both jobs' lease
-   tables acked; ``tail`` drained; the worker's tokenizer launches equal
-   the chunk parts it served; (d) ``--cluster ssh`` with a fake ``ssh``
+   tables acked; ``tail`` drained; the worker launched no tokenizer (the
+   native route); (d) ``--cluster ssh`` with a fake ``ssh``
    on a temporary PATH that runs the remote command with ``bash -c``
    here: one epoch of phase 6's fit, bit-identical to the same epoch in
    process; (e) one job launched as in (a) (no trace, no audit), its rank
@@ -419,9 +436,30 @@ non-zero exit and no result line:
    publishes): every turn bit-identical to phase 6, rows/s of each, no
    threshold.
 
-Phases 5 and 6 also require the tokenizer to launch once for each chunk
-part of their fits on the card: the parser tokenizes on the learner's
-device. The ``{"kernels": [...]}`` line has a row a kernel at its main
+26. the native route beside the Python stack (``drive_native``; it runs
+   after phase 16, whose files it reads, and phases 22, 23 and 25 read
+   its results): (a) phase 12's file through ``create_parser`` on the
+   card (a ``NativePipelineParser``, no tokenizer launch, its ``stats()``
+   seven counters) and on the CPU, bit for bit; against phase 12's
+   Python-stack RowBlock within the JAX package's limits for the two
+   engines (offsets, indices equal; labels rtol 1e-6; values rtol 1e-5 /
+   atol 1e-7: the native number scan is not correctly rounded for every
+   string), with the share of values equal in bits; MB/s of both routes;
+   (b) phases 5-6's dense and csr fits again on the Python stack:
+   ``fused_linear_grads`` / ``coo_segment_sum`` once a step, the tokenizer
+   once a chunk part, the loss histories within rtol 1e-5 of phases 5-6's
+   native ones; rows/s and feed-only seconds of both routes; (c) phase
+   16's FM fit on the Python stack (``LibFMParser``) beside phase 16's
+   native one, loss histories within ``FM_LOSS_RTOL``; (d) a ``.rec``
+   converted from phase 12's file and a libsvm ``#cachefile`` (cold, then
+   warm) read on the native route, each the native text read's rows bit
+   for bit, MB/s of each.
+
+The native route is ``create_parser``'s for local files and one remote
+filesystem (phases 5-6, 13-18, 21-24, and 25 but (a)); phase 12, phase
+20's paired fits, phase 25 (a) (its audit armed) and phase 26's
+comparisons run the Python stack, where the tokenizer launches once a
+chunk part. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit), and ``coo_segment_sum_full_bucket``, the
 csr shape with no padded tail (40 entries a row; launches the csr path's),
@@ -429,7 +467,9 @@ which keeps the padded tail's cost on record. Before the last lines come the ``m
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
 ``data_service`` line (phase 23), the ``feed`` line (phase 24), the
-``plane`` line (phase 25), the ``fleet_rounds`` line (the fleet-fed csr
+``plane`` line (phase 25), the ``native`` line (phase 26: MB/s, rows/s
+and feed-only seconds of the native route beside the Python stack's, the
+build's seconds and the SIMD tier), the ``fleet_rounds`` line (the fleet-fed csr
 fit's consumer in phases 23, 24 (b) and 25 (c), three fleet rounds of one
 process: each epoch's feed stage times and fetch seconds) and
 ``phase_seconds`` (each phase's wall seconds); the last lines are the
@@ -737,6 +777,52 @@ def count_parts():
         yield parts
     finally:
         LibSVMParser.parse_chunk = real
+
+
+def hold_tokens(what, launches, parts, native=True) -> None:
+    """The tokenizer on a read's route: the native route
+    (``NativePipelineParser``) hands no chunk part to
+    ``LibSVMParser.parse_chunk`` and launches it 0 times; the Python stack
+    launches it once for each non-empty chunk part."""
+    if native:
+        require(launches == parts == 0, "%s: the native route launched the "
+                "tokenizer %d times over %d chunk parts", what, launches,
+                parts)
+    else:
+        require(launches == parts > 0, "%s: %d tokenizer launches for %d "
+                "chunk parts", what, launches, parts)
+
+
+@contextlib.contextmanager
+def native_feeds():
+    """The parsers whose batches the feed staged in C++
+    (``DeviceFeed._host_batches_native``) while the block runs: a fit on the
+    native route must show one a feed epoch."""
+    from dmlc_tpu_torch.device import feed as feed_mod
+
+    seen, real = [], feed_mod.DeviceFeed._host_batches_native
+
+    def counting(self):
+        seen.append(type(self._parser).__name__)
+        return real(self)
+
+    feed_mod.DeviceFeed._host_batches_native = counting
+    try:
+        yield seen
+    finally:
+        feed_mod.DeviceFeed._host_batches_native = real
+
+
+def python_stack_parser(uri, device, part=0, nparts=1, data_format="auto",
+                        nthread=2):
+    """The Python stack over ``uri``, as ``create_parser`` built it before
+    the native route (and still builds it where that route declines): the
+    unthreaded parser on ``device`` behind a ``PipelinedParser``."""
+    from dmlc_tpu_torch.data import PipelinedParser, create_parser
+
+    return PipelinedParser(create_parser(uri, part, nparts, data_format,
+                                         nthread=nthread, threaded=False,
+                                         device=device), nthread=nthread)
 
 
 # ---------------------------------------------------------------------------
@@ -1303,13 +1389,18 @@ def run_fit(path, layout, batch_size, num_features, device,
     return history, params_to_numpy(learner.params), seconds
 
 
-def feed_seconds(path, layout, batch_size, num_features):
+def feed_seconds(path, layout, batch_size, num_features,
+                 python_stack=False):
     """Seconds to read, parse, pad and copy to the card the batches of
-    EPOCHS epochs with no step: the host's share of the fit."""
+    EPOCHS epochs with no step: the host's share of the fit, on
+    ``create_parser``'s route or the Python stack."""
     from dmlc_tpu_torch.data import create_parser
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.utils.device import resolve_device
 
-    feed = DeviceFeed(create_parser(path), BatchSpec(
+    parser = (python_stack_parser(path, resolve_device(None)) if python_stack
+              else create_parser(path))
+    feed = DeviceFeed(parser, BatchSpec(
         batch_size=batch_size, layout=layout, num_features=num_features))
     t0 = time.perf_counter()
     for epoch in range(EPOCHS):
@@ -1334,7 +1425,7 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
                num_features, rows):
     steps = EPOCHS * (-(-rows // batch_size))
     kernels.reset_launch_counts()
-    with count_parts() as parts:
+    with count_parts() as parts, native_feeds() as feeds:
         history, params, seconds = run_fit(path, layout, batch_size,
                                            num_features, None)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
@@ -1342,9 +1433,10 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
     require(launches[kernel_name] == steps,
             "%s path: %s launched %d times for %d steps", name, kernel_name,
             launches[kernel_name], steps)
-    require(launches["tokenize_boundaries"] == len(parts) > 0,
-            "%s path: tokenize_boundaries launched %d times for %d chunk "
-            "parts", name, launches["tokenize_boundaries"], len(parts))
+    require(feeds == ["NativePipelineParser"] * EPOCHS,
+            "%s path: the feed staged natively over %s", name, feeds)
+    hold_tokens("%s path" % name, launches["tokenize_boundaries"],
+                len(parts))
     require(np.all(np.isfinite(history)), "%s path: loss history %s",
             name, history)
     for k in ("w", "b"):
@@ -1990,10 +2082,14 @@ def read_all(it):
 
 
 def drive_ingest(kernels, dev, path, tmp):
-    """Phase 12: create_row_block_iter over the Criteo-shaped file on the
-    card and on the CPU, bit for bit, with one tokenizer launch a chunk
-    part; then through a #cachefile, cold and warm."""
-    from dmlc_tpu_torch.data import create_row_block_iter
+    """Phase 12, the Python stack's ingest: row-block iterators over
+    :func:`python_stack_parser` (the route ``create_row_block_iter`` took
+    before the native route) on the Criteo-shaped file, on the card and on
+    the CPU, bit for bit, with one tokenizer launch a chunk part; then
+    through a #cachefile (``DiskRowIter``), cold and warm. Returns the
+    report and the CPU route's RowBlock (phase 26 holds the native route
+    against it)."""
+    from dmlc_tpu_torch.data.row_iter import BasicRowIter, DiskRowIter
 
     nbytes = os.path.getsize(path)
     result = {"file_bytes": nbytes}
@@ -2002,14 +2098,17 @@ def drive_ingest(kernels, dev, path, tmp):
         kernels.reset_launch_counts()
         with count_parts() as parts:
             t0 = time.perf_counter()
-            block, ncol = read_all(create_row_block_iter(uri, device=device))
+            src, _, cache = uri.partition("#")
+            it = (DiskRowIter(lambda: python_stack_parser(src, device),
+                              cache) if cache
+                  else BasicRowIter(python_stack_parser(src, device)))
+            block, ncol = read_all(it)
             seconds = time.perf_counter() - t0
         return block, ncol, seconds, len(parts), \
             kernels.tokenize_boundaries.launches
 
     card, ncol, sec, parts, launches = timed(path, dev)
-    require(launches == parts > 0, "ingest: %d tokenizer launches for %d "
-            "chunk parts", launches, parts)
+    hold_tokens("ingest", launches, parts, native=False)
     cpu, cpu_ncol, cpu_sec, _, cpu_launches = timed(path, "cpu")
     require(cpu_launches == 0, "ingest: the CPU route launched a kernel")
     same_blocks("ingest on the card", card, cpu)
@@ -2036,18 +2135,17 @@ def drive_ingest(kernels, dev, path, tmp):
         result["disk_" + state] = {"seconds": dsec,
                                    "mb_per_s": nbytes / 1e6 / dsec,
                                    "launches": dlaunches}
-    # create_parser's PipelinedParser (chunks parsed whole on its worker
+    # the Python stack's PipelinedParser (chunks parsed whole on its worker
     # threads) beside a ThreadedParser built directly over the same
     # LibSVMParser (each chunk split over its pool): the same rows, and one
     # tokenizer launch a non-empty chunk part either way
     from dmlc_tpu_torch.data import (LibSVMParser, PipelinedParser,
-                                     RowBlockContainer, ThreadedParser,
-                                     create_parser)
+                                     RowBlockContainer, ThreadedParser)
     from dmlc_tpu_torch.data.parsers import DEFAULT_NTHREAD
     from dmlc_tpu_torch.io import create_input_split
 
     makers = {
-        "pipelined": lambda: create_parser(path, device=dev),
+        "pipelined": lambda: python_stack_parser(path, dev),
         "threaded": lambda: ThreadedParser(LibSVMParser(
             create_input_split(path, 0, 1), DEFAULT_NTHREAD, dev)),
     }
@@ -2066,16 +2164,15 @@ def drive_ingest(kernels, dev, path, tmp):
                 parser.close()
             seconds = time.perf_counter() - t0
         require(isinstance(parser, PipelinedParser) == (name == "pipelined"),
-                "create_parser returned %s", type(parser).__name__)
+                "the %s maker built %s", name, type(parser).__name__)
         same_blocks("ingest through the %s parser" % name, whole, cpu)
         launches = kernels.tokenize_boundaries.launches
-        require(launches == len(parts) > 0, "%s parser: %d tokenizer "
-                "launches for %d chunk parts", name, launches, len(parts))
+        hold_tokens("%s parser" % name, launches, len(parts), native=False)
         result["parsers"][name] = {
             "seconds": seconds, "mb_per_s": nbytes / 1e6 / seconds,
             "launches": launches, "nthread": DEFAULT_NTHREAD}
         del whole, cont
-    del card, cpu, block
+    del card, block
     # the seconds kernel_token_spans takes over every chunk of the file
     from dmlc_tpu_torch.data import vparse
     from dmlc_tpu_torch.io import create_input_split
@@ -2096,7 +2193,203 @@ def drive_ingest(kernels, dev, path, tmp):
         split.close()
     result["kernel_token_spans"] = {"chunks": chunks,
                                     "seconds": spans_seconds}
-    return result
+    return result, cpu
+
+
+def read_native(path, device):
+    """(block, seconds, the pipeline's stats, tokenizer launches, chunk
+    parts) of one read through ``create_parser``, which must take the
+    native route."""
+    from dmlc_tpu_torch.data import RowBlockContainer, create_parser
+    from dmlc_tpu_torch.data.parsers import NativePipelineParser
+    from dmlc_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    with count_parts() as parts:
+        t0 = time.perf_counter()
+        parser = create_parser(path, device=device)
+        cont = RowBlockContainer()
+        try:
+            for block in parser:
+                cont.push_block(block)
+            stats = parser.stats()
+        finally:
+            parser.close()
+        whole = cont.to_block()
+        seconds = time.perf_counter() - t0
+    require(isinstance(parser, NativePipelineParser), "%s: create_parser "
+            "gave %s, not the native route", path, type(parser).__name__)
+    return whole, seconds, stats, kernels.tokenize_boundaries.launches, \
+        len(parts)
+
+
+def hold_routes(what, native, python) -> dict:
+    """The native route's rows against the Python stack's within the JAX
+    package's limits for the two engines (tests/test_native.py): offsets,
+    indices and qids equal, labels within rtol 1e-6, values and weights
+    within rtol 1e-5 / atol 1e-7 — the native number scan is not correctly
+    rounded for every string (cpp/parse_common.h), numpy's is. Returns the
+    share of values equal bit for bit."""
+    for name in ("offset", "index", "qid"):
+        g, w = getattr(native, name), getattr(python, name)
+        require((g is None) == (w is None)
+                and (g is None or np.array_equal(g, w)),
+                "%s: %s differs between the routes", what, name)
+    require(np.allclose(native.label, python.label, rtol=1e-6, atol=0),
+            "%s: labels differ past rtol 1e-6", what)
+    for name in ("value", "weight"):
+        g, w = getattr(native, name), getattr(python, name)
+        require((g is None) == (w is None) and (g is None or np.allclose(
+            g, w, rtol=1e-5, atol=1e-7)), "%s: %s differs between the "
+            "routes past rtol 1e-5 / atol 1e-7", what, name)
+    return {"values_bit_equal_share": float(np.mean(
+        native.value.view(np.int32) == python.value.view(np.int32)))}
+
+
+def drive_native(kernels, dev, ingest_file, python_block, ingest, fit_files,
+                 paths, fit_params, fm_file, fm_out, fm_start, tmp) -> dict:
+    """Phase 26 (the module docstring): the native route on the card, at
+    the fits' full widths, beside the Python stack. Returns the report and
+    the Python stack's fits, {layout: (history, params)}."""
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.data import convert_to_recordio
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+
+    nbytes = os.path.getsize(ingest_file)
+    mb = nbytes / 1e6
+    report = {"file_bytes": nbytes}
+
+    # (a) ingest of phase 12's file on the native route, card and CPU
+    card, sec, stats, launches, parts = read_native(ingest_file, dev)
+    hold_tokens("native ingest", launches, parts)
+    require(sorted(stats) == sorted(native.STATS_KEYS) and stats["bytes_read"]
+            == nbytes and stats["chunks"] > 0, "native ingest: stats %s",
+            stats)
+    cpu, cpu_sec, _, cpu_launches, _ = read_native(ingest_file, "cpu")
+    require(cpu_launches == 0, "native ingest on the CPU launched a kernel")
+    same_blocks("native ingest on the card", card, cpu)
+    require(len(card) == INGEST_ROWS, "native ingest: %d rows", len(card))
+    agree = hold_routes("native ingest against phase 12's Python stack",
+                        card, python_block)
+    ingest["native"] = {
+        "digest": block_digest(card),
+        "rows_digest": rows_digest([row_fingerprints(card)]),
+        "card_mb_per_s": mb / sec}
+    report["ingest"] = dict(
+        agree, card_seconds=sec, card_mb_per_s=mb / sec,
+        cpu_seconds=cpu_sec, cpu_mb_per_s=mb / cpu_sec, stats=stats,
+        tokenize_launches=launches,
+        python_stack_card_mb_per_s=ingest["card_mb_per_s"],
+        python_stack_pipelined_mb_per_s=(
+            ingest["parsers"]["pipelined"]["mb_per_s"]),
+        python_stack_tokenize_launches=ingest["launches"])
+    del cpu, python_block
+
+    # (b) the dense and csr fits on the Python stack, beside phases 5-6's
+    # native fits: the same kernels once a step, the tokenizer once a
+    # chunk part, the loss histories within rtol 1e-5 of the native ones
+    # (the inputs agree within the limits of hold_routes)
+    fits, python_fits = {}, {}
+    for layout, batch, nf, rows, kernel in (
+            ("dense", HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS,
+             "fused_linear_grads"),
+            ("csr", CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS,
+             "coo_segment_sum")):
+        steps = EPOCHS * (-(-rows // batch))
+        learner = LinearLearner(device=dev, objective="logistic",
+                                learning_rate=0.1)
+        kernels.reset_launch_counts()
+        with count_parts() as fit_parts:
+            feed = DeviceFeed(python_stack_parser(fit_files[layout], dev),
+                              BatchSpec(batch_size=batch, layout=layout,
+                                        num_features=nf), device=dev)
+            t0 = time.perf_counter()
+            try:
+                history = learner.fit_feed(feed, epochs=EPOCHS)
+                torch.cuda.synchronize()
+            finally:
+                feed.close()
+            seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+        require(launches[kernel] == steps, "%s on the Python stack: %s "
+                "launched %d times for %d steps", layout, kernel,
+                launches[kernel], steps)
+        hold_tokens("%s fit on the Python stack" % layout,
+                    launches["tokenize_boundaries"], len(fit_parts),
+                    native=False)
+        native_fit = paths[layout]
+        np.testing.assert_allclose(history, native_fit["loss_history"],
+                                   rtol=FIT_LOSS_RTOL)
+        params = params_to_numpy(learner.params)
+        python_fits[layout] = (history, params)
+        fits[layout] = {
+            "steps": steps, kernel + "_launches": launches[kernel],
+            "native_rows_per_s": native_fit["rows_per_s"],
+            "native_feed_only_seconds": native_fit["feed_only_seconds"],
+            "native_seconds": native_fit["seconds"],
+            "native_tokenize_launches": native_fit["tokenize_launches"],
+            "python_rows_per_s": EPOCHS * rows / seconds,
+            "python_seconds": seconds,
+            "python_feed_only_seconds": feed_seconds(
+                fit_files[layout], layout, batch, nf, python_stack=True),
+            "python_tokenize_launches": launches["tokenize_boundaries"],
+            "python_chunk_parts": len(fit_parts),
+            "loss_history_native": native_fit["loss_history"],
+            "loss_history_python": history,
+            "param_rel_err_python_vs_native": param_rel_err(
+                params, fit_params[layout])}
+    report["fits"] = fits
+    print(json.dumps({"native_fits": fits}), flush=True)
+
+    # (c) FM over libfm: phase 16's fits took the native route; the same
+    # fit on the Python stack (LibFMParser) beside it
+    kernels.reset_launch_counts()
+    history, _, seconds = run_fm_fit(fm_file, None, fm_start,
+                                     python_stack=True)
+    steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
+    require(kernels.coo_segment_sum.launches == steps
+            and kernels.tokenize_boundaries.launches == 0,
+            "FM on the Python stack: coo_segment_sum %d for %d steps, "
+            "tokenizer %d", kernels.coo_segment_sum.launches, steps,
+            kernels.tokenize_boundaries.launches)
+    native_fm = fm_out["fit"]
+    np.testing.assert_allclose(history, native_fm["loss_history"],
+                               rtol=FM_LOSS_RTOL)
+    report["fm"] = {
+        "native_rows_per_s": native_fm["rows_per_s"],
+        "native_feed_only_seconds": native_fm["feed_only_seconds"],
+        "native_feeds": fm_out["native_feeds"],
+        "python_rows_per_s": EPOCHS * CRITEO_ROWS / seconds,
+        "python_seconds": seconds,
+        "loss_history_native": native_fm["loss_history"],
+        "loss_history_python": history}
+
+    # (d) a .rec read and a libsvm #cachefile, cold then warm, on the
+    # native route: each the native text read's rows, bit for bit
+    rec = os.path.join(tmp, "native_criteo.rec")
+    t0 = time.perf_counter()
+    convert_to_recordio(ingest_file, rec, rows_per_group=REC_ROWS,
+                        device=dev)
+    convert_s = time.perf_counter() - t0
+    cache = os.path.join(tmp, "native_criteo.cache")
+    binary = {"rec_convert_seconds": convert_s}
+    for name, uri, size in (
+            ("rec", rec + "?format=recordio", os.path.getsize(rec)),
+            ("cachefile_cold", ingest_file + "#" + cache, nbytes),
+            ("cachefile_warm", ingest_file + "#" + cache, None)):
+        block, sec, _, launches, parts = read_native(uri, dev)
+        hold_tokens("native %s read" % name, launches, parts)
+        same_blocks("native %s read (against the native text read)" % name,
+                    block, card)
+        size = size or os.path.getsize(cache + ".rowrec")
+        binary[name] = {"seconds": sec, "bytes": size,
+                        "mb_per_s": size / 1e6 / sec,
+                        "text_mb_per_s": mb / sec}
+        del block
+    report["binary"] = binary
+    del card
+    return report, python_fits
 
 
 # ---------------------------------------------------------------------------
@@ -2257,12 +2550,9 @@ def hold_world(spec, reports, arrays) -> dict:
                         "%s %s: %s launches of %s by rank", name, key,
                         steps, DIST_KERNEL[layout])
                 for r, rep in enumerate(per_rank):
-                    require(rep["launches"]["tokenize_boundaries"]
-                            == rep["chunk_parts"] > 0,
-                            "%s %s: rank %d launched the tokenizer %d "
-                            "times for %d chunk parts", name, key, r,
-                            rep["launches"]["tokenize_boundaries"],
-                            rep["chunk_parts"])
+                    hold_tokens("%s %s rank %d" % (name, key, r),
+                                rep["launches"]["tokenize_boundaries"],
+                                rep["chunk_parts"])
             else:
                 require(not any(sum(rep["launches"].values())
                                 for rep in per_rank),
@@ -2334,10 +2624,8 @@ def drive_distributed(kernels, dev, files, single) -> dict:
                         "world 1 %s: %s launched %d times for %d steps",
                         layout, DIST_KERNEL[layout],
                         launches[DIST_KERNEL[layout]], steps)
-                require(launches["tokenize_boundaries"] == len(parts) > 0,
-                        "world 1 %s: %d tokenizer launches for %d chunk "
-                        "parts", layout, launches["tokenize_boundaries"],
-                        len(parts))
+                hold_tokens("world 1 %s" % layout,
+                            launches["tokenize_boundaries"], len(parts))
                 for k in ("w", "b"):
                     require(params[k].tobytes() == single[layout][k].tobytes(),
                             "world 1 over NCCL, %s: %s differs from the "
@@ -2682,7 +2970,7 @@ def drive_gbdt(kernels, dev, higgs_file) -> dict:
                               card.predict(xs), cpu.predict(xs),
                               GBDT_PRED_MEAN_ATOL)}
 
-    # (b) fit_uri over phase 5's HIGGS file, tokenized on the card
+    # (b) fit_uri over phase 5's HIGGS file, on the native route
     kernels.reset_launch_counts()
     with count_parts() as parts:
         learner = gbdt.GBDTLearner(device=dev, **GBDT_HYPER)
@@ -2691,9 +2979,8 @@ def drive_gbdt(kernels, dev, higgs_file) -> dict:
         torch.cuda.synchronize()
         uri_s = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
-    require(launches["tokenize_boundaries"] == len(parts) > 0,
-            "GBDT fit_uri: %d tokenizer launches for %d chunk parts",
-            launches["tokenize_boundaries"], len(parts))
+    hold_tokens("GBDT fit_uri", launches["tokenize_boundaries"],
+                len(parts))
     require(np.all(np.isfinite(uri_hist))
             and uri_hist[-1] < uri_hist[0] - MIN_LOSS_FALL,
             "GBDT fit_uri: loss history %s", uri_hist)
@@ -2840,23 +3127,29 @@ def fm_learner(device, start):
     return learner
 
 
-def fm_feed(path, device):
+def fm_feed(path, device, python_stack=False):
+    """The FM fit's csr feed over the libfm file: ``create_parser``'s
+    native route, or the Python stack (``LibFMParser``)."""
     from dmlc_tpu_torch.data import create_parser
     from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 
-    return DeviceFeed(
-        create_parser(path, data_format="libfm", device=device),
-        BatchSpec(batch_size=CRITEO_BATCH, layout="csr",
-                  num_features=CRITEO_DIM + 1), device=device)
+    parser = (python_stack_parser(path, device, data_format="libfm")
+              if python_stack else
+              create_parser(path, data_format="libfm", device=device))
+    return DeviceFeed(parser, BatchSpec(batch_size=CRITEO_BATCH,
+                                        layout="csr",
+                                        num_features=CRITEO_DIM + 1),
+                      device=device)
 
 
-def run_fm_fit(path, device, start, epochs=EPOCHS, learner=None, **fit):
+def run_fm_fit(path, device, start, epochs=EPOCHS, learner=None,
+               python_stack=False, **fit):
     """(history, params as numpy, seconds) of ``FMLearner.fit_feed`` over
     the libfm file ``path``; ``fit`` passes the snapshot arguments."""
     from dmlc_tpu_torch.models import fm_params_to_numpy
 
     learner = learner or fm_learner(device, start)
-    feed = fm_feed(path, device)
+    feed = fm_feed(path, device, python_stack)
     t0 = time.perf_counter()
     try:
         history = learner.fit_feed(feed, epochs, **fit)
@@ -3494,10 +3787,9 @@ def hold_recover_job(name, reports, world, digest=None) -> dict:
                 "%s: rank %d launched coo_segment_sum %d times for %d "
                 "steps", name, r, rep["launches"]["coo_segment_sum"],
                 rep["steps"])
-        require(rep["launches"]["tokenize_boundaries"]
-                == rep["chunk_parts"] > 0, "%s: rank %d launched the "
-                "tokenizer %d times for %d chunk parts", name, r,
-                rep["launches"]["tokenize_boundaries"], rep["chunk_parts"])
+        hold_tokens("%s rank %d" % (name, r),
+                    rep["launches"]["tokenize_boundaries"],
+                    rep["chunk_parts"])
     return {"digest": digests.pop(), "ranks": {
         r: {k: rep[k] for k in ("task", "attempt", "spare", "generation",
                                 "version", "launches", "steps",
@@ -3592,9 +3884,11 @@ def drive_recovery(csr_file, tmp, parts=("clean", "crash",
             rep["generation"] == 2 for rep in reports.values()),
             "elastic: %d spares in the final world, generations %s",
             len(spares), [rep["generation"] for rep in reports.values()])
-        require(spares[0]["launches"]["coo_segment_sum"] > 0
-                and spares[0]["launches"]["tokenize_boundaries"] > 0,
+        require(spares[0]["launches"]["coo_segment_sum"] > 0,
                 "elastic: the spare launched %s", spares[0]["launches"])
+        hold_tokens("elastic: the spare",
+                    spares[0]["launches"]["tokenize_boundaries"],
+                    spares[0]["chunk_parts"])
         fault = fault_marker(spec, "killed.json")
         report["elastic"] = dict(
             held, seconds=secs, vs_clean=secs / clean_s,
@@ -4110,9 +4404,13 @@ class ObsTap:
          xla_cost.note_compile) = self._orig
 
 
-def obs_linear_fit(path, layout, batch_size, nf, device=None, epochs=EPOCHS):
+def obs_linear_fit(path, layout, batch_size, nf, device=None, epochs=EPOCHS,
+                   python_stack=False):
     """(history, params as numpy, launches, seconds) of phase 5/6's fit,
-    the launch counts set to 0 just before it and read just after."""
+    the launch counts set to 0 just before it and read just after:
+    ``fit_uri`` (its route by the parser's rules), or with
+    ``python_stack`` a ``fit_feed`` over the Python stack's parser."""
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
     from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
     from dmlc_tpu_torch.ops import kernels
 
@@ -4120,8 +4418,19 @@ def obs_linear_fit(path, layout, batch_size, nf, device=None, epochs=EPOCHS):
                             learning_rate=0.1)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    history = learner.fit_uri(path, batch_size=batch_size, epochs=epochs,
-                              layout=layout, num_features=nf)
+    if python_stack:
+        feed = DeviceFeed(python_stack_parser(path, learner.device),
+                          BatchSpec(batch_size=batch_size, layout=layout,
+                                    num_features=nf),
+                          device=learner.device)
+        try:
+            history = learner.fit_feed(feed, epochs=epochs)
+        finally:
+            feed.close()
+    else:
+        history = learner.fit_uri(path, batch_size=batch_size,
+                                  epochs=epochs, layout=layout,
+                                  num_features=nf)
     if device != "cpu":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -4129,11 +4438,12 @@ def obs_linear_fit(path, layout, batch_size, nf, device=None, epochs=EPOCHS):
     return history, params_to_numpy(learner.params), launches, seconds
 
 
-def obs_fm_fit(path, start):
+def obs_fm_fit(path, start, python_stack=False):
     from dmlc_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
-    history, params, seconds = run_fm_fit(path, None, start)
+    history, params, seconds = run_fm_fit(path, None, start,
+                                          python_stack=python_stack)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     return history, params, launches, seconds
 
@@ -4317,19 +4627,28 @@ def cpu_chains(path, layout, batch_size, nf, tmp) -> list:
         tap = ObsTap()
         try:
             obs_linear_fit(path, layout, batch_size, nf, device="cpu",
-                           epochs=1)
+                           epochs=1, python_stack=True)
         finally:
             tap.close()
     return tap.epochs
 
 
+# the csr fit on the Python stack, whose parse workers pass the
+# OBS_FAULT faultpoint (the native route parses in C++)
 _FLIGHT_CHILD = r"""
 import sys
 from dmlc_tpu_torch import collective
+from dmlc_tpu_torch.data import PipelinedParser, create_parser
+from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
 collective.init()
-LinearLearner().fit_uri(sys.argv[1], batch_size=int(sys.argv[2]), epochs=1,
-                        layout="csr", num_features=int(sys.argv[3]))
+learner = LinearLearner()
+feed = DeviceFeed(PipelinedParser(create_parser(sys.argv[1], threaded=False,
+                                                device=learner.device)),
+                  BatchSpec(batch_size=int(sys.argv[2]), layout="csr",
+                            num_features=int(sys.argv[3])),
+                  device=learner.device)
+learner.fit_feed(feed, epochs=1)
 """
 
 
@@ -4380,11 +4699,24 @@ def drive_obs(kernels, dev, fit_files, fm_file, fm_start, tmp) -> dict:
     path_kernel = {"dense": "fused_linear_grads", "csr": "coo_segment_sum",
                    "fm": "coo_segment_sum"}
 
-    # (a) the four fits with everything off, then armed
+    # (a) the four fits with everything off, then armed. An armed audit
+    # keeps create_parser on the Python stack (the native route has no
+    # io_read / parse digest points), so both fits of a pair read through
+    # the Python stack: the same route, the same bits
+    from dmlc_tpu_torch.data import PipelinedParser, create_parser
+
+    with obs_env(obs_armed(tmp, "route", ".jsonl")):
+        parser = create_parser(dense[0])
+        try:
+            require(isinstance(parser, PipelinedParser), "phase 20: with "
+                    "the audit armed create_parser gave %s",
+                    type(parser).__name__)
+        finally:
+            parser.close()
     t0 = time.perf_counter()
-    fits = {"dense": lambda: obs_linear_fit(*dense),
-            "csr": lambda: obs_linear_fit(*csr),
-            "fm": lambda: obs_fm_fit(fm_file, fm_start)}
+    fits = {"dense": lambda: obs_linear_fit(*dense, python_stack=True),
+            "csr": lambda: obs_linear_fit(*csr, python_stack=True),
+            "fm": lambda: obs_fm_fit(fm_file, fm_start, python_stack=True)}
     exports = {"dense": ".jsonl", "csr": ".prom", "fm": ".jsonl",
                "gbdt": ".prom"}
     armed, card_chains = {}, {}
@@ -4542,12 +4874,15 @@ def drive_obs(kernels, dev, fit_files, fm_file, fm_start, tmp) -> dict:
     out["flight"] = drive_flight_child(fit_files["csr"], tmp)
 
     # (d) what the layer costs: rows/s (GBDT: rows·trees/s), the median
-    # of OBS_RUNS runs
+    # of OBS_RUNS runs, every setting on the Python stack (the route the
+    # armed audit keeps)
     t0 = time.perf_counter()
     cost = {}
     for name, fit, rows in (
-            ("dense", lambda: obs_linear_fit(*dense), EPOCHS * HIGGS_ROWS),
-            ("csr", lambda: obs_linear_fit(*csr), EPOCHS * CRITEO_ROWS),
+            ("dense", lambda: obs_linear_fit(*dense, python_stack=True),
+             EPOCHS * HIGGS_ROWS),
+            ("csr", lambda: obs_linear_fit(*csr, python_stack=True),
+             EPOCHS * CRITEO_ROWS),
             ("gbdt", lambda: obs_gbdt_fit(x, y, dev),
              GBDT_ROWS * OBS_GBDT_TREES)):
         cost[name] = {}
@@ -4631,19 +4966,18 @@ def drive_formats(kernels, dev, ingest_file, csr_file, csr_path, csr_params,
     os.makedirs(card_dir)
     os.makedirs(cpu_dir)
 
-    def tokenized(what, fn, binary=False):
-        """(fn's result, seconds, tokenizer launches); the launches must
-        equal the non-empty chunk parts handed to the libsvm parser, and
-        be 0 on a binary route."""
+    def tokenized(what, fn):
+        """(fn's result, seconds, tokenizer launches): every route here
+        (the native text, recordio and cache routes, the shard parser)
+        hands no chunk part to the libsvm parser and launches the
+        tokenizer 0 times."""
         kernels.reset_launch_counts()
         with count_parts() as parts:
             t0 = time.perf_counter()
             out = fn()
             seconds = time.perf_counter() - t0
         launches = kernels.tokenize_boundaries.launches
-        require(launches == len(parts) and (launches > 0) != binary,
-                "%s: %d tokenizer launches for %d chunk parts", what,
-                launches, len(parts))
+        hold_tokens(what, launches, len(parts))
         return out, seconds, launches
 
     # (a) text -> .rec (+ index) and .dtsh on the card, byte-equal to the
@@ -4714,25 +5048,26 @@ def drive_formats(kernels, dev, ingest_file, csr_file, csr_path, csr_params,
 
     dtsh_uri = os.path.join(card_dir, r"criteo-.*\.dtsh")
     cache = os.path.join(tmp, "criteo.chunks")
+    # the native #cachefile keeps its row groups at <cache>.rowrec
     routes = (
-        ("text", lambda: read_iter(ingest_file), ingest_file, False),
-        ("rec", lambda: read_iter(rec + "?format=recordio"), rec, True),
-        ("dtsh_mmap", lambda: read_iter(dtsh_uri), dtsh_files, True),
-        ("dtsh_read", lambda: read_iter(dtsh_uri), dtsh_files, True),
+        ("text", lambda: read_iter(ingest_file), ingest_file),
+        ("rec", lambda: read_iter(rec + "?format=recordio"), rec),
+        ("dtsh_mmap", lambda: read_iter(dtsh_uri), dtsh_files),
+        ("dtsh_read", lambda: read_iter(dtsh_uri), dtsh_files),
         ("text_shuffle_chunks", lambda: read_iter(
             "%s?shuffle_chunks=%d" % (ingest_file, SHUFFLE_SEED)),
-         ingest_file, False),
+         ingest_file),
         ("text_cachefile_cold", lambda: read_parser(ingest_file + "#" + cache),
-         ingest_file, False),
+         ingest_file),
         ("text_cachefile_warm", lambda: read_parser(ingest_file + "#" + cache),
-         cache, False),
+         cache + ".rowrec"),
     )
     ingest, text = {}, None
-    for name, read, files, binary in routes:
+    for name, read, files in routes:
         if name == "dtsh_read":
             os.environ["DMLC_TPU_SHARD_MMAP"] = "0"
         try:
-            block, seconds, launches = tokenized(name, read, binary)
+            block, seconds, launches = tokenized(name, read)
         finally:
             os.environ.pop("DMLC_TPU_SHARD_MMAP", None)
         nbytes = sum(os.path.getsize(f) for f in
@@ -4946,27 +5281,28 @@ def drive_remote(kernels, dev, ingest_file, ingest, fit_files, paths,
 
         def read(uri):
             """(block, seconds, tokenizer launches) of one read on the
-            card; the launches must equal the chunk parts."""
+            card: the native route (the remote bytes pushed into the
+            native pipeline), no tokenizer launch."""
             kernels.reset_launch_counts()
             with count_parts() as parts:
                 t0 = time.perf_counter()
                 block = read_all(create_row_block_iter(uri, device=dev))[0]
                 seconds = time.perf_counter() - t0
             launches = kernels.tokenize_boundaries.launches
-            require(launches == len(parts) > 0, "%s: %d tokenizer launches "
-                    "for %d chunk parts", uri, launches, len(parts))
+            hold_tokens(uri, launches, len(parts))
             return block, seconds, launches
 
-        # (a) reads, each against the local read of the same bytes
+        # (a) reads, each against the local read of the same bytes on the
+        # same route: phase 26's native read of phase 12's file
         nbytes = os.path.getsize(ingest_file)
         block, seconds, launches = read("s3://bkt/ingest/criteo.svm")
-        require(block_digest(block) == ingest["card_digest"]
-                and launches == ingest["launches"],
-                "the s3:// read of phase 12's file: rows or launches "
-                "(%d, phase 12 %d) differ", launches, ingest["launches"])
+        native = ingest["native"]
+        require(block_digest(block) == native["digest"],
+                "the s3:// read of phase 12's file: its rows differ from "
+                "the local native read's")
         reads = {"ingest_s3": {"mb_per_s": nbytes / 1e6 / seconds,
                                "seconds": seconds, "launches": launches,
-                               "local_mb_per_s": ingest["card_mb_per_s"]}}
+                               "local_mb_per_s": native["card_mb_per_s"]}}
         del block
         nbytes = os.path.getsize(fit_files["csr"])
         local, seconds, local_launches = read(fit_files["csr"])
@@ -5125,7 +5461,7 @@ def remote_summary(card, report) -> dict:
     return {
         "card": card,
         "read_mb_per_s": {k: v["mb_per_s"] for k, v in reads.items()},
-        "phase12_local_card_mb_per_s": reads["ingest_s3"]["local_mb_per_s"],
+        "local_native_card_mb_per_s": reads["ingest_s3"]["local_mb_per_s"],
         "fit_rows_per_s": {k: v["rows_per_s"] for k, v in fits.items()},
         "local_fit_rows_per_s": {"csr": fits["csr_s3"]["local_rows_per_s"],
                                  "dense": fits["dense_gs"]
@@ -5152,26 +5488,6 @@ def rows_digest(fingerprints) -> str:
     rows = np.sort(np.concatenate(fingerprints)) if fingerprints else \
         np.zeros(0, dtype=np.uint64)
     return hashlib.sha256(rows.tobytes()).hexdigest()
-
-
-def split_parts(path: str, nchunks: int) -> int:
-    """Non-empty InputSplit chunks over the ``nchunks`` parts of ``path``,
-    read without a parse: the tokenizer launches a worker owes a job over
-    the file (one a chunk part, as in phases 5, 6 and 12)."""
-    from dmlc_tpu_torch.io import create_input_split
-
-    count = 0
-    for part in range(nchunks):
-        split = create_input_split(path, part, nchunks)
-        try:
-            while True:
-                chunk = split.next_chunk()
-                if chunk is None:
-                    break
-                count += bool(len(chunk))
-        finally:
-            split.close()
-    return count
 
 
 class Worker:
@@ -5380,15 +5696,11 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
 
     n = DATA_CHUNKS
     ingest_bytes = os.path.getsize(ingest_file)
-    parts = {"ingest": split_parts(ingest_file, n),
-             "dense": split_parts(fit_files["dense"], n),
-             "csr": split_parts(fit_files["csr"], n)}
     shape = {"dense": (HIGGS_BATCH, HIGGS_FEATURES + 1, HIGGS_ROWS),
              "csr": (CRITEO_BATCH, CRITEO_DIM + 1, CRITEO_ROWS)}
     kernel_of = {"dense": "fused_linear_grads", "csr": "coo_segment_sum"}
     nocache = {"DMLC_TPU_DATA_CACHE_MB": 0}
-    report = {"nchunks": n, "chunk_parts": parts,
-              "host_prefetch": host_prefetch}
+    report = {"nchunks": n, "host_prefetch": host_prefetch}
     disps, workers = {}, []
     reads_of = {"ingest": ingest_file} if served else {}
 
@@ -5438,8 +5750,9 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
                            if served else ()):
             digest, nbytes, seconds, seqs = served_read(disp.address,
                                                         "ingest", dev)
-            require(digest == ingest["card_rows_digest"], "served read "
-                    "(%s): rows differ from phase 12's local read", name)
+            require(digest == ingest["native"]["rows_digest"], "served "
+                    "read (%s): rows differ from the local native read's "
+                    "(phase 26)", name)
             require(sorted(seqs) == list(range(n)), "served read (%s): "
                     "seqs %s", name, seqs)
             reads[name] = {"seconds": seconds,
@@ -5448,6 +5761,8 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
         if served:
             report["reads"] = reads
             report["phase12_local_card_mb_per_s"] = ingest["card_mb_per_s"]
+            report["local_native_card_mb_per_s"] = \
+                ingest["native"]["card_mb_per_s"]
 
         # (b) the fits of phases 5-6 through the one-worker fleet
         fits = {}
@@ -5553,28 +5868,25 @@ def drive_data_service(kernels, dev, ingest_file, ingest, fit_files, paths,
     def tokens(r):
         return r["launches"]["tokenize_boundaries"]
 
-    ingest_parts = parts["ingest"] if served else 0
-    want = ingest_parts + EPOCHS * (parts["dense"] + parts["csr"])
-    require(tokens(rep["one"]) == want, "one-worker fleet: %d tokenizer "
-            "launches for %d chunk parts", tokens(rep["one"]), want)
-    want = ingest_parts + EPOCHS * parts["csr"]
+    # each worker parses its leased parts through create_parser's native
+    # route: no chunk part reaches the tokenizer
+    for name in ("one", "crash_victim", "crash_survivor"):
+        require(tokens(rep[name]) == 0, "%s fleet worker: %d tokenizer "
+                "launches on the native route", name, tokens(rep[name]))
     got = sum(tokens(r) for r in rep["two"])
-    require(got == want, "two-worker fleet: %d tokenizer launches for %d "
-            "chunk parts", got, want)
-    got = tokens(rep["crash_victim"]) + tokens(rep["crash_survivor"])
-    require(got == EPOCHS * parts["csr"], "crashed fleet: %d tokenizer "
-            "launches for %d chunk parts", got, EPOCHS * parts["csr"])
+    require(got == 0, "two-worker fleet: %d tokenizer launches on the "
+            "native route", got)
     report["worker_tokenize_launches"] = {
         "one": tokens(rep["one"]), "two": [tokens(r) for r in rep["two"]],
         "crash_victim": tokens(rep["crash_victim"]),
         "crash_survivor": tokens(rep["crash_survivor"])}
     if not served:
         return report
-    require(tokens(rep["tenants"]) == parts["csr"]
+    require(tokens(rep["tenants"]) == 0
             and rep["tenants"]["chunks_parsed"] == n,
             "tenants: %d tokenizer launches and %d chunks parsed for one "
-            "job's %d parts and %d chunks", tokens(rep["tenants"]),
-            rep["tenants"]["chunks_parsed"], parts["csr"], n)
+            "job's %d chunks (native route)", tokens(rep["tenants"]),
+            rep["tenants"]["chunks_parsed"], n)
     tenant["worker_tokenize_launches"] = tokens(rep["tenants"])
     tenant["chunks_parsed"] = rep["tenants"]["chunks_parsed"]
     report["tenants"] = tenant
@@ -5590,6 +5902,7 @@ def data_service_summary(card, report) -> dict:
         "card": card, "nchunks": report["nchunks"],
         "served_mb_per_s": {k: v["mb_per_s"] for k, v in reads.items()},
         "phase12_local_card_mb_per_s": report["phase12_local_card_mb_per_s"],
+        "local_native_card_mb_per_s": report["local_native_card_mb_per_s"],
         "fit_rows_per_s": {k: v["rows_per_s"] for k, v in fits.items()},
         "local_fit_rows_per_s": {
             "dense": fits["dense_one_worker"]["local_rows_per_s"],
@@ -5600,7 +5913,6 @@ def data_service_summary(card, report) -> dict:
         "crash_seq_orders": fits["csr_crashed"]["seq_orders"],
         "tenant_worker_tokenize_launches":
             report["tenants"]["worker_tokenize_launches"],
-        "one_job_chunk_parts": report["chunk_parts"]["csr"],
         "tenant_chunks_parsed": report["tenants"]["chunks_parsed"],
         "worker_tokenize_launches": report["worker_tokenize_launches"],
         "phase_seconds": report["seconds"]}
@@ -5758,27 +6070,36 @@ def drive_feed(kernels, dev, ingest_file, fit_files, paths, fit_params,
                               nbytes=FEED_SLICE_BYTES)
     gbdt_file = os.path.join(tmp, "higgs_head.svm")
     first_lines(fit_files["dense"], gbdt_file, rows=GBDT_EXAMPLE_ROWS)
+    # the kernel each launches at least once; None: the entry reads on the
+    # native route (parse, dataiter, strtonum's default, boosted_trees'
+    # fit_uri) and must launch the tokenizer 0 times
     runs = {
-        "parse": (parse.main, [slice_file], "tokenize_boundaries"),
-        "dataiter": (dataiter.main, [slice_file, "--epochs", 2],
-                     "tokenize_boundaries"),
-        "strtonum": (strtonum.main, [], "tokenize_boundaries"),
+        "parse": (parse.main, [slice_file], None),
+        "dataiter": (dataiter.main, [slice_file, "--epochs", 2], None),
+        "strtonum": (strtonum.main, [], None),
+        "strtonum_python": (strtonum.main, ["--route", "python"],
+                            "tokenize_boundaries"),
         "criteo_sparse": (criteo_sparse.main, [
             fit_files["csr"], "--num-features", CRITEO_DIM + 1,
             "--epochs", 1], "coo_segment_sum"),
         "long_context": (long_context.main, ["--seq", LONG_CONTEXT_T],
                          "flash_attention_fwd"),
         "boosted_trees": (boosted_trees.main, [
-            gbdt_file, "--num-features", HIGGS_FEATURES + 1],
-            "tokenize_boundaries"),
+            gbdt_file, "--num-features", HIGGS_FEATURES + 1], None),
     }
     entries = {}
     for name, (main, argv, kernel) in runs.items():
         got = run_entry(kernels, main, argv)
         require(got["rc"] == 0, "%s exited %s: %s", name, got["rc"],
                 got["tail"])
-        require(got["launches"].get(kernel, 0) >= 1, "%s launched %s %d "
-                "times", name, kernel, got["launches"].get(kernel, 0))
+        if kernel is None:
+            require(got["launches"].get("tokenize_boundaries", 0) == 0,
+                    "%s launched the tokenizer %d times on the native "
+                    "route", name,
+                    got["launches"].get("tokenize_boundaries", 0))
+        else:
+            require(got["launches"].get(kernel, 0) >= 1, "%s launched %s "
+                    "%d times", name, kernel, got["launches"].get(kernel, 0))
         entries[name] = got
     report["entries"] = entries
     report["slice_bytes"] = slice_bytes
@@ -5838,6 +6159,38 @@ while [ $# -gt 1 ]; do
 done
 exec bash -c "$1"
 """
+
+
+def native_summary(card, report) -> dict:
+    """The ``native`` line: phase 26's native route beside the Python
+    stack (MB/s, the fits' rows/s and feed-only seconds), the build's
+    seconds and the SIMD tier."""
+    ing, fits, fm = report["ingest"], report["fits"], report["fm"]
+    return {
+        "card": card, "build_seconds": report["build_seconds"],
+        "gxx_seconds": report["gxx_seconds"],
+        "simd_level": report["simd_level"],
+        "ingest_mb_per_s": {
+            "native_card": ing["card_mb_per_s"],
+            "native_cpu": ing["cpu_mb_per_s"],
+            "python_stack_card": ing["python_stack_card_mb_per_s"],
+            "python_stack_pipelined":
+                ing["python_stack_pipelined_mb_per_s"]},
+        "ingest_stats": ing["stats"],
+        "values_bit_equal_share": ing["values_bit_equal_share"],
+        "fit_rows_per_s": {
+            layout: {"native": f["native_rows_per_s"],
+                     "python_stack": f["python_rows_per_s"]}
+            for layout, f in fits.items()},
+        "fit_feed_only_seconds": {
+            layout: {"native": f["native_feed_only_seconds"],
+                     "python_stack": f["python_feed_only_seconds"]}
+            for layout, f in fits.items()},
+        "fm_rows_per_s": {"native": fm["native_rows_per_s"],
+                          "python_stack": fm["python_rows_per_s"]},
+        "binary_mb_per_s": {k: v["mb_per_s"] for k, v in
+                            report["binary"].items() if isinstance(v, dict)},
+        "seconds": report["seconds"]}
 
 
 def free_port() -> int:
@@ -6139,7 +6492,7 @@ def run_tool(argv) -> tuple:
 
 
 def drive_status_plane(kernels, dev, fit_files, paths, fit_params,
-                       recovery, tmp) -> dict:
+                       recovery, python_csr, tmp) -> dict:
     """Phase 25 (the module docstring): the status plane and the
     launchers on the card. A failed check kills the jobs it left
     running."""
@@ -6151,14 +6504,15 @@ def drive_status_plane(kernels, dev, fit_files, paths, fit_params,
 
     try:
         return _drive_status_plane(kernels, dev, fit_files, paths,
-                                   fit_params, recovery, tmp, launch)
+                                   fit_params, recovery, python_csr, tmp,
+                                   launch)
     finally:
         for job in jobs:
             job.kill()
 
 
 def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
-                        recovery, tmp, launch) -> dict:
+                        recovery, python_csr, tmp, launch) -> dict:
     csr = fit_files["csr"]
     csr_steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
     report = {}
@@ -6168,7 +6522,12 @@ def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
                 "--gpu-hosts", hosts, "--gpu-coordinator-port", free_port(),
                 *extra]
 
-    def hold_rank_fit(what, rep, epochs, history, params) -> None:
+    def hold_rank_fit(what, rep, epochs, history, params,
+                      native=True) -> None:
+        """The launched rank's fit: ``history`` and ``params`` bit for bit
+        (a fit on the rank's route), its kernel once a step, and the
+        tokenizer as its route launches it (``native``; an armed audit
+        keeps the Python stack)."""
         steps = epochs * (-(-CRITEO_ROWS // CRITEO_BATCH))
         require(rep["history"] == list(history), "%s: loss history %s, "
                 "want %s", what, rep["history"], list(history))
@@ -6179,10 +6538,8 @@ def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
         require(rep["launches"]["coo_segment_sum"] == steps, "%s: %d "
                 "coo_segment_sum launches for %d steps", what,
                 rep["launches"]["coo_segment_sum"], steps)
-        require(rep["launches"]["tokenize_boundaries"]
-                == rep["chunk_parts"] > 0, "%s: %d tokenizer launches for "
-                "%d chunk parts", what, rep["launches"]["tokenize_boundaries"],
-                rep["chunk_parts"])
+        hold_tokens(what, rep["launches"]["tokenize_boundaries"],
+                    rep["chunk_parts"], native)
 
     # (a) world 1 over NCCL through --cluster gpu, the plane armed
     t0 = time.perf_counter()
@@ -6236,8 +6593,10 @@ def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
         fh.write(job.get("/trace")[2])
     reports, _, seconds = job.finish()
     rep = dict(reports[0], out=job.out)
-    hold_rank_fit("(a) world 1 over NCCL", rep, EPOCHS,
-                  paths["csr"]["loss_history"], fit_params["csr"])
+    # the armed audit keeps the rank's create_parser on the Python stack:
+    # phase 26's Python-stack csr fit on the card is its yardstick
+    hold_rank_fit("(a) world 1 over NCCL", rep, EPOCHS, *python_csr,
+                  native=False)
     require(rep["backend"] == "nccl" and rep["cuda_visible_devices"] == "0",
             "(a): backend %s, CUDA_VISIBLE_DEVICES %s", rep["backend"],
             rep["cuda_visible_devices"])
@@ -6369,10 +6728,9 @@ def _drive_status_plane(kernels, dev, fit_files, paths, fit_params,
             worker.kill()
         if disp.poll() is None:
             _kill_group(disp)
-    parts = 3 * split_parts(csr, n)
     tokens = served["launches"]["tokenize_boundaries"]
-    require(tokens == parts > 0, "(c): the worker launched the tokenizer "
-            "%d times for %d chunk parts", tokens, parts)
+    require(tokens == 0, "(c): the worker launched the tokenizer %d times "
+            "on the native route", tokens)
     report["c"] = {"rows_per_s": EPOCHS * CRITEO_ROWS / got[2],
                    "fit_seconds": got[2], "worker": served,
                    "consumer": got[6],
@@ -6652,6 +7010,19 @@ def smoke(fit_dir: str) -> int:
             "flash kernels: HGMMA counts %s, expected 12 variants "
             "(flash_fwd_kernel and flash_bwd_kernel) with warpgroup "
             "products", hgmma)
+    # the native core, built from native/csrc by g++
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    native_built = time.perf_counter() - t0
+    print(json.dumps({"native_build_seconds": native_built,
+                      "gxx_seconds": native_build.build_seconds,
+                      "native_library": str(native.library_path()),
+                      "simd_level": native.simd_level()}), flush=True)
+    require("native/_build" in str(native.library_path()),
+            "the native core loaded from %s", native.library_path())
     fused = [n for name, n in spills.items()
              if "fused_linear_grads_kernel" in name]
     require(fused == [0], "fused_linear_grads_kernel: ptxas spills %s",
@@ -6858,7 +7229,7 @@ def smoke(fit_dir: str) -> int:
                                                      ingest_file)
         torch.cuda.synchronize()
         print(json.dumps({"tokenizer_vs_plain": token_report}), flush=True)
-        ingest = drive_ingest(kernels, dev, ingest_file, tmp)
+        ingest, python_block = drive_ingest(kernels, dev, ingest_file, tmp)
         ingest["write_seconds"] = write_seconds
         torch.cuda.synchronize()
     print(json.dumps({"ingest": ingest}), flush=True)
@@ -6897,11 +7268,31 @@ def smoke(fit_dir: str) -> int:
     t0 = time.perf_counter()
     fm_file = os.path.join(fit_dir, "criteo.libfm")
     write_libfm(fm_file, CRITEO_ROWS, seed=12)
-    fm_out, fm_row, fm_start = drive_fm(kernels, dev, fm_file)
+    with native_feeds() as fm_feeds:
+        fm_out, fm_row, fm_start = drive_fm(kernels, dev, fm_file)
+    require(fm_feeds and set(fm_feeds) == {"NativePipelineParser"},
+            "fm path: the feeds staged natively over %s", fm_feeds)
+    fm_out["native_feeds"] = len(fm_feeds)
     fm_out["seconds"] = time.perf_counter() - t0
     print(json.dumps({"fm": fm_out}), flush=True)
 
     lap("16")
+
+    # ---- 26. the native route beside the Python stack ----------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        native_report, python_fits = drive_native(
+            kernels, dev, ingest_file, python_block, ingest, fit_files,
+            paths, fit_params, fm_file, fm_out, fm_start, tmp)
+    del python_block
+    torch.cuda.synchronize()
+    native_report["seconds"] = time.perf_counter() - t0
+    native_report["build_seconds"] = native_built
+    native_report["gxx_seconds"] = native_build.build_seconds
+    native_report["simd_level"] = native.simd_level()
+    print(json.dumps({"native_detail": native_report}), flush=True)
+
+    lap("26")
 
     # ---- 17. snapshots and resume ------------------------------------------
     t0 = time.perf_counter()
@@ -6980,7 +7371,8 @@ def smoke(fit_dir: str) -> int:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         plane = drive_status_plane(kernels, dev, fit_files, paths,
-                                   fit_params, recovery, tmp)
+                                   fit_params, recovery, python_fits["csr"],
+                                   tmp)
     torch.cuda.synchronize()
     plane["seconds"] = time.perf_counter() - t0
     lap("25")
@@ -7051,6 +7443,7 @@ def smoke(fit_dir: str) -> int:
                                                            data_service)}))
     print(json.dumps({"feed": feed_summary(card, feed)}))
     print(json.dumps({"plane": plane_summary(card, plane)}))
+    print(json.dumps({"native": native_summary(card, native_report)}))
     # ROADMAP fault 3.1: the fleet-fed csr fit's consumer in the first
     # (phase 23, depth 0), second (24 (b)) and third (25 (c)) fleet round
     print(json.dumps({"fleet_rounds": {

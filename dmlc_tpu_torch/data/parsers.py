@@ -31,19 +31,47 @@ the port of ``dmlc_tpu/data/parsers.py``'s Python stack.
   through ``CachedInputSplit`` (the chunks of the first epoch replayed
   from the file afterwards).
 
+- ``NativePipelineParser``: the all-native route (the reader, the parse
+  workers and the ordered queue of ``native/csrc/pipeline.cc``), with the
+  fixed-shape batch staging the feed reads (``read_batch_dense`` /
+  ``read_batch_coo`` / ``read_batch_coo_sharded``).
+
+How the route is chosen: by the call, as the JAX package chooses with its
+library loaded; no environment variable and no device chooses it.
+``create_parser(..., threaded=True)`` over libsvm, libfm, csv or recordio
+takes the native route when the files are all local, or all on one remote
+filesystem with no ``shuffle_chunks`` (the bytes pushed in by
+``io/readahead.RemotePartitionReader``), and the determinism audit is not
+armed; a libsvm ``#cachefile`` takes the row-group cache
+(``<cache>.rowrec``, ``_try_native_cached``). The Python stack serves
+``threaded=False``, parsers built directly, registered plugin formats and
+``.dtsh`` shards, mixed filesystems, a remote ``shuffle_chunks``, an armed
+audit, and ``#cachefile`` on another format. Inside it,
+``LibSVMParser.parse_chunk`` runs the ``tokenize_boundaries`` kernel on
+the parser's device (the counterpart of the JAX package's Pallas tokenizer
+route) and ``LibFMParser`` / ``CSVParser`` parse on the host, whatever
+the native library could do. The device chooses only what runs after the
+parse. A native route that cannot build its library raises. The parse
+loop's ``parse.chunk`` faultpoint and its chunk flows and acks are the
+Python stack's (``data/pipeline.PipelinedParser``'s workers); on the
+native route the C++ parses, and the feed's ``device.feed`` faultpoint is
+the one a fit passes on both routes.
+
 Every parser takes ``device`` (None means cuda, see utils/device.py).
 ``create_parser`` stamps the audit's shard signature
 (``obs.audit.Auditor.set_shard``; a ``ShardParser`` stamps its own); the
 chunk and parse digests are taken in ``data/pipeline.PipelinedParser``.
-The JAX package's native C++ core and its all-native routes (the native
-pipeline, the row-group ``#cachefile`` cache) are not ported, and it has
-knobs (``DMLC_TPU_PARSE_BACKEND``, ``DMLC_TPU_NTHREAD``) that have no
-counterpart here: this is its Python stack (``DMLC_TPU_NATIVE=0``).
+The JAX package's knobs ``DMLC_TPU_NATIVE``, ``DMLC_TPU_PARSE_BACKEND``
+and ``DMLC_TPU_NTHREAD`` have no counterpart here.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import json
+import os
+import threading
+import uuid
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -243,6 +271,408 @@ def _csv_table_to_block(table: np.ndarray, label_col: int, weight_col: int,
     return out
 
 
+def _feed_pipeline(pipe, reader, error_holder: list) -> None:
+    """The remote feeder thread: ``reader.feed_into`` pushes the part's
+    in-order buffers; a push blocks while the workers are behind. A
+    fetch failure is put in ``error_holder`` and aborts the pipeline, so a
+    consumer blocked in ``next_block`` wakes with an error; a refused push
+    means the pipeline already failed, and its own error reaches the
+    consumer. Module-level: the thread holds no reference to the parser,
+    so an abandoned parser can still be collected."""
+    from dmlc_tpu_torch.io.readahead import PushRejected
+
+    try:
+        try:
+            reader.feed_into(pipe)
+        except PushRejected:
+            return
+        try:
+            pipe.push_eof()
+        except DMLCError:
+            return
+    except BaseException as err:  # noqa: BLE001 (must reach the consumer)
+        error_holder.append(err)
+        try:
+            pipe.push_abort()
+        except Exception:
+            pass
+
+
+class NativePipelineParser:
+    """The all-native ingest route: ``native/csrc/pipeline.cc``'s reader,
+    parse workers and ordered queue, with no Python in the parse loop
+    (the JAX package's ``NativePipelineParser``). The partition is the
+    InputSplit's, exactly once (input_split_base.cc:30-64).
+
+    Local files are read by the C++ reader thread (mmap when the part lies
+    in one file); files on one remote filesystem are fetched by
+    ``io/readahead.RemotePartitionReader`` on Python threads and pushed in.
+    ``shuffle_seed >= 0`` visits a local file's 1 MB chunks in a seeded
+    order, a new one each epoch (``_mix_epoch_seed``). Blocks come as
+    RowBlocks over the native arrays (u32 indices and fields, i64
+    offsets), or, through ``read_batch_*``, as fixed-shape batches staged
+    in C++. ``device`` is where the caller's kernels run; the parse does
+    not use it."""
+
+    def __init__(self, paths: List[str], sizes: List[int], data_format: str,
+                 part_index: int, num_parts: int, nthread: int = DEFAULT_NTHREAD,
+                 args: Optional[Dict[str, str]] = None, remote_fs=None,
+                 remote_uris=None, shuffle_seed: int = -1, device=None):
+        from dmlc_tpu_torch import native
+
+        self.device = resolve_device(device)
+        self._fmt_name = data_format
+        self._fmt = {
+            "libsvm": native.INGEST_LIBSVM,
+            "libfm": native.INGEST_LIBFM,
+            "csv": native.INGEST_CSV,
+            "recordio": native.INGEST_RECORDIO,
+        }[data_format]
+        self._open_args = (paths, sizes, part_index, num_parts, nthread)
+        self._shuffle_seed = shuffle_seed
+        self._epoch = 0  # advances the shuffle permutation a before_first
+        self._remote_fs = remote_fs
+        self._remote_uris = remote_uris
+        self._csv_param = None
+        if data_format == "csv":
+            self._csv_param = CSVParserParam()
+            self._csv_param.init(args or {}, allow_unknown=True)
+        self._pipe = None
+        self._feeder = None
+        self._reader = None
+        self._feed_error_holder: list = []
+        self._bytes_read_done = 0
+        self._open()
+
+    def _open(self) -> None:
+        from dmlc_tpu_torch import native
+
+        paths, sizes, part, nparts, nthread = self._open_args
+        if self._remote_fs is None:
+            if self._shuffle_seed >= 0:
+                # the chunk is the shuffle's unit: 1 MB chunks give a
+                # ~100 MB file ~100 slots, at a small cost against 8 MB
+                self._pipe = native.IngestPipeline(
+                    paths, sizes, self._fmt, part, nparts, nthread=nthread,
+                    chunk_bytes=1 << 20,
+                    shuffle_seed=_mix_epoch_seed(self._shuffle_seed,
+                                                 self._epoch))
+            else:
+                self._pipe = native.IngestPipeline(
+                    paths, sizes, self._fmt, part, nparts, nthread=nthread)
+            return
+        from dmlc_tpu_torch.io import readahead
+
+        reader = readahead.RemotePartitionReader(
+            self._remote_fs, list(zip(self._remote_uris, sizes)), part, nparts,
+            range_bytes=readahead.DEFAULT_RANGE_BYTES,
+            connections=readahead.DEFAULT_CONNECTIONS,
+            record_format=("recordio" if self._fmt_name == "recordio"
+                           else "text"))
+        self._pipe = native.IngestPipeline(None, None, self._fmt, 0, 1,
+                                           nthread=nthread, push=True)
+        # the feeder holds no reference to this parser; errors travel
+        # through the shared holder
+        self._feed_error_holder = []
+        self._reader = reader
+        self._feeder = threading.Thread(
+            target=_feed_pipeline,
+            args=(self._pipe, reader, self._feed_error_holder),
+            name="remote-ingest-feeder", daemon=True)
+        self._feeder.start()
+
+    def _feed_failed(self, err: DMLCError):
+        holder = self._feed_error_holder
+        if holder:
+            return DMLCError(f"remote ingest feeder failed: {holder[0]}")
+        return err
+
+    @property
+    def bytes_read(self) -> int:
+        return self._bytes_read_done + (
+            self._pipe.bytes_read if self._pipe is not None else 0)
+
+    def next_block(self) -> Optional[RowBlock]:
+        from dmlc_tpu_torch import native
+
+        while True:
+            try:
+                parsed = self._pipe.next_block()
+            except DMLCError as err:
+                raise self._feed_failed(err) from err
+            if parsed is None:
+                return None
+            if self._fmt == native.INGEST_CSV:
+                table = parsed["table"]
+                if table.shape[0] == 0:
+                    continue
+                out = RowBlockContainer()
+                _csv_table_to_block(table, self._csv_param.label_column,
+                                    self._csv_param.weight_column, out)
+                return out.to_block()
+            if len(parsed["labels"]) == 0:
+                continue
+            has_value = (self._fmt == native.INGEST_LIBFM
+                         or parsed["flags"] & native.HAS_VALUE)
+            return RowBlock(
+                offset=parsed["offsets"], label=parsed["labels"],
+                index=parsed["indices"],
+                value=parsed["values"] if has_value else None,
+                weight=parsed.get("weights"), qid=parsed.get("qids"),
+                field=parsed.get("fields"))
+
+    def __iter__(self) -> Iterator[RowBlock]:
+        while True:
+            block = self.next_block()
+            if block is None:
+                return
+            yield block
+
+    # ---- the fixed-shape batch route (the feed's host stage) -----------
+    # re-batching to batch_size rows and the dense / padded-COO write run
+    # in C++ (pipeline.cc StageBatch / FetchBatch*): one ctypes call a
+    # batch. libsvm, libfm and recordio (csv has its table layout).
+
+    @property
+    def supports_batch_fetch(self) -> bool:
+        from dmlc_tpu_torch import native
+
+        return self._fmt in (native.INGEST_LIBSVM, native.INGEST_LIBFM,
+                             native.INGEST_RECORDIO)
+
+    def stage_batch(self, batch_size: int):
+        """Stage the next batch → (rows, nnz), None at the end of data."""
+        try:
+            return self._pipe.stage_batch(batch_size)
+        except DMLCError as err:
+            raise self._feed_failed(err) from err
+
+    def fetch_batch_dense(self, batch_size: int, num_features: int, **out):
+        """Consume the staged batch as ``IngestPipeline.fetch_batch_dense``
+        does, into the arrays ``out`` names when given."""
+        return self._pipe.fetch_batch_dense(batch_size, num_features, **out)
+
+    def fetch_batch_coo(self, batch_size: int, nnz_bucket: int, **out):
+        """Consume the staged batch as ``IngestPipeline.fetch_batch_coo``
+        does, into the arrays ``out`` names when given."""
+        return self._pipe.fetch_batch_coo(batch_size, nnz_bucket, **out)
+
+    def read_batch_dense(self, batch_size: int, num_features: int):
+        """→ (x [batch, F] f32, labels, weights, valid rows), None at the
+        end of data; a short last batch is zero-padded (weight 0)."""
+        if self.stage_batch(batch_size) is None:
+            return None
+        return self._pipe.fetch_batch_dense(batch_size, num_features)
+
+    def read_batch_coo(self, batch_size: int, nnz_bucket=None):
+        """→ ``device/csr.DeviceCSRBatch``, None at the end of data; the
+        entry bucket is ``nnz_bucket`` when given, else ``round_up_bucket``
+        of the batch's nnz. The per-entry row ids the C++ also writes are
+        dropped, as the port's batch carries CSR offsets only."""
+        from dmlc_tpu_torch.device.csr import DeviceCSRBatch, _bucket
+
+        staged = self.stage_batch(batch_size)
+        if staged is None:
+            return None
+        nnz = staged[1]
+        labels, weights, indices, values, _row_ids, offsets, rows = (
+            self._pipe.fetch_batch_coo(batch_size, _bucket(nnz, nnz_bucket)))
+        return DeviceCSRBatch(
+            labels=labels, weights=weights, indices=indices, values=values,
+            offsets=offsets, num_rows=rows, num_nonzero=nnz)
+
+    def read_batch_coo_sharded(self, batch_size: int, num_shards: int,
+                               nnz_bucket=None):
+        """→ ``device/csr.ShardedCSRBatch`` (per-shard entry sections,
+        local row ids), None at the end of data; the bucket is
+        ``round_up_bucket`` of the largest shard's nnz unless fixed."""
+        from dmlc_tpu_torch.device.csr import ShardedCSRBatch, _bucket
+
+        staged = self.stage_batch(batch_size)
+        if staged is None:
+            return None
+        nnz = staged[1]
+        bucket = (nnz_bucket if nnz_bucket is not None else _bucket(
+            self._pipe.staged_max_shard_nnz(batch_size, num_shards), None))
+        labels, weights, indices, values, row_ids, offsets, rows = (
+            self._pipe.fetch_batch_coo_sharded(batch_size, num_shards,
+                                               bucket))
+        return ShardedCSRBatch(
+            labels=labels, weights=weights, indices=indices, values=values,
+            row_ids=row_ids, offsets=offsets, num_rows=rows,
+            num_nonzero=nnz, num_shards=num_shards, nnz_bucket=bucket)
+
+    def stats(self) -> Optional[dict]:
+        """The pipeline's stage counters, None once closed."""
+        return self._pipe.stats() if self._pipe is not None else None
+
+    def _teardown(self) -> None:
+        if self._pipe is None:
+            return
+        if self._feeder is not None:
+            # abort first: a feeder blocked in push() wakes with an error
+            # and cancelled fetches stop at their next check, both before
+            # the native handle is freed
+            self._reader.cancel()
+            self._pipe.push_abort()
+            self._feeder.join()
+            self._feeder = None
+            self._reader = None
+        self._bytes_read_done += self._pipe.bytes_read
+        self._pipe.close()
+        self._pipe = None
+
+    def before_first(self) -> None:
+        self._teardown()
+        self._epoch += 1
+        self._open()
+
+    def close(self) -> None:
+        self._teardown()
+
+    def __del__(self):
+        # the feeder is joined before the native handle is freed
+        try:
+            self._teardown()
+        except Exception:
+            pass
+
+
+def _native_local_files(spec: URISpec):
+    """The dataset's files when they are listable and all local, else
+    None. Loads the native library first: a failed build raises."""
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.io.filesystem import list_split_files
+
+    native.get_lib()
+    try:
+        files = list_split_files(spec.uri)
+    except Exception:
+        return None
+    if not files or not all(info.path.protocol in ("file://", "")
+                            for info in files):
+        return None
+    return files
+
+
+def _try_native_cached(spec: URISpec, data_format: str, part_index: int,
+                       num_parts: int, nthread: int,
+                       device) -> Optional[NativePipelineParser]:
+    """``#cachefile`` on a local libsvm uri: the reference's DiskRowIter
+    contract (build the cache, then stream it back each epoch,
+    disk_row_iter.h:95-141) with the cache in the row-group RecordIO layout
+    (data/rowrec.py) at ``<cachefile>.rowrec``. The first parser parses
+    its part through the native pipeline and writes the row groups; every
+    later epoch, and every later parser over the same uri, reads the cache
+    through the native recordio route. A sidecar ``.meta`` holds the
+    source's signature (bytes, newest mtime in ns, part), so a changed
+    source rebuilds. libsvm only: libfm's fields are not in the layout,
+    csv has its table, recordio is binary already."""
+    if data_format != "libsvm":
+        return None
+    files = _native_local_files(spec)
+    if files is None:
+        return None
+    # a path apart from the user's name: the Python stack's
+    # CachedInputSplit keeps its raw chunk frames at that name
+    cache = spec.cache_file + ".rowrec"
+    meta_path = cache + ".meta"
+    # unique a writer (threads of one process share a pid); the last
+    # atomic replace wins
+    tmp_tag = ".tmp.%d.%s" % (os.getpid(), uuid.uuid4().hex[:8])
+    try:
+        sig = {
+            "format": "rowrec-v1",
+            "src_bytes": int(sum(info.size for info in files)),
+            "src_mtime_ns": max(os.stat(info.path.name).st_mtime_ns
+                                for info in files),
+            "part": part_index,
+            "num_parts": num_parts,
+        }
+        valid = False
+        if os.path.exists(cache) and os.path.exists(meta_path):
+            try:
+                with open(meta_path) as fh:
+                    valid = json.load(fh) == sig
+            except (OSError, ValueError):
+                valid = False
+        if not valid:
+            from dmlc_tpu_torch.data.rowrec import RowGroupWriter
+            from dmlc_tpu_torch.io.filesystem import create_stream
+
+            base = NativePipelineParser(
+                [info.path.name for info in files],
+                [info.size for info in files], "libsvm", part_index,
+                num_parts, nthread=nthread, args=spec.args, device=device)
+            try:
+                with create_stream(cache + tmp_tag, "w") as out:
+                    writer = RowGroupWriter(out, rows_per_group=4096)
+                    for block in base:
+                        writer.write_block(block)
+            finally:
+                base.close()
+            os.replace(cache + tmp_tag, cache)
+            with open(meta_path + tmp_tag, "w") as fh:
+                json.dump(sig, fh)
+            os.replace(meta_path + tmp_tag, meta_path)
+        # the cache holds exactly this part's rows: served whole, and
+        # shuffled like any one local file
+        return NativePipelineParser(
+            [cache], [os.path.getsize(cache)], "recordio", 0, 1,
+            nthread=nthread, args=spec.args,
+            shuffle_seed=_shuffle_seed_arg(spec), device=device)
+    except Exception:
+        for tmp in (cache + tmp_tag, meta_path + tmp_tag):
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+        return None
+
+
+def _try_native_pipeline(spec: URISpec, data_format: str, part_index: int,
+                         num_parts: int, nthread: int,
+                         device) -> Optional[NativePipelineParser]:
+    """The native route when the dataset allows it (the rules in the
+    module docstring), else None for the Python stack. Loads the native
+    library first: a failed build raises."""
+    if data_format not in ("libsvm", "libfm", "csv", "recordio"):
+        return None
+    if spec.cache_file:
+        return _try_native_cached(spec, data_format, part_index, num_parts,
+                                  nthread, device)
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.io.filesystem import get_filesystem, list_split_files
+
+    native.get_lib()
+    try:
+        files = list_split_files(spec.uri)
+    except Exception:
+        return None
+    local = all(info.path.protocol in ("file://", "") for info in files)
+    sizes = [info.size for info in files]
+    shuffle_seed = _shuffle_seed_arg(spec)
+    try:
+        if local:
+            return NativePipelineParser(
+                [info.path.name for info in files], sizes, data_format,
+                part_index, num_parts, nthread=nthread, args=spec.args,
+                shuffle_seed=shuffle_seed, device=device)
+        if shuffle_seed >= 0:
+            # the push route streams in order: InputSplitShuffle takes it
+            return None
+        keys = {(info.path.protocol, info.path.host) for info in files}
+        if len(keys) != 1 or any(size <= 0 for size in sizes):
+            return None
+        return NativePipelineParser(
+            [], sizes, data_format, part_index, num_parts, nthread=nthread,
+            args=spec.args, remote_fs=get_filesystem(files[0].path),
+            remote_uris=[info.path for info in files], device=device)
+    except DMLCError:
+        # ingest_open refused (a chunk shuffle over several files)
+        return None
+
+
 class ThreadedParser:
     """Background-thread parse prefetch, :data:`PREFETCH_DEPTH` blocks
     ahead (parser.h:70-126)."""
@@ -382,10 +812,12 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     a ``PipelinedParser`` over ``nthread`` workers (each chunk parsed
     whole by one worker, blocks delivered in chunk order), a shard parser
     in a :class:`ThreadedShardParser` and any other parser in a
-    :class:`ThreadedParser`, as the JAX package does. ``device`` (None
-    means cuda) is where the parser's kernels run. A ``#cachefile`` uri
-    reads through ``CachedInputSplit``; ``shuffle_chunks=SEED`` through
-    ``InputSplitShuffle`` (16 sub-splits).
+    :class:`ThreadedParser`, as the JAX package does, unless the native
+    route takes the uri first (the rules in the module docstring).
+    ``device`` (None means cuda) is where the parser's kernels run. On the
+    Python stack a ``#cachefile`` uri reads through ``CachedInputSplit``
+    and ``shuffle_chunks=SEED`` through ``InputSplitShuffle`` (16
+    sub-splits).
     """
     device = resolve_device(device)
     nthread = DEFAULT_NTHREAD if nthread is None else nthread
@@ -416,6 +848,13 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     from dmlc_tpu_torch.obs import audit
 
     audit.auditor().set_shard(uri, part_index, num_parts)
+    if threaded and not audit.auditor().enabled:
+        # the native route has no io_read / parse digest points, so an
+        # armed audit keeps the Python stack, as in the JAX package
+        native_parser = _try_native_pipeline(spec, data_format, part_index,
+                                             num_parts, nthread, device)
+        if native_parser is not None:
+            return native_parser
     shuffle_seed = _shuffle_seed_arg(spec)
     source = create_input_split(
         uri, part_index, num_parts, _SPLIT_TYPE.get(data_format, "text"),

@@ -31,6 +31,8 @@ worker (``parse``), keyed by the epoch-relative chunk seq; the
 ``audit.corrupt`` faultpoint flips one digit after the io_read digest, so
 only the parse chain forks.
 
+This is the Python stack's cross-chunk stage: ``create_parser`` takes it
+where the native route (``data/parsers.NativePipelineParser``) declines.
 The JAX package's process pool (``DMLC_TPU_PARSE_PROCS``) is not ported.
 """
 

@@ -19,7 +19,10 @@ Payload layout (little-endian), byte for byte the JAX package's:
     values  f32[nnz]        (iff flags & 4)
 
 libfm ``field`` arrays are not carried: a libfm block raises, as in the
-JAX package. Its native decoder is not ported; this is its Python twin.
+JAX package. ``RecordIORowParser`` is the Python stack's decoder; the
+native route (``create_parser(..., threaded=True)`` over a local or single
+remote ``?format=recordio`` uri) decodes the same records in C++
+(``native/csrc/pipeline.cc``, format 3).
 """
 
 from __future__ import annotations

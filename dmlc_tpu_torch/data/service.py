@@ -18,8 +18,9 @@ fault-tolerant fleet: ``BlockService(dispatcher=addr)`` is a registered
 data *worker* that leases chunk descriptors from a
 :class:`~dmlc_tpu_torch.data.dispatcher.DataDispatcher`, heartbeats it and
 parses each leased chunk with ``create_parser(..., device=)`` on its own
-device (on the card every non-empty chunk part launches
-``tokenize_boundaries``), and ``RemoteBlockParser(addr, dispatcher=True)``
+device (the native route for a local or single-remote source; on the
+Python stack every non-empty chunk part launches ``tokenize_boundaries``
+on the card), and ``RemoteBlockParser(addr, dispatcher=True)``
 is a failover consumer: it finds live workers through the dispatcher,
 re-dials the next one when a worker dies mid-stream, reports the receipt
 and consumption of each chunk (the exactly-once protocol) and may hedge a

@@ -10,6 +10,15 @@ arrays (``emit_to_bucket``, padded to ``spec.nnz_bucket`` when it is set),
 a dense batch scattered into a zeroed ``[batch, num_features]`` staging
 array (``RowBlockContainer.emit_dense_into``).
 
+Over a ``NativePipelineParser`` (``data/parsers.py``'s native route) the
+re-batch and the write run in C++ instead: each batch is staged
+(``stage_batch``) and written by one native call straight into the staging
+arrays (``fetch_batch_dense`` / ``fetch_batch_coo``), so the staging stays
+one copy. That route carries no flows or dispatcher seqs (the native
+parser has neither), and a feed whose determinism audit is armed reads the
+parser's blocks through the Python re-batch instead, so that each batch
+gets its digest.
+
 That host stage (re-batch, audit digest, staging) runs on a producer
 thread, ``ThreadedIter`` at depth ``host_prefetch`` (explicit, else
 ``DMLC_TPU_HOST_PREFETCH``, where -1 or unset is auto: 0 on a host with
@@ -77,7 +86,7 @@ import torch
 from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.data.parsers import Parser, create_parser
 from dmlc_tpu_torch.data.row_block import RowBlockContainer
-from dmlc_tpu_torch.device.csr import _staging_raw, emit_to_bucket
+from dmlc_tpu_torch.device.csr import _bucket, _staging_raw, emit_to_bucket
 from dmlc_tpu_torch.obs import audit, device_telemetry
 from dmlc_tpu_torch.params.env import get_env
 from dmlc_tpu_torch.resilience import faultpoint
@@ -271,8 +280,10 @@ def stall_breakdown(stats: dict) -> str:
 
 class DeviceFeed:
     """Iterate fixed-shape device batches from a parser or a uri; a uri
-    gets ``create_parser`` on the feed's device, so its libsvm chunks
-    tokenize there too. ``host_prefetch`` is the producer thread's queue
+    gets ``create_parser`` on the feed's device (its route by the parser
+    module's rules: the native pipeline for local files, where the
+    Python stack's libsvm chunks would tokenize on that device).
+    ``host_prefetch`` is the producer thread's queue
     depth (0 runs the host stage inline; None reads
     ``DMLC_TPU_HOST_PREFETCH``, else auto). The producer starts at the
     first iteration, so a caller may restore the parser's read plan after
@@ -401,34 +412,96 @@ class DeviceFeed:
             log_warning("device feed: ack of chunk %s lost: %s", sid,
                         str(err).split("\n\nStack trace:")[0])
 
+    def _use_native_batches(self) -> bool:
+        """The C++ re-batch and write (pipeline.cc StageBatch /
+        FetchBatch*) when the parser has them, unless the audit is armed
+        (its batch digests are taken from the Python re-batch)."""
+        return (getattr(self._parser, "supports_batch_fetch", False)
+                and not self._audit.enabled)
+
     def _host_batches(self) -> Iterator:
         """The host stage (the producer thread's loop at depth > 0):
-        (staged host arrays, flow ids, seq ids) per batch, each batch's
-        digest at emit, then its write into staging inside a ``stage``
-        span; the time of each step is ``dmlc_feed_host_batch_ns``."""
-        producer = self._containers()
-        bidx = 0  # per-epoch batch index (the audit's batch-chain key)
+        (staged host arrays, flow ids, seq ids) per batch; the time of
+        each step is ``dmlc_feed_host_batch_ns``."""
+        producer = (self._host_batches_native() if self._use_native_batches()
+                    else self._host_batches_python())
         while True:
             faultpoint("device.feed")
             t0 = time.monotonic_ns()
             try:
                 try:
-                    rows, flows, seqs = next(producer)
+                    item = next(producer)
                 except StopIteration:
                     return
-                if rows is None:
-                    staged = None
-                else:
-                    self._audit.note_batch(bidx, rows)
-                    bidx += 1
-                    with obs.span("stage", rows=len(rows)):
-                        for fid in flows:
-                            obs.flow_step(fid, "chunk")
-                        staged = self._stage_rows(rows)
             finally:
                 self._stage["host_batch_ns"].observe(
                     time.monotonic_ns() - t0)
+            yield item
+
+    def _host_batches_python(self) -> Iterator:
+        """Each batch's digest at emit, then its write into staging inside
+        a ``stage`` span."""
+        bidx = 0  # per-epoch batch index (the audit's batch-chain key)
+        for rows, flows, seqs in self._containers():
+            if rows is None:
+                yield None, flows, seqs
+                continue
+            self._audit.note_batch(bidx, rows)
+            bidx += 1
+            with obs.span("stage", rows=len(rows)):
+                for fid in flows:
+                    obs.flow_step(fid, "chunk")
+                staged = self._stage_rows(rows)
             yield staged, flows, seqs
+
+    def _host_batches_native(self) -> Iterator:
+        """Stage each batch in C++, then write it with one native call into
+        the staging arrays (pinned on a card) inside a ``stage`` span."""
+        bs = self.spec.batch_size
+        row_ids = [np.empty(0, dtype=np.int32)]  # the C++ writes; unused
+        while True:
+            staged = self._parser.stage_batch(bs)
+            if staged is None:
+                return
+            nrows, nnz = staged
+            if nrows < bs and self.spec.drop_remainder:
+                return
+            with obs.span("stage", rows=nrows):
+                arrays = self._fetch_native(nnz, row_ids)
+            yield arrays, (), ()
+
+    def _fetch_native(self, nnz: int, row_ids: list) -> tuple:
+        """(host arrays, ints) of the staged batch, written by the C++
+        straight into its static shapes."""
+        spec = self.spec
+        bs = spec.batch_size
+        labels = _staging_raw(self.pool, bs, np.float32)
+        weights = _staging_raw(self.pool, bs, np.float32)
+        if spec.layout == "dense":
+            x = _staging_raw(self.pool, (bs, spec.num_features), np.float32)
+            n = self._parser.fetch_batch_dense(
+                bs, spec.num_features, x=x, labels=labels,
+                weights=weights)[3]
+            return ({"x": x, "label": labels, "weight": weights},
+                    {"num_rows": n})
+        bucket = _bucket(nnz, spec.nnz_bucket)
+        if len(row_ids[0]) < bucket:
+            row_ids[0] = np.empty(bucket, dtype=np.int32)
+        indices = _staging_raw(self.pool, bucket, np.int32)
+        values = _staging_raw(self.pool, bucket, np.float32)
+        offsets = _staging_raw(self.pool, bs + 1, np.int32)
+        n = self._parser.fetch_batch_coo(
+            bs, bucket, labels=labels, weights=weights, indices=indices,
+            values=values, row_ids=row_ids[0][:bucket], offsets=offsets)[6]
+        # an out-of-range feature id would index past w on the device (the
+        # u32 view catches ids past 2^31 too)
+        top = int(indices[:nnz].view(np.uint32).max()) if nnz else 0
+        check(spec.num_features <= 0 or top < spec.num_features,
+              "feature id %d out of range for num_features %d", top,
+              spec.num_features)
+        return ({"label": labels, "weight": weights, "indices": indices,
+                 "values": values, "offsets": offsets},
+                {"num_rows": n, "num_nonzero": nnz})
 
     def _stage_rows(self, rows: RowBlockContainer) -> tuple:
         """(host arrays, ints) of one batch, written once into its static

@@ -18,10 +18,10 @@
   line_split.cc:9-26, recordio_split.cc:9-25), so its bytes are those
   the InputSplit of part k reads.
 
-The JAX package feeds the reader into its native push pipeline
-(``DMLC_TPU_NATIVE=1``); the port follows the reference's Python stack,
-where a remote uri is read through ``InputSplit``, so nothing in the port
-consumes the reader yet.
+``data/parsers.NativePipelineParser`` feeds the reader into the native
+push pipeline through :meth:`RemotePartitionReader.feed_into`, which
+pushes the in-order buffers. :class:`PushRejected` tells a refused push
+(the pipeline already failed) from a failed fetch.
 """
 
 from __future__ import annotations
@@ -42,6 +42,12 @@ DEFAULT_RANGE_BYTES = 8 << 20
 #: default worker threads: extra threads only add contention past the
 #: cores that run them (the JAX package's measured default)
 DEFAULT_CONNECTIONS = max(1, min(4, os.cpu_count() or 1))
+
+
+class PushRejected(Exception):
+    """The native pipeline refused a push (it already failed or closed):
+    kept apart from fetch errors, so that the feeder lets the pipeline's
+    own error reach the consumer instead of masking it."""
 
 
 class OrderedWindow:
@@ -147,9 +153,8 @@ class RemotePartitionReader:
     exactly the part's adjusted byte range, fetched over ``connections``
     parallel bounded range requests (``record_format`` "text" or
     "recordio"; recordio steps stay 4-byte aligned, as the splits' are).
-    The JAX package's ``feed_into`` (each range read straight into its
-    native push pipeline) waits for that pipeline (ROADMAP queue 1 item
-    10 (c))."""
+    :meth:`feed_into` pushes the same stream into a native push
+    pipeline."""
 
     def __init__(self, fs, files: Sequence[Tuple[object, int]], part: int,
                  nparts: int, range_bytes: int = DEFAULT_RANGE_BYTES,
@@ -276,6 +281,21 @@ class RemotePartitionReader:
         fail at their next retry or cancellation check instead of running
         out their retry budgets."""
         self._cancel.set()
+
+    # ---- the native feed ------------------------------------------------
+    def feed_into(self, pipe) -> None:
+        """Push the part's bytes, in order, into the native push pipeline
+        ``pipe``: the ranges are fetched over the connections as
+        iteration fetches them, and each buffer is pushed (``push`` blocks
+        while the parse workers are behind, and cuts chunks as the
+        pipeline's own reader does). Raises :class:`PushRejected` when the
+        pipeline itself failed; a fetch error raises as it is, so that the
+        feeder aborts the pipeline."""
+        for buf in self:
+            try:
+                pipe.push(buf)
+            except DMLCError as err:
+                raise PushRejected(str(err)) from err
 
     def __iter__(self) -> Iterator[bytes]:
         from dmlc_tpu_torch import obs

@@ -14,9 +14,12 @@ Files are byte-identical to the JAX package's and the reference's:
   cut the chunk into ``num_parts`` aligned ranges for parallel parses
   (recordio.cc:101-156).
 
-The magic scan is a numpy pass over aligned u32 words. The JAX package's
-native batch writer and chunk decoder are not ported (ROADMAP queue 1
-item 10): this is its Python stack, byte for byte.
+``RecordIOWriter.write_records`` frames a whole batch in one pass of the
+native core (``native.recordio_pack_records``) and ``RecordIOChunkReader``
+decodes its part range in one native pass (``native.recordio_unpack_chunk``),
+as the JAX package does with its library loaded; ``write_record``,
+``RecordIOReader`` and the head scans are numpy passes over aligned u32
+words. Both give the same bytes.
 """
 
 from __future__ import annotations
@@ -91,8 +94,21 @@ class RecordIOWriter:
         self._stream.write(b"".join(out))
 
     def write_records(self, records) -> None:
-        for rec in records:
-            self.write_record(rec)
+        """Frame the whole batch in one native pass and write it with one
+        stream write (csrc/recordio.cc ``recordio_pack_batch``)."""
+        from dmlc_tpu_torch import native
+
+        records = list(records)  # may be a generator: read twice
+        lens = np.fromiter((len(r) for r in records), dtype=np.int64,
+                           count=len(records))
+        check(bool((lens < _MAX_RECORD).all()),
+              "RecordIO only accepts records < 2^29 bytes")
+        packed = native.recordio_pack_records(records)
+        # each embedded magic costs one more 8-byte header and takes its own
+        # 4 bytes out of the padded payload: the count from the size delta
+        plain = 8 * len(records) + int(((lens + 3) & ~3).sum())
+        self.except_counter += (len(packed) - plain) // 4
+        self._stream.write(packed)
 
 
 class RecordIOReader:
@@ -187,35 +203,27 @@ class RecordIOChunkReader:
         self._data = chunk
         self._pbegin = find_next_record_head(chunk, begin, size)
         self._pend = find_next_record_head(chunk, end, size)
+        # the whole part range decoded in one native pass
+        self._decoded: Optional[Tuple[bytes, np.ndarray]] = None
+        self._decoded_idx = 0
+        if self._pbegin < self._pend:
+            from dmlc_tpu_torch import native
+
+            data, offsets, consumed = native.recordio_unpack_chunk(
+                chunk[self._pbegin:self._pend])
+            check(consumed == self._pend - self._pbegin,
+                  "Invalid RecordIO format (partial frame inside part)")
+            self._decoded = (data, offsets)
 
     def next_record(self) -> Optional[bytes]:
-        if self._pbegin >= self._pend:
+        if self._decoded is None:
             return None
-        data = self._data
-        magic, lrec = struct.unpack_from("<II", data, self._pbegin)
-        check(magic == RECORDIO_MAGIC, "Invalid RecordIO format")
-        cflag = decode_flag(lrec)
-        length = decode_length(lrec)
-        if cflag == 0:
-            start = self._pbegin + 8
-            self._pbegin = start + ((length + 3) & ~3)
-            check(self._pbegin <= self._pend, "Invalid RecordIO format")
-            return data[start:start + length]
-        check(cflag == 1, "Invalid RecordIO format")
-        parts: List[bytes] = []
-        while True:
-            check(self._pbegin + 8 <= self._pend, "Invalid RecordIO format")
-            magic, lrec = struct.unpack_from("<II", data, self._pbegin)
-            check(magic == RECORDIO_MAGIC, "Invalid RecordIO format")
-            cflag = decode_flag(lrec)
-            length = decode_length(lrec)
-            start = self._pbegin + 8
-            parts.append(data[start:start + length])
-            self._pbegin = start + ((length + 3) & ~3)
-            if cflag == 3:
-                break
-            parts.append(_MAGIC_BYTES)
-        return b"".join(parts)
+        data, offsets = self._decoded
+        i = self._decoded_idx
+        if i >= len(offsets) - 1:
+            return None
+        self._decoded_idx = i + 1
+        return data[offsets[i]:offsets[i + 1]]
 
     def __iter__(self) -> Iterator[bytes]:
         while True:

@@ -785,7 +785,8 @@ class GBDTLearner:
         (Algorithm R, ``sample_rows`` rows; ≥ N keeps every row and gives
         ``fit``'s edges) to fit the edges; pass 2 re-streams and bins each
         block on the host into the compact binned matrix (uint8/uint16).
-        The parser tokenizes libsvm on the learner's device.
+        The parser is ``create_parser``'s route (the native pipeline for
+        local files; the Python stack tokenizes on the learner's device).
 
         ``part_index``/``num_parts`` pick this rank's InputSplit part. With
         a group, every rank must pass the same ``edges`` (which also skips

@@ -500,7 +500,9 @@ class LinearLearner:
         log_every: int = 0,
     ):
         """One call from data uri to fitted params: InputSplit part →
-        parser (tokenizing on the learner's device) → DeviceFeed →
+        parser (``create_parser``'s route: the native pipeline for local
+        files, else the Python stack tokenizing on the learner's device)
+        → DeviceFeed →
         fit_feed. The part defaults to this process's collective rank and
         world size (``InputSplit::Create(uri, rank, world)``), so the same
         line reads the whole file in one process and its own byte range in

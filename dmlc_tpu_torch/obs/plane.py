@@ -56,8 +56,12 @@ from dmlc_tpu_torch.obs import audit, goodput, trace, xla_cost
 from dmlc_tpu_torch.obs.exporters import prometheus_lines
 from dmlc_tpu_torch.obs.metrics import Registry, registry
 from dmlc_tpu_torch.params.env import get_env
+from dmlc_tpu_torch.utils.logging import DMLCError
 
 logger = logging.getLogger("dmlc_tpu_torch.obs.plane")
+
+#: heartbeat tries an epoch's publish makes before it drops its batch
+PUBLISH_ATTEMPTS = 3
 
 PAYLOAD_MARK = "\nOBS1 "  # heartbeat-line suffix carrying the JSON payload
 
@@ -161,10 +165,17 @@ class ObsPublisher:
     """Worker-side publisher: batches spans via a trace listener and
     ships them (plus a metric snapshot) on tracker heartbeats.
 
-    Publishing is best-effort: a failed heartbeat drops that batch —
-    telemetry must never wedge a training loop. The measured
-    send→ack RTT rides in the *next* payload as the tracker's skew
-    probe."""
+    Publishing is best-effort: a heartbeat whose dial or handshake fails
+    with a transient error (a refused, reset or timed-out connection, as
+    a loaded host gives) dials again under a ``resilience.RetryPolicy`` at
+    site ``obs.publish`` (up to :data:`PUBLISH_ATTEMPTS` tries within the
+    call's ``timeout``; each retry counts in
+    ``dmlc_retry_attempts_total{site="obs.publish"}``). A failure after
+    the payload frame was sent is not retried, since the tracker may
+    already have noted it. A publish that fails drops that batch with a
+    warning and counts in :attr:`dropped` — telemetry must never wedge a training loop. The measured send→ack RTT
+    (a retried dial's wait included) rides in the *next* payload as the
+    tracker's skew probe."""
 
     def __init__(
         self,
@@ -188,6 +199,7 @@ class ObsPublisher:
         self._m_publishes = registry().counter(
             "dmlc_obs_publishes_total",
             "obs heartbeat payloads published to the tracker")
+        self.dropped = 0  # publishes that failed and dropped their batch
         self._profile_seen = 0
         trace.add_listener(self._on_span)
 
@@ -214,15 +226,23 @@ class ObsPublisher:
             rank=self.rank, epoch=epoch, spans=spans, reg=self._reg,
             rtt_ns=self._rtt_ns,
         )
+        from dmlc_tpu_torch.resilience import RetryPolicy
+
+        # only the dial and the handshake are retried: the tracker notes a
+        # payload once it has read it, so a resend would count it twice
+        policy = RetryPolicy(max_attempts=PUBLISH_ATTEMPTS, base_s=0.05,
+                             cap_s=0.5, deadline_s=timeout)
         t0 = time.monotonic_ns()
         try:
             _, profile_word = send_heartbeat(
                 self.tracker_uri, self.tracker_port, self.rank, epoch=epoch,
                 metrics=(f"job={self.job}" if self.job else ""),
                 obs_json=blob, timeout=timeout, want_profile=True,
-            )
-        except (OSError, ValueError) as err:
-            logger.debug("obs publish failed: %s", err)
+                retry=policy, retry_site="obs.publish")
+        except (OSError, ValueError, DMLCError) as err:
+            self.dropped += 1
+            logger.warning("obs publish of epoch %d dropped: %s", epoch,
+                           str(err).split("\n\nStack trace:")[0])
             return False
         self._rtt_ns = time.monotonic_ns() - t0
         self._m_publishes.inc()

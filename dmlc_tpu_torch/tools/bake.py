@@ -3,8 +3,9 @@ port of ``dmlc_tpu/tools/bake.py``.
 
 ``python -m dmlc_tpu_torch.tools bake <src> <dst.dtsh> [--device cpu]``
 parses the source once through ``create_parser`` on the device (the card
-unless ``--device cpu``: its libsvm chunks are tokenized by the
-``tokenize_boundaries`` kernel there) and writes the RowBlocks as shards
+unless ``--device cpu``; a local or single-remote text source takes the
+native route, any other is tokenized by the ``tokenize_boundaries`` kernel
+there) and writes the RowBlocks as shards
 (``io/shard.py``); every later epoch reads typed columns, no parse.
 
 ``--nparts N`` bakes N shard files at once on a thread pool, one a part

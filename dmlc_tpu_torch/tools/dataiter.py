@@ -5,7 +5,8 @@ suffix takes the external-memory cache) and report each epoch's rows,
 nnz and rows/s. The blocks go through the device feed: a csr
 ``DeviceFeed`` of ``--batch-size`` rows over the iterator, its producer
 thread at the default depth, every batch copied to ``--device`` (the
-card unless ``--device cpu``), where the text is tokenized too.
+card unless ``--device cpu``), where the Python stack's text is
+tokenized too (a local source takes the native route).
 
 Usage::
 

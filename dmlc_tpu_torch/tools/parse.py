@@ -1,8 +1,9 @@
 """Parser throughput harness (libsvm / libfm / csv / recordio), the port
 of ``dmlc_tpu/tools/parse.py`` (``test/libsvm_parser_test.cc``: bytes
-parsed, examples, MB/s). Text is tokenized on ``--device`` (the card
-unless ``--device cpu``): each non-empty chunk part launches
-``tokenize_boundaries`` once.
+parsed, examples, MB/s) through ``create_parser``'s route: the native
+pipeline for a local or single-remote source, else the Python stack, whose
+text is tokenized on ``--device`` (the card unless ``--device cpu``: each
+non-empty chunk part launches ``tokenize_boundaries`` once).
 
 Usage::
 
@@ -30,7 +31,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     choices=["auto", "libsvm", "libfm", "csv", "recordio"])
     ap.add_argument("--nthread", type=int, default=2)
     ap.add_argument("--device", default=None,
-                    help="where the text is tokenized (default: the card)")
+                    help="where the Python stack's text is tokenized "
+                    "(default: the card)")
     args = ap.parse_args(argv)
 
     parser = create_parser(args.uri, args.part, args.nparts, args.format,

@@ -787,6 +787,10 @@ class RabitTracker:
                     else:
                         commit_generation()
         self._release_joiners(joiners)
+        # a dial after the job's end (a late spare, a last heartbeat) is
+        # refused at once instead of waiting in the backlog for an accept
+        # that never comes
+        self.sock.close()
         for worker in shutdown.values():
             worker.conn.close()
         self.end_time = time.time()
@@ -877,7 +881,9 @@ def _handshake(conn: FramedSocket, rank: int, world_size: int, jobid: str,
 def send_heartbeat(tracker_uri: str, tracker_port: int, rank: int,
                    epoch: int = -1, metrics: str = "",
                    timeout: float = 10.0, obs_json: Optional[str] = None,
-                   want_profile: bool = False):
+                   want_profile: bool = False,
+                   retry: Optional[RetryPolicy] = None,
+                   retry_site: str = "tracker.heartbeat"):
     """Worker-side heartbeat: one short connection with cmd="heartbeat"
     and a payload line ``epoch=N [metrics]``. Returns the tracker's ack,
     its target ``world_version``: larger than the engine's generation
@@ -887,12 +893,28 @@ def send_heartbeat(tracker_uri: str, tracker_port: int, rank: int,
     ``obs_json`` (``obs.plane.build_payload``) rides the same string frame
     behind ``PAYLOAD_MARK``. ``want_profile=True`` also reads the ack's
     second frame, the ``/profile`` request word, and returns ``(ack,
-    word)``; a tracker without that frame reads as word 0."""
-    sock = socket.create_connection((tracker_uri, tracker_port),
-                                    timeout=timeout)
-    conn = FramedSocket(sock)
+    word)``; a tracker without that frame reads as word 0.
+
+    ``retry`` retries the dial and the handshake, at site ``retry_site``.
+    Nothing after them is retried: once the payload frame is on the wire
+    the tracker may have noted it, and a second send would count it
+    twice."""
+
+    def dial() -> FramedSocket:
+        sock = socket.create_connection((tracker_uri, tracker_port),
+                                        timeout=timeout)
+        conn = FramedSocket(sock)
+        try:
+            _handshake(conn, rank, -1, "NULL", "heartbeat")
+        except BaseException:
+            conn.close()
+            raise
+        return conn
+
+    conn = (dial() if retry is None else
+            retry.call(dial, retry_site,
+                       display=f"tracker {tracker_uri}:{tracker_port}"))
     try:
-        _handshake(conn, rank, -1, "NULL", "heartbeat")
         payload = f"epoch={epoch}"
         if metrics:
             payload += " " + metrics

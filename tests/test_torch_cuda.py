@@ -437,24 +437,34 @@ def test_tokenize_boundaries_unaligned_starts(cuda, offset):
 
 
 def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
-    """create_row_block_iter on the card and on the CPU: the same
-    RowBlock, bit for bit, with one kernel launch a non-empty chunk part.
-    create_parser's PipelinedParser parses each chunk whole on one of its
+    """The Python stack's row iterator on the card and on the CPU: the
+    same RowBlock, bit for bit, with one kernel launch a non-empty chunk
+    part. Its PipelinedParser parses each chunk whole on one of its
     workers; the unthreaded parser's nthread=2 pool splits a chunk of 4096
-    bytes or more in two."""
+    bytes or more in two. create_row_block_iter's native route launches
+    no kernel and gives the same rows."""
+    from chip_smoke import python_stack_parser
+    from dmlc_tpu_torch.data.row_iter import BasicRowIter
+
     path = _write_svm(tmp_path / "t.svm", 3000)
     kernels.reset_launch_counts()
-    got = next(iter(create_row_block_iter(path, nthread=1)))
+    got = next(iter(BasicRowIter(python_stack_parser(path, cuda,
+                                                     nthread=1))))
     launches = kernels.tokenize_boundaries.launches
-    want = next(iter(create_row_block_iter(path, device="cpu")))
+    want = next(iter(BasicRowIter(python_stack_parser(path, "cpu"))))
     assert launches == 1  # one chunk, one part, under 8 MiB
     for name in ("offset", "label", "index", "value"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.dtype == w.dtype and np.array_equal(g, w), name
     kernels.reset_launch_counts()
-    again = next(iter(create_row_block_iter(path)))
+    again = next(iter(BasicRowIter(python_stack_parser(path, cuda))))
     assert kernels.tokenize_boundaries.launches == 1
     assert np.array_equal(again.index, want.index)
+    kernels.reset_launch_counts()
+    native = next(iter(create_row_block_iter(path)))
+    assert kernels.tokenize_boundaries.launches == 0
+    assert np.array_equal(native.index, want.index)
+    assert np.array_equal(native.offset, want.offset)
     kernels.reset_launch_counts()
     parser = create_parser(path, nthread=2, threaded=False)
     try:
@@ -468,10 +478,13 @@ def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
 def test_remote_s3_read_on_the_card_matches_cpu(cuda, tmp_path,
                                                 monkeypatch):
     """A libsvm file of several 8 MiB chunks read from the fake s3:// on
-    the card (chip_smoke.py phase 22 at a small size): one tokenizer
-    launch a non-empty chunk part, and the rows of the CPU route's read
-    of the local file, bit for bit."""
-    from chip_smoke import count_parts, read_all, same_blocks
+    the card (chip_smoke.py phase 22 at a small size): on the native push
+    route no tokenizer launch, on the Python stack one a non-empty chunk
+    part, and each the rows of the same route's CPU read of the local
+    file, bit for bit."""
+    from chip_smoke import (count_parts, python_stack_parser, read_all,
+                            same_blocks)
+    from dmlc_tpu_torch.data.row_iter import BasicRowIter
     from dmlc_tpu_torch.io import filesystem
     from dmlc_tpu_torch.io.object_store import S3FileSystem
     from fake_object_store import serve  # tests/, on the path under pytest
@@ -489,13 +502,21 @@ def test_remote_s3_read_on_the_card_matches_cpu(cuda, tmp_path,
         with count_parts() as parts:
             card, _ = read_all(create_row_block_iter("s3://bkt/remote.svm"))
         launches = kernels.tokenize_boundaries.launches
+        kernels.reset_launch_counts()
+        with count_parts() as py_parts:
+            py_card, _ = read_all(BasicRowIter(python_stack_parser(
+                "s3://bkt/remote.svm", cuda)))
+        py_launches = kernels.tokenize_boundaries.launches
     finally:
         server.shutdown()
         server.server_close()
     cpu, _ = read_all(create_row_block_iter(path, device="cpu"))
-    assert launches == len(parts) > 2
+    assert launches == len(parts) == 0
     same_blocks("the s3:// read on the card", card, cpu)
     assert len(card) == 60_000
+    py_cpu, _ = read_all(BasicRowIter(python_stack_parser(path, "cpu")))
+    assert py_launches == len(py_parts) > 2
+    same_blocks("the s3:// Python-stack read on the card", py_card, py_cpu)
 
 
 # ---------------------------------------------------------------------------
@@ -669,7 +690,7 @@ def test_crash_recover_csr_fit_through_the_launcher(cuda, tmp_path):
     run, then rank 1 crashing as it starts round 2, relaunched, both
     replaying from the checkpoint. ``drive_recovery`` holds each rank's
     ``coo_segment_sum`` launches to its steps and its tokenizer launches
-    to its chunk parts; 39,864 rows give each rank 3 steps a round."""
+    to 0 (the native route); 39,864 rows give each rank 3 steps a round."""
     path = str(tmp_path / "criteo.svm")
     write_criteo(path, 39_864, seed=12)
     kernels._lib()  # the rank processes load it
@@ -770,12 +791,11 @@ def test_a_recording_reads_the_peak_and_keeps_the_callers(cuda):
 
 def test_fleet_fed_csr_fit_equals_the_local_card_fit(cuda, tmp_path,
                                                      monkeypatch):
-    """A one-worker data-service fleet on the card (the worker tokenizes
-    each leased part there; its source cache off, so every epoch parses)
-    feeds the csr fit one job an epoch: losses and params equal the local
-    card fit's bit for bit, one ``coo_segment_sum`` a step, one tokenizer
-    launch a chunk part."""
-    from chip_smoke import split_parts
+    """A one-worker data-service fleet on the card (the worker parses each
+    leased part on the native route; its source cache off, so every epoch
+    parses) feeds the csr fit one job an epoch: losses and params equal
+    the local card fit's bit for bit, one ``coo_segment_sum`` a step, no
+    tokenizer launch."""
     from dmlc_tpu_torch.data import (BlockService, DataDispatcher,
                                      RemoteBlockParser, reset_source_cache)
     from dmlc_tpu_torch.models import params_to_numpy
@@ -813,8 +833,7 @@ def test_fleet_fed_csr_fit_equals_the_local_card_fit(cuda, tmp_path,
     for k in ("w", "b"):
         assert np.array_equal(got[k], ref[k]), k
     assert kernels.coo_segment_sum.launches == epochs * (-(-4096 // bs))
-    assert kernels.tokenize_boundaries.launches == \
-        epochs * split_parts(path, nchunks)
+    assert kernels.tokenize_boundaries.launches == 0
     reset_source_cache()
 
 
@@ -823,8 +842,9 @@ def test_the_card_feed_at_every_depth_is_the_cpu_feed(cuda, tmp_path,
                                                       layout):
     """The feed on the card (pinned staging filled by the producer thread,
     copies on the consumer's stream) at depth 0 and 2 and window 1 and 2:
-    every batch equal bit for bit to the CPU feed's, the tokenizer once a
-    chunk part, and the pool growing to its in-flight depth only."""
+    every batch equal bit for bit to the CPU feed's, staged in C++ on the
+    native route (no tokenizer launch), and the pool growing to its
+    in-flight depth only."""
     path = str(tmp_path / "c.svm")
     write_criteo(path, 20000, seed=5)
     spec = dict(batch_size=1024, layout=layout,
@@ -846,7 +866,7 @@ def test_the_card_feed_at_every_depth_is_the_cpu_feed(cuda, tmp_path,
     for depth, window in ((0, 1), (2, 1), (2, 2)):
         kernels.reset_launch_counts()
         got, pool = batches(cuda, depth, window)
-        assert kernels.tokenize_boundaries.launches > 0
+        assert kernels.tokenize_boundaries.launches == 0
         assert len(got) == len(want)
         for g, w in zip(got, want):
             for k in w:

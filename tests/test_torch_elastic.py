@@ -348,14 +348,43 @@ def test_spare_is_released_when_the_job_finishes(monkeypatch):
     t = threading.Thread(target=spare, daemon=True)
     t.start()
     try:
+        # the spare is parked before the job's only worker comes and goes:
+        # on a loaded host its thread could otherwise dial a tracker that
+        # had already finished
+        deadline = time.time() + 30
+        while (not any(e["kind"] == "join" for e in tracker.membership())
+               and time.time() < deadline):
+            time.sleep(0.01)
         eng = SocketEngine(tracker_uri="127.0.0.1",
                            tracker_port=tracker.port, jobid="w")
         eng.shutdown()
         tracker.join()
         t.join(10)
         assert outcome == ["unused"]
-        assert [e["kind"] for e in tracker.membership()] in (
-            ["join", "rebuild"], ["rebuild", "join"])
+        assert [e["kind"] for e in tracker.membership()] == [
+            "join", "rebuild"]
+    finally:
+        tracker.close()
+
+
+def test_a_late_spare_is_refused_once_the_job_finishes(monkeypatch):
+    """A spare that dials after the job's end is refused at once (the
+    tracker closed its listening socket), and gives up after its dial's
+    retries instead of waiting on a backlog that is never accepted."""
+    tracker = rz.RabitTracker("127.0.0.1", 1, port=PORTS[0],
+                              port_end=PORTS[1])
+    tracker.start(1)
+    try:
+        eng = SocketEngine(tracker_uri="127.0.0.1",
+                           tracker_port=tracker.port, jobid="w")
+        eng.shutdown()
+        tracker.join()
+        t0 = time.monotonic()
+        with pytest.raises(DMLCError, match="gave up"):
+            rz.request_join("127.0.0.1", tracker.port, jobid="s",
+                            timeout=60)
+        assert time.monotonic() - t0 < 20
+        assert [e["kind"] for e in tracker.membership()] == ["rebuild"]
     finally:
         tracker.close()
 

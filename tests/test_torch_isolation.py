@@ -62,9 +62,24 @@ tracker.thread.join(10)
 tracker.close()
 assert not tracker.alive()
 assert distributed.process_count() == 1
-parser = create_parser(sys.argv[1], nthread=2, device="cpu")
-assert isinstance(parser, PipelinedParser) and sum(len(b) for b in parser) == 11
+parser = create_parser(sys.argv[1], nthread=2, device="cpu", threaded=False)
+parser = PipelinedParser(parser, nthread=2)
+assert sum(len(b) for b in parser) == 11
 parser.close()
+# the native core: built from the port's own sources, the native route
+# and its batch staging, RecordIO through it
+from dmlc_tpu_torch import native
+from dmlc_tpu_torch.data.parsers import NativePipelineParser
+assert "native/_build" in str(native.library_path())
+assert native.simd_level() in (0, 2)
+parser = create_parser(sys.argv[1], nthread=2, device="cpu")
+assert isinstance(parser, NativePipelineParser)
+assert sum(len(b) for b in parser) == 11
+parser.before_first()
+assert parser.read_batch_coo(16).num_rows == 11
+parser.close()
+assert native.recordio_unpack_chunk(
+    native.recordio_pack_records([b"ab", b"cde"]))[0] == b"abcde"
 assert list(fetch_ordered(abs, [-1, -2])) == [1, 2]
 it = create_row_block_iter(sys.argv[1] + "#" + sys.argv[1] + ".cache",
                            device="cpu")
@@ -206,7 +221,9 @@ assert parse.main([sys.argv[1], "--device", "cpu"]) == 0
 assert dataiter.main([sys.argv[1], "--batch-size", "4", "--device",
                       "cpu"]) == 0
 assert split_read.main([sys.argv[1], "0", "1"]) == 0
-assert strtonum.main(["--n", "200", "--device", "cpu"]) == 0
+assert strtonum.main(["--n", "200"]) == 0
+assert strtonum.main(["--n", "200", "--route", "python", "--device",
+                      "cpu"]) == 0
 assert bench_gate.main(["--smoke"]) == 0
 # the status plane armed: a tracker with its HTTP server, a csr fit that
 # publishes at each epoch, the obs tools against the live server, a
@@ -424,3 +441,18 @@ def test_port_sources_import_no_jax_and_no_reference(path):
     text = path.read_text()
     assert not _FORBIDDEN_IMPORT.search(text), path
     assert "__import__(\"jax" not in text and "import_module(\"jax" not in text
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "dmlc_tpu_torch" / "native" / "csrc").iterdir()),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_stand_alone(path):
+    """The port's C++ includes only its own headers (never ``cpp/``'s) and
+    reads no environment; its build and bindings name no ``cpp/`` file."""
+    text = path.read_text()
+    for name in re.findall(r'#include\s+"([^"]+)"', text):
+        assert (path.parent / name).exists(), (path, name)
+    assert "getenv" not in text
+    for py in ("_build.py", "__init__.py"):
+        src = (ROOT / "dmlc_tpu_torch" / "native" / py).read_text()
+        assert "libdmlc_tpu.so\"" not in src and "\"cpp\"" not in src

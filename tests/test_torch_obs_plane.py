@@ -24,6 +24,7 @@ Trackers bind ports 21900-21919.
 import json
 import os
 import pathlib
+import socket
 import subprocess
 import sys
 import textwrap
@@ -439,11 +440,121 @@ def test_export_epoch_publishes_to_an_armed_tracker(monkeypatch):
             if view.get("payloads", 0) >= 2:
                 break
             time.sleep(0.02)
-        assert view["epoch"] == 2 and view["payloads"] == 2
+        # a lost publish shows its cause: retries, give-ups and drops
+        assert view["epoch"] == 2 and view["payloads"] == 2, (
+            view, _publish_counts(plane.default_publisher()))
         assert any(k.startswith("dmlc_obs_publishes_total")
                    for k in tracker.plane._views[0].metrics)
     finally:
         plane.reset_default_publisher()
+        tracker.close()
+
+
+def _wait_payloads(tracker, want):
+    deadline = time.time() + 10
+    view = {}
+    while time.time() < deadline:
+        view = tracker.plane.workers().get("0", {})
+        if view.get("payloads", 0) >= want:
+            break
+        time.sleep(0.02)
+    return view
+
+
+def _publish_counts(pub):
+    """(retries, give-ups) at the ``obs.publish`` site, and ``pub``'s
+    dropped publishes."""
+    from dmlc_tpu_torch.resilience import retry
+
+    st = retry.stats()
+    return (st["attempts"].get("obs.publish", 0),
+            st["giveups"].get("obs.publish", 0),
+            None if pub is None else pub.dropped)
+
+
+def test_a_failed_heartbeat_is_retried_and_counted(monkeypatch):
+    """A heartbeat whose dial is refused once (a loaded host) dials again
+    within the publish's timeout, so the epoch's payload reaches the
+    tracker once; the retry counts at the ``obs.publish`` retry site. A
+    publish whose every dial fails drops its batch and counts it."""
+    from dmlc_tpu_torch.tracker import rendezvous
+    from dmlc_tpu_torch.tracker.rendezvous import RabitTracker
+
+    monkeypatch.setenv("DMLC_TPU_STATUS_PORT", "0")
+    tracker = RabitTracker("127.0.0.1", 1, **PORTS)
+    real = rendezvous.socket.create_connection
+    dials = []
+    refuse = {"first": 1, "all": False}
+
+    def flaky(*args, **kwargs):
+        dials.append(1)
+        if refuse["all"] or len(dials) <= refuse["first"]:
+            raise ConnectionRefusedError("refused under load")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(rendezvous.socket, "create_connection", flaky)
+    pub = None
+    try:
+        tracker.start(1)
+        pub = plane.ObsPublisher("127.0.0.1", tracker.port, 0)
+        before = _publish_counts(pub)
+        assert pub.publish(epoch=1, timeout=10) is True
+        view = _wait_payloads(tracker, 1)
+        assert view["payloads"] == 1 and view["epoch"] == 1
+        # one retry, no give-up, nothing dropped
+        assert len(dials) == 2
+        assert _publish_counts(pub) == (before[0] + 1, before[1], before[2])
+        # every dial failing drops the batch: the retries, then one
+        # give-up and one drop
+        refuse["all"] = True
+        assert pub.publish(epoch=2, timeout=10) is False
+        assert _publish_counts(pub) == (before[0] + plane.PUBLISH_ATTEMPTS,
+                                     before[1] + 1, before[2] + 1)
+        assert tracker.plane.workers()["0"]["payloads"] == 1
+    finally:
+        if pub is not None:
+            pub.close()
+        tracker.close()
+
+
+def test_a_heartbeat_failing_after_its_send_is_not_sent_again(monkeypatch):
+    """A heartbeat that fails once its payload is on the wire (the ack's
+    read timing out under load) is not sent again: the tracker has noted
+    the payload once, and the publish counts as dropped."""
+    from dmlc_tpu_torch.tracker import rendezvous
+    from dmlc_tpu_torch.tracker.rendezvous import RabitTracker
+
+    monkeypatch.setenv("DMLC_TPU_STATUS_PORT", "0")
+    tracker = RabitTracker("127.0.0.1", 1, **PORTS)
+    real = rendezvous.FramedSocket.send_str
+    sends = []
+
+    def send_then_time_out(self, text):
+        real(self, text)
+        if plane.PAYLOAD_MARK in text:
+            # the worker gives up on the ack only once the tracker noted
+            # the payload, as a slow tracker's late ack does
+            sends.append(1)
+            _wait_payloads(tracker, len(sends))
+            raise socket.timeout("timed out reading the ack")
+
+    monkeypatch.setattr(rendezvous.FramedSocket, "send_str",
+                        send_then_time_out)
+    pub = None
+    try:
+        tracker.start(1)
+        pub = plane.ObsPublisher("127.0.0.1", tracker.port, 0)
+        before = _publish_counts(pub)
+        assert pub.publish(epoch=1, timeout=10) is False
+        view = _wait_payloads(tracker, 1)
+        assert view["payloads"] == 1 and view["epoch"] == 1
+        time.sleep(0.3)  # a resend would have reached the tracker by now
+        assert tracker.plane.workers()["0"]["payloads"] == 1
+        assert len(sends) == 1
+        assert _publish_counts(pub) == (before[0], before[1], before[2] + 1)
+    finally:
+        if pub is not None:
+            pub.close()
         tracker.close()
 
 

@@ -182,8 +182,12 @@ def _drain(parser):
 
 
 def _parse_both(uri, part, nparts, fmt, nthread, threaded, chunk=None):
-    port = create_parser(uri, part, nparts, fmt, nthread, threaded,
+    # the Python stack on both sides: threaded, the PipelinedParser that
+    # create_parser builds where the native route declines
+    port = create_parser(uri, part, nparts, fmt, nthread, False,
                          device="cpu")
+    if threaded:
+        port = PipelinedParser(port, nthread=nthread)
     ref = ref_create_parser(uri, part, nparts, fmt, nthread, threaded=False)
     if chunk is not None:
         port._source.hint_chunk_size(chunk)
@@ -248,8 +252,8 @@ def test_threaded_parser_repeats_epochs(tmp_path):
     uri = _write(tmp_path, "libsvm_weights")
     threaded = ThreadedParser(LibSVMParser(create_input_split(uri, 0, 1),
                                            device="cpu"))
-    pipelined = create_parser(uri, device="cpu")
-    assert isinstance(pipelined, PipelinedParser)
+    pipelined = PipelinedParser(create_parser(uri, threaded=False,
+                                              device="cpu"))
     for parser in (threaded, pipelined):
         assert parser.device == torch.device("cpu")
         first = _concat(list(parser))
@@ -288,10 +292,12 @@ def test_unknown_format_and_cache_file_raise(tmp_path):
     finally:
         port.close()
         ref.close()
-    # a cache file does not combine with the chunk shuffle
+    # on the Python stack a cache file does not combine with the chunk
+    # shuffle (the native route's row-group cache shuffles its chunks:
+    # tests/test_torch_native_pipeline.py)
     with pytest.raises(DMLCError, match="cache"):
         create_parser(uri + "?shuffle_chunks=3#" + str(tmp_path / "c.bin"),
-                      device="cpu")
+                      threaded=False, device="cpu")
 
 
 class _SemicolonParser(Parser):
@@ -365,14 +371,50 @@ def _read_iter(it):
 @pytest.mark.parametrize("name", ["libsvm_weights", "libsvm_qid", "libfm",
                                   "csv_ragged"])
 def test_basic_row_iter_matches_reference(tmp_path, name):
+    """The Python stack: a BasicRowIter over the PipelinedParser that
+    create_row_block_iter reads through where the native route declines
+    (the native route: the next test)."""
+    from dmlc_tpu_torch.data.row_iter import BasicRowIter
+
     uri = _write(tmp_path, name)
     fmt = FORMATS[name]
+    got, ncol = _read_iter(BasicRowIter(PipelinedParser(create_parser(
+        uri, data_format=fmt, threaded=False, device="cpu"))))
+    want, ref_ncol = _read_iter(ref_create_row_block_iter(uri,
+                                                          data_format=fmt))
+    assert_blocks_equal(got, want)
+    assert ncol == ref_ncol == int(got.index.max()) + 1
+
+
+@pytest.mark.parametrize("name", ["libsvm_weights", "libsvm_qid", "libfm",
+                                  "csv", "csv_ragged"])
+def test_row_block_iter_native_route_matches_reference(tmp_path, name,
+                                                       monkeypatch):
+    """create_row_block_iter over a local file reads through the native
+    route, as the JAX package's does with its library loaded: the same
+    rows bit for bit, and for a ragged csv the same pipeline error."""
+    monkeypatch.delenv("DMLC_TPU_NATIVE")
+    monkeypatch.delenv("DMLC_TPU_PARSE_BACKEND")
+    uri = _write(tmp_path, name)
+    fmt = FORMATS[name]
+    if name == "csv_ragged":
+        with pytest.raises(DMLCError, match="pipeline failed"):
+            create_row_block_iter(uri, data_format=fmt, device="cpu")
+        # the JAX package's parser, closed here: its BasicRowIter leaves
+        # a failed one open
+        ref = ref_create_parser(uri, data_format=fmt)
+        try:
+            with pytest.raises(Exception, match="pipeline failed"):
+                list(ref)
+        finally:
+            ref.close()
+        return
     got, ncol = _read_iter(create_row_block_iter(uri, data_format=fmt,
                                                  device="cpu"))
     want, ref_ncol = _read_iter(ref_create_row_block_iter(uri,
                                                           data_format=fmt))
     assert_blocks_equal(got, want)
-    assert ncol == ref_ncol == int(got.index.max()) + 1
+    assert ncol == ref_ncol
 
 
 @pytest.mark.parametrize("name", ["libsvm_weights", "libfm", "csv"])

@@ -190,8 +190,11 @@ def test_pipelined_blocks_match_reference_and_serial(tmp_path,
     uri = _write(tmp_path, fmt)
     if fmt == "csv":
         uri += "?label_column=0"
-    port = create_parser(uri, 0, 1, fmt, nthread, device="cpu")
-    assert isinstance(port, PipelinedParser)
+    # the Python stack, built as create_parser builds it where the native
+    # route declines (tests/test_torch_native_pipeline.py holds that route)
+    port = PipelinedParser(create_parser(uri, 0, 1, fmt, nthread,
+                                         threaded=False, device="cpu"),
+                           nthread=nthread)
     # what the JAX package's create_parser builds, over an unthreaded
     # InputSplit: its prefetching one may read the first chunk before a
     # size hint lands
@@ -255,7 +258,8 @@ def test_worker_error_surfaces_at_its_chunk(tmp_path, nthread):
 
 def test_before_first_replays_an_epoch(tmp_path):
     uri = _write(tmp_path, "libsvm")
-    parser = create_parser(uri, nthread=4, device="cpu")
+    parser = PipelinedParser(create_parser(uri, nthread=4, threaded=False,
+                                           device="cpu"), nthread=4)
     _source_of(parser).hint_chunk_size(CHUNK)
     try:
         first = list(parser)

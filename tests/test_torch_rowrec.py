@@ -145,8 +145,12 @@ def test_recordio_parser_blocks_match_reference(tmp_path, nparts, threaded):
     text = _concat(create_parser(src, device="cpu"))
     parts = []
     for part in range(nparts):
+        # the Python stack: threaded=True over a local file takes the
+        # native route now, so the ThreadedParser is built directly
         parser = create_parser(rec + "?format=recordio", part, nparts,
-                               threaded=threaded, device="cpu")
+                               threaded=False, device="cpu")
+        if threaded:
+            parser = ThreadedParser(parser)
         assert isinstance(parser, ThreadedParser if threaded
                           else RecordIORowParser)
         got = _concat(parser)
@@ -158,6 +162,31 @@ def test_recordio_parser_blocks_match_reference(tmp_path, nparts, threaded):
     for got in parts:
         whole.push_block(got)
     assert_blocks_equal(whole.to_block(), text)
+
+
+@pytest.mark.parametrize("nparts", [1, 3])
+def test_recordio_native_route_matches_reference(tmp_path, monkeypatch,
+                                                 nparts):
+    """``create_parser(threaded=True)`` over a local ``.rec`` takes the
+    native route in both packages (the JAX one with its library loaded):
+    the same blocks bit for bit, and the Python stack's rows."""
+    from dmlc_tpu_torch.data.parsers import NativePipelineParser
+
+    monkeypatch.delenv("DMLC_TPU_NATIVE", raising=False)
+    monkeypatch.delenv("DMLC_TPU_PARSE_BACKEND", raising=False)
+    src = _libsvm(tmp_path / "src.svm", 3000, 4, weights=True)
+    rec = str(tmp_path / "d.rec")
+    rowrec.convert_to_recordio(src, rec, rows_per_group=100, device="cpu")
+    for part in range(nparts):
+        parser = create_parser(rec + "?format=recordio", part, nparts,
+                               device="cpu")
+        assert isinstance(parser, NativePipelineParser)
+        got = _concat(parser)
+        assert_blocks_equal(got, _concat(ref_create_parser(
+            rec + "?format=recordio", part, nparts)))
+        assert_blocks_equal(got, _concat(create_parser(
+            rec + "?format=recordio", part, nparts, threaded=False,
+            device="cpu")))
 
 
 def test_recordio_parser_epochs_and_bytes(tmp_path):

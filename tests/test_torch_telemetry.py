@@ -244,13 +244,21 @@ def test_span_listener_and_metric_deltas_feed_the_ring(tmp_path):
     assert rec.records()[1]["delta"] == {"dmlc_feed_batches_total": 2.0}
 
 
+# the fit reads through the Python stack (PipelinedParser, whose workers
+# pass the parse.chunk faultpoint), built as create_parser builds it where
+# the native route declines
 _FAULTY_FIT = r"""
 import sys
 from dmlc_tpu_torch import collective
+from dmlc_tpu_torch.data import PipelinedParser, create_parser
+from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
 collective.init()
-LinearLearner(device="cpu").fit_uri(sys.argv[1], batch_size=4, epochs=1,
-                                    layout="csr", num_features=8)
+feed = DeviceFeed(PipelinedParser(create_parser(sys.argv[1], threaded=False,
+                                                device="cpu")),
+                  BatchSpec(batch_size=4, layout="csr", num_features=8),
+                  device="cpu")
+LinearLearner(device="cpu").fit_feed(feed, epochs=1)
 """
 
 

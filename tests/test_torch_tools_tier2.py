@@ -157,14 +157,30 @@ def test_dataiter_reads_through_the_feed(capsys, svm, monkeypatch):
 
 @pytest.mark.parametrize("argv", [[], ["--n", "5000", "--seed", "3"]])
 def test_strtonum(capsys, argv):
-    got = _run(capsys, strtonum.main, argv + ["--device", "cpu"])
+    """The python route against the JAX package's Python stack."""
+    got = _run(capsys, strtonum.main,
+               argv + ["--route", "python", "--device", "cpu"])
     want = _run(capsys, ref_strtonum.main, argv)
     assert got[0] == want[0] == 0
-    # the parenthesis names the route: the device here, the native core
-    # there
-    strip = re.compile(r" \((device|native)=[^)]*\)")
+    # the parenthesis names the route: the route and device here, the
+    # native core there
+    strip = re.compile(r" \((route|native)=[^)]*\)")
     assert strip.sub("", got[1]) == strip.sub("", want[1])
-    assert "(device=cpu)" in got[1]
+    assert "(route=python, device=cpu)" in got[1]
+
+
+@pytest.mark.parametrize("argv", [[], ["--n", "5000", "--seed", "3"]])
+def test_strtonum_native_route(capsys, monkeypatch, argv):
+    """The native route (the default) against the JAX package's fuzz of
+    its own native core."""
+    monkeypatch.delenv("DMLC_TPU_NATIVE")
+    monkeypatch.delenv("DMLC_TPU_PARSE_BACKEND")
+    got = _run(capsys, strtonum.main, argv)
+    want = _run(capsys, ref_strtonum.main, argv)
+    assert got[0] == want[0] == 0
+    assert "(native=yes)" in want[1] and "(route=native)" in got[1]
+    strip = re.compile(r" \((route|native)=[^)]*\)")
+    assert strip.sub("", got[1]) == strip.sub("", want[1])
 
 
 def test_strtonum_fails_past_its_ulp_limit(capsys, monkeypatch):
@@ -181,7 +197,7 @@ def test_strtonum_fails_past_its_ulp_limit(capsys, monkeypatch):
 
     monkeypatch.setattr(vparse, "parse_libsvm_vector", off)
     rc, _, err = _run(capsys, strtonum.main,
-                      ["--n", "50", "--device", "cpu"])
+                      ["--n", "50", "--route", "python", "--device", "cpu"])
     assert rc == 1 and "3 ulp" in err
 
 

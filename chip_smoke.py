@@ -16,7 +16,12 @@ one ``{"remote_read": ...}`` line: phase 12's file read
 ``REMOTE_READ_REPS`` times from the fake ``s3://`` and from the local
 disk, in turns, through the InputSplit alone and through
 ``create_row_block_iter`` on the card (MB/s of each), to compare the
-remote read route of two checkouts in turns on one card. Phases, each
+remote read route of two checkouts in turns on one card. With
+``--pool-threads`` it only prints one ``{"pool_threads": ...}`` line:
+phase 12's file parsed on the card by pools of the parse pool's process
+function at 1, 2 and 4 processes, started with the port's one-thread
+environment and with the libraries' defaults, in turns (MB/s, seconds a
+chunk). Phases, each
 ending in ``torch.cuda.synchronize()``; any failure ends the run with a
 non-zero exit and no result line:
 
@@ -454,6 +459,25 @@ non-zero exit and no result line:
    converted from phase 12's file and a libsvm ``#cachefile`` (cold, then
    warm) read on the native route, each the native text read's rows bit
    for bit, MB/s of each.
+27. the Python stack's process parse pool (``drive_pool``; after phase
+   26, whose Python-stack csr fit it repeats): (a) one ``spawn`` process
+   alone (``probe_child``): the seconds to its first call (the
+   interpreter and torch's import) and to its CUDA context, and the card
+   memory the context holds (``torch.cuda.mem_get_info`` here before and
+   while it lives); (b) phase 12's file through its ``PipelinedParser``
+   on the card with its threads, then with ``procs=2`` and ``procs=4``
+   (as many worker threads), two epochs each (``before_first`` keeps the
+   pool): each epoch's block equal to phase 12's CPU route's bit for bit
+   (its digest), one tokenizer launch for each non-empty chunk, made in a
+   pool process on the card (none in this process), no process left
+   after ``close()``; MB/s of each epoch (the first with the pool's
+   start), seconds to the first block and the card memory the pool's
+   contexts hold (free memory before the parser and after its first
+   block); (c) phase 6's
+   csr fit through ``create_parser(procs=2)`` → ``DeviceFeed`` →
+   ``fit_feed``: losses and params bit-identical to phase 26's
+   Python-stack csr fit, ``coo_segment_sum`` once a step, the tokenizer
+   once a chunk; rows/s.
 
 The native route is ``create_parser``'s for local files and one remote
 filesystem (phases 5-6, 13-18, 21-24, and 25 but (a)); phase 12, phase
@@ -463,13 +487,18 @@ chunk part. The ``{"kernels": [...]}`` line has a row a kernel at its main
 path's shape, ``coo_segment_sum_fm``, the same kernel at FM's [E, 17]
 (launches from phase 16's fit), and ``coo_segment_sum_full_bucket``, the
 csr shape with no padded tail (40 entries a row; launches the csr path's),
-which keeps the padded tail's cost on record. Before the last lines come the ``moe``
+which keeps the padded tail's cost on record; the tokenizer's row adds
+``pool_launches`` (phase 27's pooled reads) and ``coo_segment_sum``'s
+``pool_fit_launches`` (phase 27's pooled fit). Before the last lines come the ``moe``
 and ``pipeline`` lines (phase 19), the ``obs`` line (phase 20), the
 ``formats`` line (phase 21), the ``remote`` line (phase 22), the
 ``data_service`` line (phase 23), the ``feed`` line (phase 24), the
 ``plane`` line (phase 25), the ``native`` line (phase 26: MB/s, rows/s
 and feed-only seconds of the native route beside the Python stack's, the
-build's seconds and the SIMD tier), the ``fleet_rounds`` line (the fleet-fed csr
+build's seconds and the SIMD tier), the ``pool`` line (phase 27: MB/s
+of each epoch at 0, 2 and 4 processes, the seconds to the first block,
+the contexts' card memory, a child's start and the pooled fit's rows/s),
+the ``fleet_rounds`` line (the fleet-fed csr
 fit's consumer in phases 23, 24 (b) and 25 (c), three fleet rounds of one
 process: each epoch's feed stage times and fetch seconds) and
 ``phase_seconds`` (each phase's wall seconds); the last lines are the
@@ -779,6 +808,29 @@ def count_parts():
         LibSVMParser.parse_chunk = real
 
 
+@contextlib.contextmanager
+def count_chunks():
+    """The lengths of the non-empty chunks parsers read
+    (``Parser.next_chunk``, on the consumer's thread) while the block runs:
+    a pooled ``PipelinedParser`` hands each whole to a pool process, which
+    launches the tokenizer once for it (``count_parts`` sees none of it)."""
+    from dmlc_tpu_torch.data.parsers import Parser
+
+    chunks, real = [], Parser.next_chunk
+
+    def counting(self):
+        chunk = real(self)
+        if chunk:
+            chunks.append(len(chunk))
+        return chunk
+
+    Parser.next_chunk = counting
+    try:
+        yield chunks
+    finally:
+        Parser.next_chunk = real
+
+
 def hold_tokens(what, launches, parts, native=True) -> None:
     """The tokenizer on a read's route: the native route
     (``NativePipelineParser``) hands no chunk part to
@@ -814,15 +866,17 @@ def native_feeds():
 
 
 def python_stack_parser(uri, device, part=0, nparts=1, data_format="auto",
-                        nthread=2):
+                        nthread=2, procs=0):
     """The Python stack over ``uri``, as ``create_parser`` built it before
     the native route (and still builds it where that route declines): the
-    unthreaded parser on ``device`` behind a ``PipelinedParser``."""
+    unthreaded parser on ``device`` behind a ``PipelinedParser`` (with a
+    pool of ``procs`` processes, and as many worker threads, if > 0)."""
     from dmlc_tpu_torch.data import PipelinedParser, create_parser
 
     return PipelinedParser(create_parser(uri, part, nparts, data_format,
                                          nthread=nthread, threaded=False,
-                                         device=device), nthread=nthread)
+                                         device=device), nthread=nthread,
+                           procs=procs)
 
 
 # ---------------------------------------------------------------------------
@@ -2390,6 +2444,256 @@ def drive_native(kernels, dev, ingest_file, python_block, ingest, fit_files,
     report["binary"] = binary
     del card
     return report, python_fits
+
+
+# ---------------------------------------------------------------------------
+# phase 27: the process parse pool
+# ---------------------------------------------------------------------------
+
+
+def child_probe(t_submit: float) -> dict:
+    """Run in a fresh ``spawn`` process: the seconds from the parent's
+    submit to this call (the process's start and its imports, torch's
+    among them: this module's own) and those its CUDA context takes to
+    make (one element on the card), and what torch reserved there."""
+    t_start = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    return {"start_s": t_start - t_submit,
+            "cuda_init_s": time.time() - t_start,
+            "reserved_bytes": torch.cuda.memory_reserved()}
+
+
+def probe_child() -> dict:
+    """One ``spawn`` process's cost: its start (the interpreter, torch's
+    import), its CUDA context's making, and the card memory the context
+    holds (``mem_get_info`` here before it starts and while it lives)."""
+    import concurrent.futures
+    import multiprocessing
+
+    free_before = torch.cuda.mem_get_info()[0]
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        report = pool.submit(child_probe, time.time()).result()
+        report["context_bytes"] = free_before - torch.cuda.mem_get_info()[0]
+    return report
+
+
+def pooled_read(kernels, dev, path, procs) -> tuple:
+    """(the two epochs' block digests, report) of two epochs of ``path``
+    on the card through one ``PipelinedParser`` with ``procs`` processes
+    (0: its threads), the second after ``before_first`` (the same pool,
+    started): each epoch's seconds and MB/s, the seconds to the first
+    block (the pool's start), the non-empty chunks and the tokenizer's
+    launches, and the card's free memory before the parser, after its
+    first block and after its close."""
+    import multiprocessing
+
+    from dmlc_tpu_torch.data import RowBlockContainer
+
+    kernels.reset_launch_counts()
+    free = {"before": torch.cuda.mem_get_info()[0]}
+    digests, seconds = [], []
+    with count_chunks() as chunks, count_parts() as parts:
+        t0 = time.perf_counter()
+        parser = python_stack_parser(path, dev, procs=procs)
+        try:
+            for epoch in range(2):
+                if epoch:
+                    parser.before_first()
+                    t0 = time.perf_counter()
+                cont = RowBlockContainer()
+                for block in parser:
+                    if "first_block" not in free:
+                        first = time.perf_counter() - t0
+                        free["first_block"] = torch.cuda.mem_get_info()[0]
+                    cont.push_block(block)
+                seconds.append(time.perf_counter() - t0)
+                digests.append(block_digest(cont.to_block()))
+                del cont
+            stats = parser.stats()
+        finally:
+            parser.close()
+    free["closed"] = torch.cuda.mem_get_info()[0]
+    require(multiprocessing.active_children() == [],
+            "procs=%d: processes outlived close(): %s", procs,
+            multiprocessing.active_children())
+    require(stats["procs"] == procs, "procs=%d: stats %s", procs, stats)
+    launches = kernels.tokenize_boundaries.launches
+    if procs:
+        # the pool parses every chunk whole in a process: none in this one
+        require(launches == len(chunks) > 0 and not parts,
+                "procs=%d: %d tokenizer launches for %d chunks (%d parts "
+                "parsed here)", procs, launches, len(chunks), len(parts))
+    else:
+        hold_tokens("the threads' read", launches, len(parts), native=False)
+    nbytes = os.path.getsize(path)
+    return digests, {
+        "procs": procs, "nthread": stats["nthread"],
+        "first_block_seconds": first,
+        "epoch1_seconds": seconds[0], "epoch2_seconds": seconds[1],
+        "epoch1_mb_per_s": nbytes / 1e6 / seconds[0],
+        "epoch2_mb_per_s": nbytes / 1e6 / seconds[1],
+        "chunks": len(chunks), "tokenize_launches": launches,
+        "children_context_bytes": free["before"] - free["first_block"],
+        "held_after_close_bytes": free["before"] - free["closed"]}
+
+
+def drive_pool(kernels, dev, ingest_file, ingest, fit_files, python_fits):
+    """Phase 27 (the module docstring): the Python stack's process parse
+    pool on the card."""
+    from dmlc_tpu_torch.data import PipelinedParser, create_parser
+    from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
+    from dmlc_tpu_torch.models import LinearLearner, params_to_numpy
+
+    report = {"child": probe_child()}
+    print(json.dumps({"pool_child": report["child"]}), flush=True)
+    # (a) phase 12's file: the threads, then the pool at 2 and 4 processes
+    reads = {}
+    for procs in (0, 2, 4):
+        digests, reads[procs] = pooled_read(kernels, dev, ingest_file, procs)
+        require(digests == [ingest["card_digest"]] * 2,
+                "procs=%d: a block differs from phase 12's CPU route's",
+                procs)
+        print(json.dumps({"pool_read": reads[procs]}), flush=True)
+    report["reads"] = {str(k): v for k, v in reads.items()}
+    report["pool_launches"] = sum(reads[p]["tokenize_launches"]
+                                  for p in (2, 4))
+
+    # (b) the csr fit through create_parser(procs=2): phase 26's Python
+    # stack fit, bit for bit
+    steps = EPOCHS * (-(-CRITEO_ROWS // CRITEO_BATCH))
+    learner = LinearLearner(device=dev, objective="logistic",
+                            learning_rate=0.1)
+    kernels.reset_launch_counts()
+    with count_chunks() as chunks:
+        parser = create_parser(fit_files["csr"], device=dev, procs=2)
+        require(isinstance(parser, PipelinedParser)
+                and parser.stats()["procs"] == 2,
+                "create_parser(procs=2) gave %s", type(parser).__name__)
+        feed = DeviceFeed(parser, BatchSpec(batch_size=CRITEO_BATCH,
+                                            layout="csr",
+                                            num_features=CRITEO_DIM + 1),
+                          device=dev)
+        t0 = time.perf_counter()
+        try:
+            history = learner.fit_feed(feed, epochs=EPOCHS)
+            torch.cuda.synchronize()
+        finally:
+            feed.close()
+        seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    require(launches["coo_segment_sum"] == steps, "pooled csr fit: "
+            "coo_segment_sum launched %d times for %d steps",
+            launches["coo_segment_sum"], steps)
+    require(launches["tokenize_boundaries"] == len(chunks) > 0,
+            "pooled csr fit: %d tokenizer launches for %d chunks",
+            launches["tokenize_boundaries"], len(chunks))
+    want_history, want = python_fits["csr"]
+    got = params_to_numpy(learner.params)
+    require(history == want_history and all(
+        np.array_equal(got[k], want[k]) for k in want),
+        "pooled csr fit: not phase 26's Python-stack fit, bit for bit")
+    report["fit"] = {
+        "steps": steps, "coo_segment_sum_launches": launches[
+            "coo_segment_sum"],
+        "tokenize_launches": launches["tokenize_boundaries"],
+        "chunks": len(chunks), "seconds": seconds,
+        "rows_per_s": EPOCHS * CRITEO_ROWS / seconds}
+    print(json.dumps({"pool_fit": report["fit"]}), flush=True)
+    return report
+
+
+def timed_proc_parse(spec, chunk, pause: float = 0.0) -> tuple:
+    """Run in a pool process: (pid, seconds) of one chunk's
+    ``data.pipeline._proc_parse``, after ``pause`` seconds (so that the
+    warm-up chunks of a pool land on separate processes)."""
+    from dmlc_tpu_torch.data import pipeline
+
+    time.sleep(pause)
+    t0 = time.perf_counter()
+    pipeline._proc_parse(spec, chunk)
+    return os.getpid(), time.perf_counter() - t0
+
+
+def pool_thread_times(dev) -> dict:
+    """``--pool-threads``: phase 12's file (written here) in its 8 MiB
+    chunks, parsed on the card by ``spawn`` pools of
+    ``data.pipeline._proc_parse`` at 1, 2 and 4 processes, each started
+    with the environment the port gives a pool process
+    (``data.pipeline._PROC_ENV``: one torch and one BLAS thread) and with
+    the libraries' defaults, in turns; each pool warmed by a chunk a
+    process before its timed pass over every chunk: MB/s and the mean and
+    largest seconds of one chunk's parse."""
+    import concurrent.futures
+    import multiprocessing
+
+    from dmlc_tpu_torch.data import LibSVMParser, pipeline
+    from dmlc_tpu_torch.io import create_input_split
+
+    out = {"cores": len(os.sched_getaffinity(0))}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "criteo_ingest.svm")
+        write_criteo(path, INGEST_ROWS, seed=13)
+        split = create_input_split(path, 0, 1, "text", threaded=False)
+        chunks = []
+        while (chunk := split.next_chunk()) is not None:
+            chunks.append(chunk)
+        spec = pipeline._proc_spec(LibSVMParser(split, 1, dev))
+        split.close()
+    nbytes = sum(map(len, chunks))
+    for env in ("port", "defaults", "defaults", "port"):
+        for procs in (1, 2, 4):
+            saved = {k: os.environ.pop(k, None) for k in pipeline._PROC_ENV}
+            if env == "port":
+                os.environ.update(pipeline._PROC_ENV)
+            try:
+                with concurrent.futures.ProcessPoolExecutor(
+                        procs, mp_context=multiprocessing.get_context(
+                            "spawn")) as pool:
+                    warm = [pool.submit(timed_proc_parse, spec, chunks[i],
+                                        2.0) for i in range(procs)]
+                    pids = {f.result()[0] for f in warm}
+                    t0 = time.perf_counter()
+                    timed = [f.result() for f in [
+                        pool.submit(timed_proc_parse, spec, c)
+                        for c in chunks]]
+                    wall = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    os.environ.pop(k, None)
+                    if v is not None:
+                        os.environ[k] = v
+            require(len(pids) == procs, "%d of %d processes warmed",
+                    len(pids), procs)
+            parse = [t for _, t in timed]
+            out.setdefault(env + "_" + str(procs), []).append({
+                "mb_per_s": nbytes / 1e6 / wall,
+                "chunk_parse_s_mean": sum(parse) / len(parse),
+                "chunk_parse_s_max": max(parse)})
+    return out
+
+
+def pool_summary(card, report) -> dict:
+    """The ``pool`` line: phase 27's MB/s at 0 (threads), 2 and 4
+    processes (the first epoch, with the pool's start, and the second),
+    the seconds to the first block, the card memory the
+    children's contexts hold, a child's start, and the pooled fit's
+    rows/s."""
+    reads = report["reads"]
+    return {
+        "card": card,
+        "epoch1_mb_per_s": {k: r["epoch1_mb_per_s"]
+                            for k, r in reads.items()},
+        "epoch2_mb_per_s": {k: r["epoch2_mb_per_s"]
+                            for k, r in reads.items()},
+        "first_block_seconds": {k: r["first_block_seconds"]
+                                for k, r in reads.items()},
+        "children_context_bytes": {k: r["children_context_bytes"]
+                                   for k, r in reads.items()},
+        "child": report["child"],
+        "fit_rows_per_s": report["fit"]["rows_per_s"],
+        "seconds": report["seconds"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6940,6 +7244,15 @@ def main() -> int:
         kernels._lib()
         print(json.dumps({"remote_read": remote_read_times(dev)}))
         return 0
+    if sys.argv[1:] == ["--pool-threads"]:
+        from dmlc_tpu_torch.ops import kernels
+        from dmlc_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(None)
+        print("card:", card_line())
+        kernels._lib()
+        print(json.dumps({"pool_threads": pool_thread_times(dev)}))
+        return 0
     if sys.argv[1:2] == ["--fit-rank"] and len(sys.argv) == 4:
         return fit_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--group-rank"] and len(sys.argv) == 4:
@@ -6952,8 +7265,8 @@ def main() -> int:
         return moe_rank(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--plane-rank"] and len(sys.argv) == 3:
         return plane_rank(sys.argv[2])
-    require(not sys.argv[1:], "unknown arguments %s (only --times and "
-            "--remote-read)",
+    require(not sys.argv[1:], "unknown arguments %s (only --times, "
+            "--remote-read and --pool-threads)",
             sys.argv[1:])
     # phases 5-6 and 12 write their files here, and phases 13-25 read
     # them again
@@ -6962,7 +7275,7 @@ def main() -> int:
 
 
 def smoke(fit_dir: str) -> int:
-    """Phases 1-25 (the module docstring), with the fit files in
+    """Phases 1-27 (the module docstring), with the fit files in
     ``fit_dir``."""
     from dmlc_tpu_torch.ops import _build, kernels
     from dmlc_tpu_torch.ops.spmv import expand_row_ids, spmv_transpose
@@ -7294,6 +7607,17 @@ def smoke(fit_dir: str) -> int:
 
     lap("26")
 
+    # ---- 27. the process parse pool ----------------------------------------
+    t0 = time.perf_counter()
+    pool = drive_pool(kernels, dev, ingest_file, ingest, fit_files,
+                      python_fits)
+    torch.cuda.synchronize()
+    pool["seconds"] = time.perf_counter() - t0
+    token_row["pool_launches"] = pool["pool_launches"]
+    seg_row["pool_fit_launches"] = pool["fit"]["coo_segment_sum_launches"]
+
+    lap("27")
+
     # ---- 17. snapshots and resume ------------------------------------------
     t0 = time.perf_counter()
     snaps = drive_snapshots(fit_files["csr"], fm_file, fm_start, fit_dir)
@@ -7444,6 +7768,7 @@ def smoke(fit_dir: str) -> int:
     print(json.dumps({"feed": feed_summary(card, feed)}))
     print(json.dumps({"plane": plane_summary(card, plane)}))
     print(json.dumps({"native": native_summary(card, native_report)}))
+    print(json.dumps({"pool": pool_summary(card, pool)}))
     # ROADMAP fault 3.1: the fleet-fed csr fit's consumer in the first
     # (phase 23, depth 0), second (24 (b)) and third (25 (c)) fleet round
     print(json.dumps({"fleet_rounds": {

@@ -46,7 +46,8 @@ armed; a libsvm ``#cachefile`` takes the row-group cache
 (``<cache>.rowrec``, ``_try_native_cached``). The Python stack serves
 ``threaded=False``, parsers built directly, registered plugin formats and
 ``.dtsh`` shards, mixed filesystems, a remote ``shuffle_chunks``, an armed
-audit, and ``#cachefile`` on another format. Inside it,
+audit, a process pool (``procs`` > 0), and ``#cachefile`` on another
+format. Inside it,
 ``LibSVMParser.parse_chunk`` runs the ``tokenize_boundaries`` kernel on
 the parser's device (the counterpart of the JAX package's Pallas tokenizer
 route) and ``LibFMParser`` / ``CSVParser`` parse on the host, whatever
@@ -803,7 +804,7 @@ _SPLIT_TYPE = {"recordio": "recordio"}
 
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   data_format: str = "auto", nthread: Optional[int] = None,
-                  threaded: bool = True, device=None):
+                  threaded: bool = True, device=None, procs: int = 0):
     """Parser<I>::Create (src/data.cc:62-85,132-138).
 
     "auto" resolves through the ``format=`` uri arg, else ``shard`` for a
@@ -817,10 +818,16 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     ``device`` (None means cuda) is where the parser's kernels run. On the
     Python stack a ``#cachefile`` uri reads through ``CachedInputSplit``
     and ``shuffle_chunks=SEED`` through ``InputSplitShuffle`` (16
-    sub-splits).
+    sub-splits). ``procs`` > 0 asks for the ``PipelinedParser``'s process
+    pool of that many processes (``data/pipeline.py``), so it takes the
+    Python stack where the native route would take the uri, as the JAX
+    package does under ``DMLC_TPU_PARSE_PROCS``; it needs ``threaded``.
     """
     device = resolve_device(device)
     nthread = DEFAULT_NTHREAD if nthread is None else nthread
+    check(procs >= 0, "procs must be >= 0, got %d", procs)
+    check(threaded or procs == 0, "procs=%d needs threaded=True: the "
+          "process pool is the PipelinedParser's", procs)
     spec = URISpec(uri, part_index, num_parts)
     args = spec.args
     if data_format == "auto":
@@ -848,9 +855,10 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
     from dmlc_tpu_torch.obs import audit
 
     audit.auditor().set_shard(uri, part_index, num_parts)
-    if threaded and not audit.auditor().enabled:
+    if threaded and procs == 0 and not audit.auditor().enabled:
         # the native route has no io_read / parse digest points, so an
-        # armed audit keeps the Python stack, as in the JAX package
+        # armed audit keeps the Python stack, as in the JAX package; so
+        # does a process pool, whose parse runs in the Python stack
         native_parser = _try_native_pipeline(spec, data_format, part_index,
                                              num_parts, nthread, device)
         if native_parser is not None:
@@ -867,5 +875,5 @@ def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
         # deferred: data/pipeline.py imports this module
         from dmlc_tpu_torch.data.pipeline import PipelinedParser
 
-        return PipelinedParser(base, nthread=nthread)
+        return PipelinedParser(base, nthread=nthread, procs=procs)
     return ThreadedParser(base)

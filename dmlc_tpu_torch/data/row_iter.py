@@ -177,19 +177,21 @@ class DiskRowIter(RowBlockIter):
 def create_row_block_iter(uri: str, part_index: int = 0, num_parts: int = 1,
                           data_format: str = "auto",
                           nthread: Optional[int] = None,
-                          device=None) -> RowBlockIter:
+                          device=None, procs: int = 0) -> RowBlockIter:
     """RowBlockIter<I>::Create (src/data.cc:87-128): a ``#cachefile``
     suffix selects DiskRowIter (external memory), else BasicRowIter (in
     memory). ``nthread=None`` means the parser's default; ``device`` (None
     means cuda) is resolved here, so it raises without a card even when a
-    warm cache needs no parser."""
+    warm cache needs no parser; ``procs`` goes to ``create_parser`` (its
+    process parse pool)."""
     device = resolve_device(device)
     spec = URISpec(uri, part_index, num_parts)
 
     def make_parser():
         return create_parser(
             spec.uri if not spec.args else uri.split("#")[0],
-            part_index, num_parts, data_format, nthread, device=device)
+            part_index, num_parts, data_format, nthread, device=device,
+            procs=procs)
 
     if spec.cache_file:
         return DiskRowIter(make_parser, spec.cache_file)

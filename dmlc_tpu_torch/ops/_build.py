@@ -5,7 +5,9 @@ together, for ``sm_90a`` (Hopper); the objects link into one shared library
 with a plain C interface, loaded with ctypes. The library lands in
 ``ops/_build/`` under a name keyed by a hash of the sources and flags, so a
 checkout that holds only the sources builds it once and later processes
-load it. No ``torch`` headers are compiled: a build takes seconds.
+load it. One build at a time holds a file lock, so processes that meet a
+cold build directory together (a parse pool's) wait for one build and load
+its result. No ``torch`` headers are compiled: a build takes seconds.
 
 A failed build raises DMLCError carrying nvcc's output; nothing falls back.
 """
@@ -13,6 +15,7 @@ A failed build raises DMLCError carrying nvcc's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -33,8 +36,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
-# the parse pool's threads may all reach their first launch at once: one
-# of them builds, the others wait for it
+# the parse threads may all reach their first launch at once: one of them
+# builds, the others wait for it
 _lib_lock = threading.Lock()
 #: seconds the build in this process took; None when the library was cached
 build_seconds: Optional[float] = None
@@ -110,13 +113,24 @@ def _build(target: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def ensure_built() -> Path:
+    """The path of the library for the current sources, built on first
+    use (under a file lock shared with other processes)."""
+    target = library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not target.exists():
+            _build(target)
+    return target
+
+
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            target = library_path()
-            if not target.exists():
-                _build(target)
-            _lib = ctypes.CDLL(str(target))
+            _lib = ctypes.CDLL(str(ensure_built()))
     return _lib

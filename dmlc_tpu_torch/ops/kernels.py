@@ -21,7 +21,8 @@ the kernel (built at first use by ops/_build.py) or raises; the plain
 version runs only for tensors on the CPU. Each wrapper counts its launches
 in a plain int attribute, ``<wrapper>.launches``, so that a run can show
 that its main path went through the kernel; :func:`count_launch` adds one
-under a lock, since the parsers launch from several threads at once.
+under a lock, since the parsers launch from several threads at once, and
+:func:`add_launches` adds those a parse pool's process made.
 Kernels launch on the current CUDA stream and allocate nothing: the wrapper
 allocates outputs and scratch.
 
@@ -107,6 +108,15 @@ def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, safe under threads."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add launches made in another process — a parse pool's process,
+    ``data/pipeline._proc_parse`` — to this process's counts: ``counts``
+    maps a name of :data:`KERNELS` to its launches there."""
+    with _LAUNCH_LOCK:
+        for name, n in counts.items():
+            KERNELS[name].launches += n
 
 
 # ---------------------------------------------------------------------------

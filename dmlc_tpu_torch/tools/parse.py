@@ -3,13 +3,15 @@ of ``dmlc_tpu/tools/parse.py`` (``test/libsvm_parser_test.cc``: bytes
 parsed, examples, MB/s) through ``create_parser``'s route: the native
 pipeline for a local or single-remote source, else the Python stack, whose
 text is tokenized on ``--device`` (the card unless ``--device cpu``: each
-non-empty chunk part launches ``tokenize_boundaries`` once).
+non-empty chunk part launches ``tokenize_boundaries`` once). ``--procs N``
+parses on the Python stack in a pool of N processes (``create_parser``'s
+``procs``).
 
 Usage::
 
     python -m dmlc_tpu_torch.tools parse <uri> [part] [nparts] \\
         [--format auto|libsvm|libfm|csv|recordio] [--nthread N]
-        [--device cpu|cuda]
+        [--device cpu|cuda] [--procs N]
 """
 
 from __future__ import annotations
@@ -33,10 +35,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--device", default=None,
                     help="where the Python stack's text is tokenized "
                     "(default: the card)")
+    ap.add_argument("--procs", type=int, default=0,
+                    help="parse processes of the Python stack's pool "
+                    "(0: none)")
     args = ap.parse_args(argv)
 
     parser = create_parser(args.uri, args.part, args.nparts, args.format,
-                           nthread=args.nthread, device=args.device)
+                           nthread=args.nthread, device=args.device,
+                           procs=args.procs)
     rows = nnz = 0
     t0 = get_time()
     try:

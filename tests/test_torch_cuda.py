@@ -475,6 +475,67 @@ def test_tokenizer_route_on_the_card_matches_cpu(cuda, tmp_path):
     assert np.array_equal(split.index, want.index)
 
 
+def _pooled_parser(path, device, procs, chunk=16 << 10):
+    from dmlc_tpu_torch.data import LibSVMParser, PipelinedParser
+    from dmlc_tpu_torch.io import create_input_split
+
+    split = create_input_split(path, 0, 1, "text", threaded=False)
+    split.hint_chunk_size(chunk)
+    return PipelinedParser(LibSVMParser(split, 1, device), nthread=2,
+                           procs=procs)
+
+
+def test_pooled_read_on_the_card_counts_the_pools_launches(
+        cuda, tmp_path, monkeypatch):
+    """procs=2 on the card: the CPU route's block, bit for bit, with one
+    tokenize_boundaries launch, made in a pool process on the card and
+    added to this process's count, for each non-empty chunk. A pool whose
+    processes see no card raises DMLCError at the first chunk: it never
+    tokenizes on the host."""
+    from dmlc_tpu_torch.data import RowBlockContainer
+    from dmlc_tpu_torch.io import create_input_split
+    from dmlc_tpu_torch.utils import DMLCError
+
+    path = _write_svm(tmp_path / "p.svm", 3000)
+    split = create_input_split(path, 0, 1, "text", threaded=False)
+    split.hint_chunk_size(16 << 10)
+    chunks = 0
+    while (chunk := split.next_chunk()) is not None:
+        chunks += bool(chunk)
+    split.close()
+    assert chunks > 4
+
+    def read(device, procs):
+        parser = _pooled_parser(path, device, procs)
+        whole = RowBlockContainer()
+        try:
+            for block in parser:
+                whole.push_block(block)
+            assert parser.stats()["procs"] == procs
+        finally:
+            parser.close()
+        return whole.to_block()
+
+    kernels.reset_launch_counts()
+    got = read(cuda, 2)
+    assert kernels.tokenize_boundaries.launches == chunks
+    want = read("cpu", 0)
+    for name in ("offset", "label", "index", "value"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and np.array_equal(g, w), name
+
+    torch.zeros(1, device=cuda)  # this process's context is made
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")  # the pool's alone
+    kernels.reset_launch_counts()
+    parser = _pooled_parser(path, cuda, 2)
+    try:
+        with pytest.raises(DMLCError, match="no CUDA device"):
+            parser.next_block()
+    finally:
+        parser.close()
+    assert kernels.tokenize_boundaries.launches == 0
+
+
 def test_remote_s3_read_on_the_card_matches_cpu(cuda, tmp_path,
                                                 monkeypatch):
     """A libsvm file of several 8 MiB chunks read from the fake s3:// on

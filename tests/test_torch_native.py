@@ -552,3 +552,50 @@ def test_cpp_sanitizer_tiers_over_the_ports_copy(tmp_path, sanitizer):
                          timeout=600, cwd=tmp_path, env=env)
     assert run.returncode == 0, run.stdout + run.stderr
     assert "cpp unit tests ok" in run.stdout
+
+
+# ---------------------------------------------------------------------------
+# a C++ consumer of the port's header and library
+# ---------------------------------------------------------------------------
+
+
+def _build_consumer(tmp_path, source, include, library, name):
+    exe = tmp_path / name
+    build = subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-pthread", source, "-I" + include,
+         library, "-Wl,-rpath," + os.path.dirname(library), "-o", str(exe)],
+        capture_output=True, text=True, timeout=300)
+    assert build.returncode == 0, build.stderr
+    return exe
+
+
+@pytest.mark.skipif(not _HAVE_GXX, reason="no native toolchain")
+def test_cpp_consumer_example_over_the_ports_library(tmp_path):
+    """dmlc_tpu_torch/examples/native_ingest.cc, built against the port's
+    header and the library native._build builds, reads tests/
+    test_cpp_unit.py's three-row file in both modes (the local reader and
+    ingest_drive_push) to the totals of examples/native_ingest.cc over the
+    JAX package's library."""
+    exe = _build_consumer(
+        tmp_path, os.path.join(REPO, "dmlc_tpu_torch", "examples",
+                               "native_ingest.cc"),
+        CSRC, str(_build.ensure_built()), "port_ingest")
+    ref_exe = _build_consumer(
+        tmp_path, os.path.join(REPO, "examples", "native_ingest.cc"),
+        os.path.join(REPO, "cpp"), ref_native.get_lib()._name, "ref_ingest")
+    data = tmp_path / "d.svm"
+    data.write_text("1 1:0.5 3:0.25\n0 2:1.5\n1 1:2 2:3 4:4\n")
+    for mode in ([], ["--remote"]):
+        got, want = (subprocess.run([str(e), *mode, str(data)],
+                                    capture_output=True, text=True,
+                                    timeout=60) for e in (exe, ref_exe))
+        assert got.returncode == 0, got.stderr
+        assert want.returncode == 0, want.stderr
+        assert "rows=3 nnz=6" in got.stdout
+        assert got.stdout == want.stdout
+    # the port's binary maps the port's library, not the JAX package's
+    ldd = shutil.which("ldd")
+    if ldd is not None:
+        maps = subprocess.run([ldd, str(exe)], capture_output=True,
+                              text=True, timeout=60).stdout
+        assert "libdmlc_native_" in maps and "libdmlc_tpu.so" not in maps

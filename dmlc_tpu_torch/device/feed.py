@@ -67,7 +67,9 @@ consumer held each batch: its step as the host sees it), the
 each chunk's flow on to the consumer (``obs.current_flow`` is set around
 the yield), and batch digests at emit for the determinism audit.
 :meth:`DeviceFeed.stats` windows those totals to the current epoch and
-:func:`stall_breakdown` formats them.
+:func:`stall_breakdown` formats them. ``stats()`` also gives the epoch's
+restart (``restart_ns``: the rewind, which runs in a ``rewind`` span,
+then the prefetch window filling).
 """
 
 from __future__ import annotations
@@ -349,6 +351,10 @@ class DeviceFeed:
         # shared no-op child when DMLC_TPU_AUDIT is off)
         self._audit = audit.auditor()
         self._epoch_base: dict = {}
+        # the current epoch's restart, ns: before_first() entered (None
+        # once the epoch's first batch is out) to its first batch out
+        self._restart_t0: Optional[int] = None
+        self._restart_ns = 0
         # exactly-once acks (a dispatcher-mode RemoteBlockParser): switch
         # the parser to explicit acks before its first fetch, so a chunk is
         # acked only once the consumer has stepped on its rows
@@ -563,6 +569,9 @@ class DeviceFeed:
         batch, flows, seqs = entry
         if batch is not None:
             t2 = time.monotonic_ns()
+            if self._restart_t0 is not None:
+                self._restart_ns = t2 - self._restart_t0
+                self._restart_t0 = None
             with obs.span("consume", batch=index):
                 if flows:
                     obs.set_current_flow(flows[0])
@@ -634,11 +643,14 @@ class DeviceFeed:
         the consumer's wait on the producer thread (0 at depth 0) and the
         time the consumer held each batch, plus the staging pool's
         counters and the parser pipeline's own stage counters when it has
-        them."""
+        them. ``restart_ns``: from entering :meth:`before_first` to
+        handing out the epoch's first batch (0 in an epoch it did not
+        start, and until that batch is out)."""
         base = self._epoch_base
         out = {
             "batches": int(self._m_batches.value - base.get("batches", 0)),
             "pool": self.pool.stats() if self.pool is not None else {},
+            "restart_ns": self._restart_ns,
         }
         for key, hist in self._stage.items():
             out[key] = int(hist.sum - base.get(key, 0))
@@ -651,18 +663,21 @@ class DeviceFeed:
 
     def before_first(self) -> None:
         """Stop the producer, rewind the parser, then restart the
-        producer on the next epoch."""
-        if self._host_iter is not None:
-            self._host_iter.close()
-        self._parser.before_first()
-        # registry metrics are monotonic (Prometheus semantics); stats()
-        # windows them against this baseline
-        self._epoch_base = {
-            key: hist.sum for key, hist in self._stage.items()
-        }
-        self._epoch_base["batches"] = self._m_batches.value
-        if self._host_iter is not None:
-            self._host_iter.before_first()
+        producer on the next epoch (in a ``rewind`` span)."""
+        t0 = time.monotonic_ns()
+        with obs.span("rewind"):
+            if self._host_iter is not None:
+                self._host_iter.close()
+            self._parser.before_first()
+            # registry metrics are monotonic (Prometheus semantics);
+            # stats() windows them against this baseline
+            self._epoch_base = {
+                key: hist.sum for key, hist in self._stage.items()
+            }
+            self._epoch_base["batches"] = self._m_batches.value
+            if self._host_iter is not None:
+                self._host_iter.before_first()
+        self._restart_t0, self._restart_ns = t0, 0
 
     @property
     def bytes_read(self) -> int:

@@ -6,8 +6,10 @@ the epoch histogram, closes one goodput-ledger window an epoch
 (obs/goodput.py) and feeds it to the SLO watchdog (obs/watchdog.py),
 extends the audit's model chain, logs the unified epoch line (the feed's
 stall breakdown, goodput and the binding stage) and exports the
-registry. linear, FM and GBDT all funnel through it, so the epoch log
-line and the binding-constraint verdict are uniform across models.
+registry, inside an ``end_epoch`` span, after resolving the epoch's
+device spans (``obs.device_span``). linear, FM and GBDT all funnel
+through it, so the epoch log line and the binding-constraint verdict are
+uniform across models.
 
 Usage::
 
@@ -39,7 +41,7 @@ import torch
 
 from dmlc_tpu_torch import obs
 from dmlc_tpu_torch.device.feed import stall_breakdown
-from dmlc_tpu_torch.obs import audit, goodput
+from dmlc_tpu_torch.obs import audit, goodput, trace
 from dmlc_tpu_torch.obs.device_telemetry import device_telemetry_enabled
 from dmlc_tpu_torch.obs.metrics import metrics_enabled
 from dmlc_tpu_torch.obs.watchdog import make_watchdog
@@ -140,32 +142,38 @@ class FitLoopObs:
         ``snapshotter`` + ``snap_state`` (a zero-arg state-tree builder)
         arm job snapshotting after the audit roll, so the exported audit
         state describes the *closed* epoch and a resume re-arms the chains
-        where an uninterrupted run would be."""
-        self.h_epoch.observe(time.monotonic_ns() - t0_ns)
-        self.m_steps.inc(nstep)
-        self.m_epochs.inc()
-        if loss is not None:
-            self.g_loss.set(loss)
-        nonfinite = self.audit.note_model(epoch, loss, params)
-        win = self.ledger.tick()
-        if win is not None:
-            win["nonfinite"] = nonfinite
-            self.watchdog.observe(win)
-        if log_every and (epoch + 1) % log_every == 0:
-            parts = ["%s epoch %d" % (self.model, epoch)]
+        where an uninterrupted run would be.
+
+        The body runs in an ``end_epoch`` span and first resolves the
+        device spans (``obs.trace.resolve_device_spans``): the caller has
+        read the epoch's loss, so the stream has run its steps."""
+        with obs.span("end_epoch", model=self.model, epoch=epoch):
+            trace.resolve_device_spans()
+            self.h_epoch.observe(time.monotonic_ns() - t0_ns)
+            self.m_steps.inc(nstep)
+            self.m_epochs.inc()
             if loss is not None:
-                parts.append("loss %.6f" % loss)
-            if feed is not None:
-                parts.append(stall_breakdown(feed.stats()))
+                self.g_loss.set(loss)
+            nonfinite = self.audit.note_model(epoch, loss, params)
+            win = self.ledger.tick()
             if win is not None:
-                parts.append("goodput %.2f binding=%s" % (
-                    win["goodput"]["ratio"], win["binding"]))
-            log_info("%s", " ".join(parts))
-        obs.export_epoch(self.reg)
-        # roll AFTER the export so the epoch's full data chains were
-        # exported; this also runs the epoch-over-epoch self-check (the
-        # first divergence writes the replay bundle)
-        self.audit.roll_epoch(epoch)
-        if snapshotter is not None and snap_state is not None:
-            snapshotter.capture(epoch, snap_state)
-        return win
+                win["nonfinite"] = nonfinite
+                self.watchdog.observe(win)
+            if log_every and (epoch + 1) % log_every == 0:
+                parts = ["%s epoch %d" % (self.model, epoch)]
+                if loss is not None:
+                    parts.append("loss %.6f" % loss)
+                if feed is not None:
+                    parts.append(stall_breakdown(feed.stats()))
+                if win is not None:
+                    parts.append("goodput %.2f binding=%s" % (
+                        win["goodput"]["ratio"], win["binding"]))
+                log_info("%s", " ".join(parts))
+            obs.export_epoch(self.reg)
+            # roll AFTER the export so the epoch's full data chains were
+            # exported; this also runs the epoch-over-epoch self-check (the
+            # first divergence writes the replay bundle)
+            self.audit.roll_epoch(epoch)
+            if snapshotter is not None and snap_state is not None:
+                snapshotter.capture(epoch, snap_state)
+            return win

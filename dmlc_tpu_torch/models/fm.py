@@ -26,7 +26,9 @@ A learner built with a group re-places its params after a membership
 rebuild (``models.linear.listen_membership``, the reference's membership
 callback). The fit loop carries the reference's observability: the
 ``fm.step`` instrumented site, ``epoch`` / ``train_step`` spans on the
-chunks' flows, and ``models.fitloop.FitLoopObs`` at each epoch boundary.
+chunks' flows, ``fm.margin`` / ``fm.scatter`` / ``fm.update`` device
+spans over the step's phases (``obs.device_span``), and
+``models.fitloop.FitLoopObs`` at each epoch boundary.
 """
 
 from __future__ import annotations
@@ -118,17 +120,20 @@ def _fm_forward_grads(params, batch, objective: str, num_features: int):
     weight = batch["weight"]
     values = batch["values"]
     indices = batch["indices"]
-    row_ids = expand_row_ids(batch["offsets"], values.shape[0])
-    margin, s, xv = _fm_margin(params, values, indices, row_ids,
-                               label.shape[0])
+    with obs.device_span("fm.margin", values.device):
+        row_ids = expand_row_ids(batch["offsets"], values.shape[0])
+        margin, s, xv = _fm_margin(params, values, indices, row_ids,
+                                   label.shape[0])
     loss, gmargin = margin_loss_grad(objective, margin, label)
     wg = weight * gmargin  # [B]
-    gw = spmv_transpose(values, indices, row_ids, wg, num_features)
     gb = torch.sum(wg)
-    # dv[i, k]: per entry x_e · (s[r, k] − x_e v[i, k]), scaled by wg[r]
+    # dv[i, k]: per entry x_e · (s[r, k] − x_e v[i, k]), scaled by wg[r];
+    # made first, so that the two feature-direction sums share one span
     s_e = s.index_select(0, row_ids)
     dv_entry = (wg.index_select(0, row_ids) * values)[:, None] * (s_e - xv)
-    gv = feature_segment_sum(dv_entry, indices, num_features)
+    with obs.device_span("fm.scatter", values.device):
+        gw = spmv_transpose(values, indices, row_ids, wg, num_features)
+        gv = feature_segment_sum(dv_entry, indices, num_features)
     return gw, gb, gv, torch.sum(weight * loss), torch.sum(weight)
 
 
@@ -167,7 +172,8 @@ def make_fm_train_step(group=None, num_features: int = 0,
         if group is not None:
             grads = bucketed_all_reduce(grads, group)
         gw, gb, gv, loss_sum, wsum = grads
-        params = _apply(params, gw, gb, gv, wsum)
+        with obs.device_span("fm.update", wsum.device):
+            params = _apply(params, gw, gb, gv, wsum)
         return params, {"loss_sum": loss_sum, "weight_sum": wsum}
 
     return instrumented_step(step, "fm.step")

@@ -45,6 +45,11 @@ gradient and the margin update are instrumented sites (``gbdt.forest``,
 bins each chunk in a ``bin_block`` span that ends its flow, and one fit
 is one ``FitLoopObs`` epoch whose trees are its steps (the epoch
 histogram is the goodput ledger's device_step for a feed-less fit).
+``fit`` times its preparation in ``gbdt.copy_x``, ``gbdt.edges`` and
+``gbdt.bin`` device spans (``obs.device_span``); each tree is a
+``gbdt.tree`` span holding a ``gbdt.histogram`` and a ``gbdt.splits``
+device span a level (``depth`` in their args) and one ``gbdt.leaves``
+(the leaf sums and values); the fit's epoch boundary resolves them.
 """
 
 from __future__ import annotations
@@ -463,40 +468,45 @@ def _build_tree_core(xb, g, h, max_depth, num_bins, reg_lambda,
     node = torch.zeros(xb.shape[0], dtype=torch.int32, device=xb.device)
     feats, bins, gains = [], [], []
     for depth in range(max_depth):
-        hist = _level_histogram(xb, node, g, h, 1 << depth, num_bins)
+        with obs.device_span("gbdt.histogram", xb.device, depth=depth):
+            hist = _level_histogram(xb, node, g, h, 1 << depth, num_bins)
         hist = _group_sum([hist], group)[0]
         c = hist.shape[-1] // 2
-        feature, split_bin, gain, _gt, _ht = _find_splits(
-            hist[..., :c], hist[..., c:], reg_lambda, min_child_weight,
-            feat_mask=feat_mask)
-        feats.append(feature)
-        bins.append(split_bin)
-        # realized gain per node (0 at leaf-in-place nodes): the raw
-        # material of gain-based feature importance
-        gains.append(torch.where(feature >= 0, gain,
-                                 torch.zeros_like(gain)))
-        # descend: right iff this row's bin at the split feature exceeds
-        # the threshold; leaf-in-place nodes send all left
-        node_l = node.long()
-        nfeat = feature[node_l]
-        nbin = split_bin[node_l]
-        fval = xb.gather(1, torch.clamp_min(nfeat, 0).long()[:, None])[:, 0]
-        go_right = (nfeat >= 0) & (fval.to(torch.int32) > nbin)
-        node = node * 2 + go_right.to(torch.int32)
+        with obs.device_span("gbdt.splits", xb.device, depth=depth):
+            feature, split_bin, gain, _gt, _ht = _find_splits(
+                hist[..., :c], hist[..., c:], reg_lambda, min_child_weight,
+                feat_mask=feat_mask)
+            feats.append(feature)
+            bins.append(split_bin)
+            # realized gain per node (0 at leaf-in-place nodes): the raw
+            # material of gain-based feature importance
+            gains.append(torch.where(feature >= 0, gain,
+                                     torch.zeros_like(gain)))
+            # descend: right iff this row's bin at the split feature
+            # exceeds the threshold; leaf-in-place nodes send all left
+            node_l = node.long()
+            nfeat = feature[node_l]
+            nbin = split_bin[node_l]
+            fval = xb.gather(
+                1, torch.clamp_min(nfeat, 0).long()[:, None])[:, 0]
+            go_right = (nfeat >= 0) & (fval.to(torch.int32) > nbin)
+            node = node * 2 + go_right.to(torch.int32)
     # leaf values from each leaf's (G, H): [2^D] for scalar objectives,
     # [2^D, K] vector leaves for softmax
     g2 = g[:, None] if g.ndim == 1 else g
     h2 = h[:, None] if h.ndim == 1 else h
     c = g2.shape[1]
-    sums = _segment_sum(node, torch.cat([g2, h2], dim=1), n_leaves)
-    sums = _group_sum([sums], group)[0]
-    gleaf, hleaf = sums[:, :c], sums[:, c:]
-    if g.ndim == 1:
-        gleaf, hleaf = gleaf[:, 0], hleaf[:, 0]
-    # empty leaves at reg_lambda=0 are 0/0: emit 0, since unseen data can
-    # route there at predict time
-    denom = hleaf + reg_lambda
-    leaf = torch.where(denom > 0.0, -gleaf / denom, torch.zeros_like(denom))
+    with obs.device_span("gbdt.leaves", xb.device):
+        sums = _segment_sum(node, torch.cat([g2, h2], dim=1), n_leaves)
+        sums = _group_sum([sums], group)[0]
+        gleaf, hleaf = sums[:, :c], sums[:, c:]
+        if g.ndim == 1:
+            gleaf, hleaf = gleaf[:, 0], hleaf[:, 0]
+        # empty leaves at reg_lambda=0 are 0/0: emit 0, since unseen data
+        # can route there at predict time
+        denom = hleaf + reg_lambda
+        leaf = torch.where(denom > 0.0, -gleaf / denom,
+                           torch.zeros_like(denom))
     return (torch.cat(feats), torch.cat(bins), torch.cat(gains), leaf,
             node.long())
 
@@ -588,22 +598,24 @@ def make_forest_builder(
         vmargin = zero_margin(xe.shape[0]) if with_eval else None
         feats, bins, gains, leaves, losses, vlosses = [], [], [], [], [], []
         for t in range(num_trees):
-            g, h, loss = grad(margin, y, w)
-            row_mask = masks[t][0]
-            if row_mask is not None:
-                rexp = row_mask if g.ndim == 1 else row_mask[:, None]
-                g = g * rexp
-                h = h * rexp
-            mask_args = () if feat_masks is None else (feat_masks[t],)
-            feature, split_bin, gain, leaf, node = build(xb, g, h,
-                                                         *mask_args)
-            margin = margin_update(margin, leaf, node)
-            if with_eval:
-                vnode = _descend_tree(xe, feature, split_bin, max_depth,
-                                      offsets)
-                vmargin = _margin_update_core(vmargin, leaf, vnode,
-                                              learning_rate)
-                vlosses.append(torch.mean(_loss(objective, vmargin, ye)))
+            with obs.span("gbdt.tree", tree=t):
+                g, h, loss = grad(margin, y, w)
+                row_mask = masks[t][0]
+                if row_mask is not None:
+                    rexp = row_mask if g.ndim == 1 else row_mask[:, None]
+                    g = g * rexp
+                    h = h * rexp
+                mask_args = () if feat_masks is None else (feat_masks[t],)
+                feature, split_bin, gain, leaf, node = build(xb, g, h,
+                                                             *mask_args)
+                margin = margin_update(margin, leaf, node)
+                if with_eval:
+                    vnode = _descend_tree(xe, feature, split_bin, max_depth,
+                                          offsets)
+                    vmargin = _margin_update_core(vmargin, leaf, vnode,
+                                                  learning_rate)
+                    vlosses.append(torch.mean(_loss(objective, vmargin,
+                                                    ye)))
             feats.append(feature)
             bins.append(split_bin)
             gains.append(gain)
@@ -754,19 +766,22 @@ class GBDTLearner:
             self._sync_row_count(x.shape[0], trim=False)
         # one copy of the float matrix feeds both the quantiles and the
         # binning on the learner's device
-        xt = torch.as_tensor(x, device=self.device)
+        with obs.device_span("gbdt.copy_x", self.device):
+            xt = torch.as_tensor(x, device=self.device)
         if edges is not None:
             self.edges = np.asarray(edges, dtype=np.float32)
             self._check_edges(x.shape[1])
         else:
-            self.edges = fit_bins(xt, p.num_bins)
+            with obs.device_span("gbdt.edges", self.device):
+                self.edges = fit_bins(xt, p.num_bins)
         eval_xb = eval_y = None
         if eval_set is not None:
             eval_xb = apply_bins(torch.as_tensor(xe, device=self.device),
                                  self.edges)
             eval_y = ye
-        return self._fit_binned(apply_bins(xt, self.edges), y, log_every,
-                                weight, eval_xb, eval_y)
+        with obs.device_span("gbdt.bin", self.device):
+            xb = apply_bins(xt, self.edges)
+        return self._fit_binned(xb, y, log_every, weight, eval_xb, eval_y)
 
     def fit_uri(
         self,

@@ -6,8 +6,27 @@ and file formats).
   store every stage counter lives in (``DMLC_TPU_METRICS=0`` disables;
   obs/metrics.py)
 - :func:`span` / :func:`step_span` — Chrome-trace spans gated by
-  ``DMLC_TPU_TRACE=<path>`` (obs/trace.py); each live span is also a
-  ``torch.profiler.record_function`` range
+  ``DMLC_TPU_TRACE=<path>`` or a registered listener (obs/trace.py); each
+  live span is also a host-side profiler range (torch's
+  ``_RecordFunctionFast``, which puts no copy on the device's track), and
+  a ``torch.profiler`` capture running in the process arms them as bare
+  ranges (no event, buffer or listener call), so captures name the
+  program's stages
+- :func:`device_span` — a span that, armed by the same gate, also records
+  a pair of timing CUDA events on the device's current stream (host-clock
+  marks on the CPU); ``obs.trace.resolve_device_spans`` converts the
+  finished pairs with no synchronize (the fit loop's epoch boundary does)
+  into ``obs.trace.device_span_totals()`` ({name: {"count", "ms"}}) and,
+  with a trace file, ``device_ms`` in the span's args. The FM step's
+  ``fm.margin`` / ``fm.scatter`` / ``fm.update`` and the GBDT fit's
+  ``gbdt.copy_x`` / ``gbdt.edges`` / ``gbdt.bin`` / ``gbdt.histogram`` /
+  ``gbdt.splits`` / ``gbdt.leaves`` are device spans. At most
+  ``obs.trace.DEVICE_SPAN_CAP`` pairs wait; a device span that finds them
+  all unfinished is a plain span
+- ``DeviceFeed.stats()`` carries, for the current epoch, ``restart_ns``
+  (``before_first()`` entered to the epoch's first batch handed out; 0 in
+  an epoch it did not start); ``before_first()`` itself is a ``rewind``
+  span
 - :func:`new_flow` / :func:`flow_start` / :func:`flow_step` /
   :func:`flow_end` — causal dataflow arrows connecting a chunk's
   io_read → parse → stage → dispatch → consume → train_step journey across
@@ -63,6 +82,7 @@ from dmlc_tpu_torch.obs.metrics import (
 from dmlc_tpu_torch.obs.trace import (
     clear as clear_trace,
     current_flow,
+    device_span,
     events as trace_events,
     flow_end,
     flow_start,
@@ -82,6 +102,7 @@ __all__ = [
     "registry",
     "span",
     "step_span",
+    "device_span",
     "new_flow",
     "flow_start",
     "flow_step",

@@ -8,10 +8,12 @@ in-process buffer; ``flush()`` (and an atexit hook) writes the buffer to
 the path named by ``DMLC_TPU_TRACE`` as ``{"traceEvents": [...]}``, the
 format both chrome://tracing and https://ui.perfetto.dev open directly.
 
-Tracing is OFF unless ``DMLC_TPU_TRACE`` is set: ``span()`` then returns a
-shared no-op context manager (two empty method calls per span). The env
-var is re-read per ``span()`` call — one dict lookup — so tests and
-long-lived processes can turn tracing on/off without re-imports.
+Tracing is OFF unless ``DMLC_TPU_TRACE`` is set, a listener is
+registered or a ``torch.profiler`` capture runs: ``span()`` then returns
+a shared no-op context manager (two empty method calls per span). The
+env var is re-read per ``span()`` call — one dict lookup, then the
+profiler's flag — so tests and long-lived processes can turn tracing
+on/off without re-imports.
 
 Timestamps are µs since a ``time.monotonic_ns()`` epoch taken at import,
 with the wall clock at that instant (``anchor_unix_ns``) in the trace
@@ -20,10 +22,28 @@ consumers that need absolute time recover it as ``anchor_unix_ns +
 ts·1000``. Span durations are measured by
 :class:`dmlc_tpu_torch.utils.timer.Timer`.
 
-Each live span also enters ``torch.profiler.record_function`` under its
-name (the reference enters a ``jax.profiler`` annotation), so the spans
-line up with the CUDA kernels in a ``torch.profiler`` capture
-(``obs.device_telemetry.capture_profile``).
+Each live span also enters a profiler range under its name (the
+reference enters a ``jax.profiler`` annotation), so the spans line up
+with the CUDA kernels in a ``torch.profiler`` capture
+(``obs.device_telemetry.capture_profile``, the status plane's
+``/profile``). The range is torch's ``_RecordFunctionFast``: a host
+range alone, where ``record_function``'s user annotation would also be
+copied onto the device's track, stretched over the kernels it launched,
+and counted there as device time. A capture running in the process arms
+``span()`` too: with no trace file and no listener, a span is then that
+range alone (no event, no buffer, no listener call), so a capture names
+the program's stages beside the kernels.
+
+Device spans: ``device_span("fm.scatter", device)`` is a span that, when
+armed (the same gate), also records a pair of timing CUDA events on the
+device's current stream, on entry and on exit (host-clock marks on the
+CPU, where operations run synchronously). :func:`resolve_device_spans`
+converts each pair whose end has completed, with no synchronize, into
+per-name totals (:func:`device_span_totals`, reset by :func:`clear`) and,
+with a trace file, into ``device_ms`` in the span event's args. A pair's
+time is the stream's between its two events, idle gaps included. At most
+:data:`DEVICE_SPAN_CAP` pairs wait; a span that finds them all unfinished
+is a plain span, with no pair.
 
 Listeners: :func:`add_listener` registers a callback invoked with each
 completed span event. While any listener is registered, spans are
@@ -50,7 +70,7 @@ import json
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -67,6 +87,17 @@ _EPOCH_MONO_NS = time.monotonic_ns()
 _ANCHOR_UNIX_NS = time.time_ns()
 
 _PID = os.getpid()
+# its _is_profiler_enabled flag is True while a torch.profiler capture runs
+_profiler = torch.autograd.profiler
+# a host-side profiler range (no copy on the device's track)
+_range = torch._C._profiler._RecordFunctionFast
+
+#: device-span pairs that may wait for resolution: a span that finds the
+#: list full resolves it, and is a plain span if the stream has finished
+#: none of them
+DEVICE_SPAN_CAP = 65536
+_pending: List[tuple] = []  # (name, start mark, end mark, event or None)
+_device_totals: Dict[str, List[float]] = {}  # name -> [count, ms]
 
 
 def _now_us() -> float:
@@ -94,14 +125,15 @@ NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    __slots__ = ("name", "args", "_timer", "_ts", "_annot")
+    __slots__ = ("name", "args", "event", "_timer", "_ts", "_annot")
 
     def __init__(self, name: str, args: Dict):
         self.name = name
         self.args = args
+        self.event: Optional[Dict] = None  # set on exit
         self._timer = Timer()
         self._ts = 0.0
-        self._annot = torch.profiler.record_function(name)
+        self._annot = _range(name)
 
     def __enter__(self):
         self._annot.__enter__()
@@ -122,8 +154,10 @@ class _Span:
         }
         if self.args:
             event["args"] = self.args
+        self.event = event
         # the buffer backs the DMLC_TPU_TRACE file; listeners keep their
-        # own (bounded) state, so listener-only tracing cannot leak
+        # own (bounded) state, and device spans wait in a list of at most
+        # DEVICE_SPAN_CAP pairs, so listener-only tracing cannot leak
         if _active_path() is not None:
             with _lock:
                 _events.append(event)
@@ -170,10 +204,13 @@ def span(name: str, **args):
     """Context manager timing one pipeline stage as a named trace span.
 
     No-op (a shared inert object) unless ``DMLC_TPU_TRACE`` names an
-    output file or a listener is registered. Keyword args become the
-    event's ``args`` payload — keep them small and JSON-serializable
-    (chunk/batch indices)."""
+    output file, a listener is registered or a ``torch.profiler`` capture
+    runs (alone, the capture gets a bare profiler range).
+    Keyword args become the event's ``args`` payload — keep them small
+    and JSON-serializable (chunk/batch indices)."""
     if _active_path() is None and not _listeners:
+        if _profiler._is_profiler_enabled:
+            return _range(name)
         return NOOP_SPAN
     _ensure_atexit()
     return _Span(name, args)
@@ -182,11 +219,119 @@ def span(name: str, **args):
 def step_span(step_num: int, name: str = "step", **args):
     """Like :func:`span` with the step number in ``args`` — for fit-loop
     epochs (the reference's step annotation; here a
-    ``record_function`` under the span's name)."""
+    profiler range under the span's name)."""
     if _active_path() is None and not _listeners:
+        if _profiler._is_profiler_enabled:
+            return _range(name)
         return NOOP_SPAN
     _ensure_atexit()
     return _Span(name, dict(args, step=step_num))
+
+
+# ---- Device spans (the stream's time between two events) ----------------
+class _HostMark:
+    """A host-clock stand-in for a CUDA event: on the CPU operations run
+    synchronously, so a device span's time is its host duration."""
+
+    __slots__ = ("ns",)
+
+    def __init__(self):
+        self.ns = time.perf_counter_ns()
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, end: "_HostMark") -> float:
+        return (end.ns - self.ns) / 1e6
+
+
+def _mark(stream):
+    if stream is None:
+        return _HostMark()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+class _DeviceSpan:
+    __slots__ = ("name", "_inner", "_stream", "_start")
+
+    def __init__(self, name: str, inner, stream):
+        self.name = name
+        self._inner = inner
+        self._stream = stream
+        self._start = None
+
+    def __enter__(self):
+        self._inner.__enter__()
+        self._start = _mark(self._stream)
+        return self
+
+    def __exit__(self, *exc):
+        end = _mark(self._stream)
+        self._inner.__exit__(*exc)
+        event = getattr(self._inner, "event", None)
+        with _lock:
+            _pending.append((self.name, self._start, end, event))
+        return False
+
+
+def device_span(name: str, device=None, **args):
+    """Like :func:`span`, and when armed also a pair of timing CUDA events
+    on ``device``'s current stream, on entry and on exit (None: the
+    current device's, once CUDA is initialized; a CPU device: host-clock
+    marks). The pair waits for :func:`resolve_device_spans`; with
+    :data:`DEVICE_SPAN_CAP` pairs waiting it resolves them first, and is
+    the plain span if they all still wait. Disarmed it is the shared
+    no-op."""
+    if _active_path() is None and not _listeners:
+        if not _profiler._is_profiler_enabled:
+            return NOOP_SPAN
+        inner = _range(name)
+    else:
+        _ensure_atexit()
+        inner = _Span(name, args)
+    if (len(_pending) >= DEVICE_SPAN_CAP
+            and resolve_device_spans() >= DEVICE_SPAN_CAP):
+        return inner
+    if device is None:
+        on_card = torch.cuda.is_initialized()
+    else:
+        device = torch.device(device)
+        on_card = device.type == "cuda"
+    stream = torch.cuda.current_stream(device) if on_card else None
+    return _DeviceSpan(name, inner, stream)
+
+
+def resolve_device_spans() -> int:
+    """Convert every waiting device-span pair whose end event has
+    completed (``query()``, never a synchronize) into its name's totals,
+    and with a trace file into ``device_ms`` in its event's args; pairs
+    not finished keep waiting. Returns how many wait."""
+    global _pending
+    with _lock:
+        pending, _pending = _pending, []
+    done, left = [], []
+    for item in pending:
+        (done if item[2].query() else left).append(item)
+    with _lock:
+        _pending[:0] = left
+        for name, start, end, event in done:
+            ms = start.elapsed_time(end)
+            total = _device_totals.setdefault(name, [0, 0.0])
+            total[0] += 1
+            total[1] += ms
+            if event is not None:
+                event["args"] = dict(event.get("args") or {}, device_ms=ms)
+        return len(_pending)
+
+
+def device_span_totals() -> Dict[str, Dict]:
+    """{name: {"count", "ms"}} over the device-span pairs resolved since
+    the last :func:`clear`."""
+    with _lock:
+        return {name: {"count": int(c), "ms": ms}
+                for name, (c, ms) in _device_totals.items()}
 
 
 # ---- Flow events (causal dataflow arrows) -------------------------------
@@ -293,16 +438,12 @@ def events() -> List[Dict]:
         return list(_events)
 
 
-def events_after(cursor: int) -> Tuple[List[Dict], int]:
-    """Buffered events past ``cursor`` plus the new cursor (an
-    incremental reader's batch)."""
-    with _lock:
-        return list(_events[cursor:]), len(_events)
-
-
 def clear() -> None:
+    """Empty the event buffer and the device spans' pairs and totals."""
     with _lock:
         _events.clear()
+        _pending.clear()
+        _device_totals.clear()
 
 
 def metadata() -> Dict:
@@ -328,8 +469,11 @@ def flush(path: Optional[str] = None) -> Optional[str]:
             "displayTimeUnit": "ms",
             "metadata": metadata(),
         }
+    # dumps, not dump: its C encoder runs without yielding to another
+    # thread, so resolve_device_spans cannot add an event's args mid-write
+    text = json.dumps(payload)
     tmp = path + ".tmp"
     with open(tmp, "w") as fh:
-        json.dump(payload, fh)
+        fh.write(text)
     os.replace(tmp, path)
     return path

@@ -982,3 +982,33 @@ def test_profile_request_on_the_heartbeat_captures_coo_segment_sum(
         flight.reset()
     names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
     assert any("seg_sum_kernel" in n for n in names), sorted(names)[:20]
+
+
+def test_device_span_reads_the_stream_and_waits_without_a_sync(
+        cuda, monkeypatch):
+    """A device span's pair of CUDA events: unfinished on the stream it
+    stays pending (resolution never synchronizes); once done it reads more
+    than 0 ms and no more than the host's wall time around it."""
+    import time
+
+    from dmlc_tpu_torch import obs
+    from dmlc_tpu_torch.obs import trace
+
+    monkeypatch.delenv("DMLC_TPU_TRACE", raising=False)
+    monkeypatch.setattr(trace, "_listeners", [])
+    trace.clear()
+    trace.add_listener(lambda event: None)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.device_span("probe", cuda):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the stream
+        assert trace.resolve_device_spans() == 1
+        assert trace.device_span_totals() == {}
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        assert trace.resolve_device_spans() == 0
+        got = trace.device_span_totals()["probe"]
+        assert got["count"] == 1 and 0.0 < got["ms"] <= wall_ms
+    finally:
+        trace.clear()

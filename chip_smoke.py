@@ -29,9 +29,10 @@ non-zero exit and no result line:
 2. build the CUDA kernels from ``dmlc_tpu_torch/ops/csrc`` (nvcc, sm_90a)
    and print ptxas's registers and spills of each kernel; every flash
    kernel (``flash_fwd_kernel`` and ``flash_bwd_kernel``, each at D 32, 64
-   and 128, causal or not), ``fused_linear_grads`` and both
+   and 128, causal or not), ``fused_linear_grads``, both
    ``seg_sum_kernel`` variants of ``coo_segment_sum`` ([E] and [E, C])
-   must show 0 spill bytes; where the toolkit has ``cuobjdump``, the warpgroup products
+   and ``sorted_segment_sum``'s ``sorted_sum_kernel`` must show 0 spill
+   bytes; where the toolkit has ``cuobjdump``, the warpgroup products
    (``HGMMA``) in each flash kernel variant's SASS (``flash_fwd_kernel``
    and ``flash_bwd_kernel``, 12 in all) are counted and must be there;
    then the native core from ``dmlc_tpu_torch/native/csrc`` (g++, one
@@ -61,8 +62,17 @@ non-zero exit and no result line:
    data the kernel's bits equal ``seg_sum_schedule``'s (its order,
    modelled on the CPU) at the Criteo batch as [E] and [E, 17] and at a
    batch that fills the bucket (40 entries a row); ``spmv_transpose``
-   gives the same bits twice, and the same bits again under
-   ``torch.use_deterministic_algorithms(True)``;
+   gives the same bits twice, and on integer values and row gradients the
+   CPU route's bits; ``sorted_segment_sum`` [E] (a stable sort of the
+   ids, then one kernel over the sorted entries) on integer data gives the
+   CPU route's bits, the same bits twice and on a second stream, one
+   launch a call, every row written, at ``feature_sum_cases`` (no entries,
+   one id holding every entry, a run over more than 32 tiles, ids in no
+   order) and at one step of the criteo-fm cell (``cell_feature_ids``:
+   638,976 Zipf ids of 1,000,001); there, on float data, the bits of its
+   order (``sorted_sum_order``: ``index_put_``'s), and its CUDA-event
+   time (cold L2) beside the sort's and ``index_put_`` accumulate's
+   (``feature_sum_row``);
 5. the dense path: ``LinearLearner(objective="logistic").fit_uri`` over a
    seeded HIGGS-shaped LibSVM file (262,144 rows x 28 features), batch
    16384, 2 epochs, on the card and on the CPU, through the native route
@@ -76,8 +86,8 @@ non-zero exit and no result line:
    card with no step, to time the host's share;
 6. the csr path: the same over a seeded Criteo-shaped file (65,536 rows x
    39 skewed ids in [1, 2^20], labels from a planted sparse rule), batch
-   8192, 2^20 + 1 features; the launch count of ``coo_segment_sum`` must
-   equal the step count;
+   8192, 2^20 + 1 features; the launch counts of ``coo_segment_sum`` and
+   ``sorted_segment_sum`` must each equal the step count;
 7. one call of ``fused_linear_grads``, and one of ``coo_segment_sum`` at
    the csr [327,680] and FM [327,680, 17] shapes, must each run exactly
    one kernel on the card and nothing else (no memset), counted from a
@@ -198,10 +208,13 @@ non-zero exit and no result line:
    ``seg_sum_edge_cases`` with C in ``FM_SEG_COLS``, bit-equal to its
    plain version on integer data, each column bit-equal to the [E] call,
    the same bits twice; (b) ``feature_segment_sum`` at [E, 8] the same bits
-   twice and under ``torch.use_deterministic_algorithms(True)``; (c) 2
+   twice; phase 4's ``sorted_segment_sum`` checks at [E, 8] and at FM's
+   packed [E, 9] (gw apart, beside dv's K columns), and their times at
+   the criteo-fm cell's step beside the ``index_put_`` route's; (c) 2
    epochs on the card from params drawn once on the host: one
-   ``coo_segment_sum`` launch a step, the loss falls by ``MIN_LOSS_FALL``,
-   two fits give the same bits, the loss history within ``FM_LOSS_RTOL``
+   ``coo_segment_sum`` and one ``sorted_segment_sum`` launch a step, the
+   loss falls by ``MIN_LOSS_FALL``, two fits give the same bits, the loss
+   history within ``FM_LOSS_RTOL``
    of the CPU route's and w, b and v each within ``FM_PARAM_REL`` of its
    update; (d) known faults read against those limits, which must fail
    them: the margin without its −q term, the factor gradient without its
@@ -538,6 +551,18 @@ CRITEO_ROWS, CRITEO_NNZ, CRITEO_DIM, CRITEO_BATCH = 65_536, 39, 1 << 20, 8192
 # the feed's entry bucket of a Criteo batch (device/csr.round_up_bucket of
 # 8192 x 39): the padded tail lands on the last row
 SEG_BUCKET = 327_680
+# one step of the criteo-fm benchmark configuration
+# (perfbench/configs/criteo-fm.json): rows a batch, ids 0 .. 1,000,000,
+# and the distinct values of each of the 39 fields
+CELL_ROWS, CELL_FEATURES = 16_384, 1_000_001
+CELL_FIELD_VALUES = (470,) * 13 + (
+    1460, 583, 10131227, 2202608, 305, 24, 12517, 633, 3, 93145, 5683,
+    8351593, 3194, 27, 14992, 5461306, 10, 5652, 2173, 4, 7046547, 18, 15,
+    286181, 105, 142572)
+# FM's feature-direction sums: dv's K columns, and the packed call of gw
+# beside them (``first_apart``)
+FM_PACKED_COLS = 9
+FEATURE_SUM_COLS = (8, FM_PACKED_COLS)
 EPOCHS = 2
 # CPU (plain path) vs card (kernels) after 2 epochs of logistic SGD: the
 # gradients sum in another order and the card's expf differs from the
@@ -1397,6 +1422,186 @@ def hold_seg_schedule(kernels, name, contrib, row_ids, num_rows):
     return got
 
 
+def cell_feature_ids(seed: int) -> np.ndarray:
+    """[CELL_ROWS x 39] int32 feature ids of one step of the criteo-fm cell,
+    row by row as a batch holds them: field j's value of rank r (0 the
+    commonest) drawn with chance ~1 / (r + 1), r = floor((c + 1)^u) - 1
+    for u uniform, and hashed into a range of ids of its own; the ranges,
+    each as large as its field up to one cap, fill [1, CELL_FEATURES). The
+    commonest id, of the 3-valued field, holds ~1.28 % of the entries (8,192
+    of 638,976), as in the cell; the benchmark's generator also folds rare
+    values into one token a field, which this leaves out."""
+    c = np.asarray(CELL_FIELD_VALUES, np.int64)
+    lo, hi = 1, int(c.max())
+    while lo < hi:  # the largest cap at which the ranges fit
+        cap = (lo + hi + 1) // 2
+        if np.minimum(c, cap).sum() <= CELL_FEATURES - 1:
+            lo = cap
+        else:
+            hi = cap - 1
+    sizes = np.minimum(c, lo)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    u = np.random.RandomState(seed).rand(CELL_ROWS, len(c))
+    rank = np.minimum(np.floor(np.exp(u * np.log1p(c))).astype(np.int64) - 1,
+                      c - 1)
+    return (1 + starts + rank % sizes).astype(np.int32).ravel()
+
+
+def feature_sum_cases():
+    """(name, ids, num_features) where a sorted, entry-balanced feature sum
+    can go wrong: no entries, one id holding every entry, a run over more
+    than 32 tiles of 1024 entries (the chain's start found 32 tiles at a
+    time), and ids in no order at all with untouched features between and
+    after them."""
+    rng = np.random.RandomState(26)
+    long_run = np.concatenate([rng.randint(0, 5000, 20_000),
+                               np.full(40_000, 777), rng.randint(0, 5000,
+                                                                 9_000)])
+    return [
+        ("no entries", np.zeros(0, dtype=np.int32), 9),
+        ("one id holds every entry", np.full(50_000, 3, dtype=np.int32), 7),
+        ("a run over more than 32 tiles",
+         rng.permutation(long_run).astype(np.int32), 5001),
+        ("ids in no order, gaps between and after",
+         (rng.randint(0, 3000, 70_000) * 3).astype(np.int32), 12_000),
+    ]
+
+
+def hold_feature_sum(kernels, dev, name, ids, num_features, cols):
+    """``sorted_segment_sum`` on ``ids`` with seeded integer contributions
+    ([E] at ``cols`` 0, else [E, cols]; FM's packed call, gw apart, at
+    ``FM_PACKED_COLS``): bit-equal to its plain version (the CPU route),
+    the same bits twice and on a second stream, one launch a call, every
+    row written. Returns the result."""
+    rng = np.random.RandomState(len(ids) + num_features + cols)
+    shape = (len(ids),) + ((cols,) if cols else ())
+    contrib = torch.tensor(rng.randint(-5, 6, shape).astype(np.float32),
+                           device=dev)
+    ids_t = torch.tensor(ids, device=dev)
+    # NaN in the memory the output will likely take (the caching
+    # allocator hands it out again): a row left unwritten would read NaN
+    torch.full((num_features,) + shape[1:], float("nan"), device=dev)
+    apart = cols == FM_PACKED_COLS
+    before = kernels.sorted_segment_sum.launches
+    got = kernels.sorted_segment_sum(contrib, ids_t, num_features, apart)
+    again = kernels.sorted_segment_sum(contrib, ids_t, num_features, apart)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        other = kernels.sorted_segment_sum(contrib, ids_t, num_features,
+                                           apart)
+    torch.cuda.synchronize()
+    want = kernels.sorted_segment_sum_plain(contrib.cpu(), ids_t.cpu(),
+                                            num_features)
+    require(kernels.sorted_segment_sum.launches == before + 3,
+            "sorted_segment_sum %s: %d launches for 3 calls", name,
+            kernels.sorted_segment_sum.launches - before)
+    require(torch.equal(got.cpu(), want), "sorted_segment_sum %s [%s]: "
+            "card and CPU routes differ on integer data", name, shape)
+    require(torch.equal(got, again) and torch.equal(got, other),
+            "sorted_segment_sum %s: runs differ in bits", name)
+    return got
+
+
+def sorted_sum_order(contrib, ids, num_rows: int,
+                     vector_cols=None) -> np.ndarray:
+    """``sorted_segment_sum`` on the CPU in the order of its CUDA kernel
+    (csrc/sorted_segment_sum.cu: ``index_put_``'s), over each feature's
+    run of n stably sorted entries. The first ``vector_cols`` columns (all
+    by default) as vectors: 32 lane sums of the first 32·floor(n/32)
+    entries (lane l takes l, l + 32, ... from 0), a shuffle-down tree into
+    lane 0 (offsets 16, 8, 4, 2, 1), the last n mod 32 added in order; the
+    other columns in entry order from 0; and 0.0 plus each sum.
+    ``contrib`` is float32 numpy [E] or [E, C], ``ids`` int numpy [E];
+    every add is an f32 add of the kernel's, so on the card the kernel
+    gives these bits. Ids outside [0, num_rows) contribute nothing."""
+    contrib = np.asarray(contrib, np.float32)
+    ids = np.asarray(ids)
+    x = contrib.reshape(len(ids), contrib.shape[1] if contrib.ndim > 1
+                        else 1)
+    vc = x.shape[1] if vector_cols is None else vector_cols
+    order = np.argsort(ids, kind="stable")
+    sid, xs = ids[order], x[order]
+    out = np.zeros((num_rows, x.shape[1]), np.float32)
+    cuts = np.concatenate([[0], np.flatnonzero(np.diff(sid)) + 1,
+                           [len(sid)]]) if len(sid) else [0]
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        r = int(sid[lo])
+        if not 0 <= r < num_rows:
+            continue
+        run = xs[lo:hi]
+        whole = (hi - lo) // 32 * 32
+        g = np.zeros((32, vc), np.float32)
+        for i in range(0, whole, 32):
+            g = g + run[i:i + 32, :vc]
+        for d in (16, 8, 4, 2, 1):
+            g[:d] = g[:d] + g[d:2 * d]
+        acc = g[0]
+        for e in range(whole, hi - lo):
+            acc = acc + run[e, :vc]
+        out[r, :vc] = np.float32(0.0) + acc
+        # the rows' columns: one add at a time (cumsum is serial)
+        out[r, vc:] = np.float32(0.0) + np.cumsum(run[:, vc:], axis=0,
+                                                  dtype=np.float32)[-1]
+    return out.reshape((num_rows,) + contrib.shape[1:])
+
+
+def index_put_route(contrib, ids, num_features, first_apart=False):
+    """The feature sums as the route before ``sorted_segment_sum`` took
+    them: ``index_put_`` with ``accumulate=True``, FM's packed [E, 1 + K]
+    as an [E] and an [E, K] call (``first_apart``)."""
+    def put(c):
+        return c.new_zeros((num_features,) + tuple(c.shape[1:])).index_put_(
+            (ids.long(),), c, accumulate=True)
+    if not first_apart:
+        return put(contrib)
+    return torch.cat([put(contrib[:, 0].contiguous())[:, None],
+                      put(contrib[:, 1:].contiguous())], dim=1)
+
+
+def feature_sum_row(kernels, dev, flush, cols, seed=3) -> dict:
+    """CUDA-event times (cold L2) of the feature-direction sum at one step
+    of the criteo-fm cell (``cell_feature_ids``): the csr fit's [E] at
+    ``cols`` 0, dv's [E, 8], FM's packed [E, 9] (gw apart); the route,
+    ``sorted_segment_sum`` (a sort, then the kernel reading the rows
+    through the permutation); the sort alone; and the ``index_put_`` route
+    before it; beside the byte bound (E·C·4 + E·4 + F·C·4). On float data
+    the kernel's bits must be ``sorted_sum_order``'s;
+    ``index_put_bits_equal`` says whether they are the route's before."""
+    ids = torch.tensor(cell_feature_ids(seed), device=dev)
+    entries = ids.shape[0]
+    shape = (entries,) + ((cols,) if cols else ())
+    apart = cols == FM_PACKED_COLS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    contrib = torch.randn(shape, generator=gen, device=dev)
+
+    def route():
+        return kernels.sorted_segment_sum(contrib, ids, CELL_FEATURES, apart)
+
+    got = route()
+    require(got.cpu().numpy().tobytes() == sorted_sum_order(
+        contrib.cpu().numpy(), ids.cpu().numpy(), CELL_FEATURES,
+        kernels.vector_columns(contrib, apart)).tobytes(),
+            "sorted_segment_sum [%s]: the kernel's bits differ from its "
+            "order's (sorted_sum_order)", shape)
+    width = max(cols, 1)
+    row = {
+        "shape": [entries, width, CELL_FEATURES], "first_apart": apart,
+        "ms": time_ms(route, flush),
+        "sort_ms": time_ms(lambda: torch.sort(ids, stable=True), flush),
+        "index_put_ms": time_ms(lambda: index_put_route(
+            contrib, ids, CELL_FEATURES, apart), flush),
+        "index_put_bits_equal": bool(torch.equal(got, index_put_route(
+            contrib, ids, CELL_FEATURES, apart))),
+        "longest_run": int(torch.unique(ids, return_counts=True)[1].max()),
+    }
+    row["bound_ms"], row["bound_by"] = bound(
+        4 * (entries * width + entries + CELL_FEATURES * width),
+        entries * width)
+    return row
+
+
 def seg_sum_row(kernels, dev, flush, name, contrib, row_ids, launches,
                 err) -> dict:
     """The ``kernels`` line's row of ``coo_segment_sum`` at ``contrib``
@@ -1484,9 +1689,12 @@ def drive_path(kernels, name, kernel_name, path, layout, batch_size,
                                            num_features, None)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     feed_only = feed_seconds(path, layout, batch_size, num_features)
-    require(launches[kernel_name] == steps,
-            "%s path: %s launched %d times for %d steps", name, kernel_name,
-            launches[kernel_name], steps)
+    # the csr step's gradient is one sorted_segment_sum launch too
+    for kernel in (kernel_name,) + (("sorted_segment_sum",)
+                                    if layout == "csr" else ()):
+        require(launches[kernel] == steps,
+                "%s path: %s launched %d times for %d steps", name, kernel,
+                launches[kernel], steps)
     require(feeds == ["NativePipelineParser"] * EPOCHS,
             "%s path: the feed staged natively over %s", name, feeds)
     hold_tokens("%s path" % name, launches["tokenize_boundaries"],
@@ -3531,22 +3739,29 @@ def drive_fm(kernels, dev, fm_file) -> tuple:
     require(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
             "coo_segment_sum [E, %d] float data: max abs err %g", FM_COLS,
             seg_err)
-    # (b) the [E, K] feature sum repeats its bits
+    # (b) the [E, K] and [E, 1 + K] feature sums repeat their bits, and
+    # give the CPU route's on integer data, at phase 4's cases and at the
+    # criteo-fm cell's step, beside index_put_'s time
     dv = packed[:, :FM_HYPER["num_factors"]].contiguous()
     g1 = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
     g2 = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
-    torch.use_deterministic_algorithms(True)
-    try:
-        g_det = feature_segment_sum(dv, batch["indices"], CRITEO_DIM + 1)
-    finally:
-        torch.use_deterministic_algorithms(False)
     torch.cuda.synchronize()
     require(torch.equal(g1, g2), "feature_segment_sum [E, K]: two runs "
             "differ in bits")
-    require(torch.equal(g1, g_det), "feature_segment_sum [E, K]: bits "
-            "differ from torch's deterministic mode")
+    cell_ids = cell_feature_ids(16)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    feature_rows = {}
+    for cols in FEATURE_SUM_COLS:
+        for name, ids, num_features in feature_sum_cases():
+            hold_feature_sum(kernels, dev, name, ids, num_features, cols)
+        hold_feature_sum(kernels, dev, "criteo-fm step", cell_ids,
+                         CELL_FEATURES, cols)
+        feature_rows[cols] = feature_sum_row(kernels, dev, flush, cols)
+    del flush
     report["kernel_checks"] = {"coo_segment_sum_cols_float_max_abs_err":
-                               seg_err, "feature_sum_same_bits": True}
+                               seg_err, "feature_sum_same_bits": True,
+                               "feature_sum_integer_bits_equal_cpu": True,
+                               "feature_sum_ms": feature_rows}
     print(json.dumps({"fm_kernel_checks": report["kernel_checks"]}),
           flush=True)
     # (c) the fit on the card, twice, and on the CPU
@@ -3559,9 +3774,10 @@ def drive_fm(kernels, dev, fm_file) -> tuple:
     history, params, seconds = run_fm_fit(fm_file, None, start)
     launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    require(launches["coo_segment_sum"] == steps,
-            "fm path: coo_segment_sum launched %d times for %d steps",
-            launches["coo_segment_sum"], steps)
+    for name in ("coo_segment_sum", "sorted_segment_sum"):
+        require(launches[name] == steps,
+                "fm path: %s launched %d times for %d steps", name,
+                launches[name], steps)
     require(np.all(np.isfinite(history)), "fm path: loss history %s",
             history)
     for k, shape in (("w", (CRITEO_DIM + 1,)), ("b", ()),
@@ -7343,6 +7559,10 @@ def smoke(fit_dir: str) -> int:
     seg = [n for name, n in spills.items() if "seg_sum_kernel" in name]
     require(seg == [0, 0], "seg_sum_kernel ([E] and [E, C]): ptxas spills "
             "%s", seg)
+    sorted_sum = [n for name, n in spills.items()
+                  if "sorted_sum_kernel" in name]
+    require(sorted_sum == [0], "sorted_sum_kernel: ptxas spills %s",
+            sorted_sum)
     torch.cuda.synchronize()
 
     lap("2")
@@ -7412,19 +7632,32 @@ def smoke(fit_dir: str) -> int:
                         row_grads, CRITEO_DIM + 1)
     g2 = spmv_transpose(batch["values"], batch["indices"], row_ids,
                         row_grads, CRITEO_DIM + 1)
-    torch.use_deterministic_algorithms(True)
-    try:
-        g_det = spmv_transpose(batch["values"], batch["indices"], row_ids,
-                               row_grads, CRITEO_DIM + 1)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    # integer values and row gradients: every sum exact, the CPU route's bits
+    int_values = torch.tensor(rng.randint(-3, 4, entries).astype(
+        np.float32), device=dev) * (batch["values"] != 0)
+    int_grads = torch.tensor(rng.randint(-4, 5, CRITEO_BATCH).astype(
+        np.float32), device=dev)
+    g_int = spmv_transpose(int_values, batch["indices"], row_ids, int_grads,
+                           CRITEO_DIM + 1)
     torch.cuda.synchronize()
     require(torch.equal(g1, g2), "spmv_transpose: two runs differ in bits")
-    require(torch.equal(g1, g_det),
-            "spmv_transpose: bits differ from torch's deterministic mode")
+    require(torch.equal(g_int.cpu(), spmv_transpose(
+        int_values.cpu(), batch["indices"].cpu(), row_ids.cpu(),
+        int_grads.cpu(), CRITEO_DIM + 1)),
+            "spmv_transpose integer data: card and CPU routes differ")
+    for name, ids, num_features in feature_sum_cases():
+        hold_feature_sum(kernels, dev, name, ids, num_features, 0)
+    cell_ids = cell_feature_ids(3)
+    hold_feature_sum(kernels, dev, "criteo-fm step", cell_ids, CELL_FEATURES,
+                     0)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)  # 1 GiB
+    transpose_row = feature_sum_row(kernels, dev, flush, 0)
+    del flush
     print(json.dumps({"coo_segment_sum_float_max_abs_err": seg_err,
                       "coo_segment_sum_bits_equal_schedule": True,
-                      "spmv_transpose_same_bits_twice": True}), flush=True)
+                      "spmv_transpose_same_bits_twice": True,
+                      "spmv_transpose_integer_bits_equal_cpu": True,
+                      "feature_sum_ms": transpose_row}), flush=True)
 
     lap("4")
 

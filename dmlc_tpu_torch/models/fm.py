@@ -8,9 +8,12 @@ gathers; the three row sums — the linear term, s = Σ x·v and
 q = Σ (x·v)², [B], [B, K] and [B, K] — are ONE ``coo_segment_sum`` of the
 packed [E, 2K + 1] entries (the CUDA kernel on the card, one launch a
 step; the reference takes the two [E, K] sums with XLA's segment_sum).
-The gradients of w and v are feature-direction sums
-(``ops/spmv.feature_segment_sum``), which repeat their bits on either
-route.
+The gradients of w and v are feature-direction sums, packed as ONE
+``ops/spmv.feature_segment_sum`` of [E, 1 + K] entries, gw's
+values·wg[row] in column 0 beside dv's K columns: one sort and one
+``sorted_segment_sum`` launch a step on the card. With ``first_apart``
+the call gives gw the bits of ``spmv_transpose`` (the linear fit's [E]
+call) and dv those of the [E, K] call; both routes repeat their bits.
 
 Steps:
 
@@ -48,8 +51,7 @@ from dmlc_tpu_torch.obs import audit
 from dmlc_tpu_torch.obs.device_telemetry import instrumented_step
 from dmlc_tpu_torch.ops.kernels import coo_segment_sum
 from dmlc_tpu_torch.ops.objectives import OBJECTIVES, margin_loss_grad
-from dmlc_tpu_torch.ops.spmv import (expand_row_ids, feature_segment_sum,
-                                     spmv_transpose)
+from dmlc_tpu_torch.ops.spmv import expand_row_ids, feature_segment_sum
 from dmlc_tpu_torch.params.parameter import Parameter, field
 from dmlc_tpu_torch.resilience import Preempted, preempt
 from dmlc_tpu_torch.utils import prng
@@ -127,13 +129,16 @@ def _fm_forward_grads(params, batch, objective: str, num_features: int):
     loss, gmargin = margin_loss_grad(objective, margin, label)
     wg = weight * gmargin  # [B]
     gb = torch.sum(wg)
-    # dv[i, k]: per entry x_e · (s[r, k] − x_e v[i, k]), scaled by wg[r];
-    # made first, so that the two feature-direction sums share one span
+    # per entry, scaled by wg[r]: gw's x_e in column 0, dv's
+    # x_e · (s[r, k] − x_e v[i, k]) in columns 1..K; made first, so that
+    # the span holds the feature-direction sum alone
+    scale = (wg.index_select(0, row_ids) * values)[:, None]
     s_e = s.index_select(0, row_ids)
-    dv_entry = (wg.index_select(0, row_ids) * values)[:, None] * (s_e - xv)
+    packed = torch.cat([scale, scale * (s_e - xv)], dim=1)
     with obs.device_span("fm.scatter", values.device):
-        gw = spmv_transpose(values, indices, row_ids, wg, num_features)
-        gv = feature_segment_sum(dv_entry, indices, num_features)
+        grads = feature_segment_sum(packed, indices, num_features,
+                                    first_apart=True)
+    gw, gv = grads[:, 0], grads[:, 1:]
     return gw, gb, gv, torch.sum(weight * loss), torch.sum(weight)
 
 

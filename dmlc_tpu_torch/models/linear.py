@@ -25,9 +25,11 @@ weight vector over a model-parallel group as well (dp × mp). The gradient core 
 
 On a CPU tensor each kernel wrapper runs its plain PyTorch version. Every
 value is f32, as in the reference. The CUDA kernels add no floats with
-atomics; ``spmv_transpose`` reduces with PyTorch's sort-then-reduce on
-CUDA and, on the CPU, sums each feature's entries in entry order after a
-stable sort (``ops/spmv.py``). So a run repeats its bits on either route.
+atomics; ``spmv_transpose`` sorts the entries by feature (stably) and, on
+CUDA, sums them in one ``sorted_segment_sum`` launch, in the order
+``index_put_(accumulate=True)`` gave them (csrc/sorted_segment_sum.cu),
+or, on the CPU, sums each feature's entries in entry order
+(``ops/spmv.py``). So a run repeats its bits on either route.
 """
 
 from __future__ import annotations

@@ -8,6 +8,10 @@ flash-attention kernel behind ``dmlc_tpu/ops/sequence_parallel.py``.
   of FM's packed row sums, one or more columns (csrc/coo_segment_sum.cu);
   it and :func:`fused_linear_grads` sum across CTAs in a fixed order
   (csrc/fixed_order.cuh), counted by integers kept on each stream;
+- :func:`sorted_segment_sum` — the feature-direction sums of the csr and
+  FM gradients (``ops/spmv.feature_segment_sum``): one stable sort of the
+  ids, then one kernel over the sorted entries, read through the sort's
+  permutation (csrc/sorted_segment_sum.cu);
 - :func:`flash_attention_fwd` — attention output and row logsumexp
   (csrc/flash_attention_fwd.cu);
 - :func:`flash_attention_bwd` — its gradients dQ, dK and dV in one kernel
@@ -28,9 +32,10 @@ allocates outputs and scratch.
 
 The kernels are ctypes calls no ``TorchDispatchMode`` can see, so the
 wrappers on the training path (fused_linear_grads, coo_segment_sum,
-tokenize_boundaries) are ``obs.xla_cost.costed``: inside a step-cost
-recording each adds its own flops and bytes (the formulas of PERF.md's
-kernel bounds) on either route, and hides its own torch ops.
+sorted_segment_sum, tokenize_boundaries) are ``obs.xla_cost.costed``:
+inside a step-cost recording each adds its own flops and bytes (the
+formulas of PERF.md's kernel bounds) on either route, and hides its own
+torch ops.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ OBJECTIVE_CODES = {"logistic": 0, "squared": 1, "hinge": 2}
 FUSED_TILE_ROWS = 128
 #: entries per CTA tile; must equal kTile in csrc/coo_segment_sum.cu
 SEG_TILE = 1024
+#: sorted entries per CTA tile; must equal kTile in
+#: csrc/sorted_segment_sum.cu
+SORTED_TILE = 1024
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -66,6 +74,8 @@ SIGNATURES = {
     "dmlc_fused_linear_grads": [_P, _P, _P, _P, _P, _I64, _I64, _INT, _INT,
                                 _P, _P, _P, _P, _P],
     "dmlc_coo_segment_sum": [_P, _P, _I64, _I64, _I64, _INT, _P, _P, _P, _P],
+    "dmlc_sorted_segment_sum": [_P, _P, _P, _I64, _I64, _I64, _I64, _INT,
+                                _P, _P],
     "dmlc_flash_attention_fwd": [_P] * 5 + _FLASH_DIMS,
     "dmlc_flash_attention_bwd": [_P] * 11 + _FLASH_DIMS,
     "dmlc_tokenize_boundaries": [_P, _I64, _P, _P, _P],
@@ -292,6 +302,106 @@ def coo_segment_sum(contrib, row_ids, num_rows: int):
 
 
 coo_segment_sum.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# sorted_segment_sum
+# ---------------------------------------------------------------------------
+
+
+def sorted_segment_sum_plain(contrib, ids, num_rows: int):
+    """``g[f] = Σ_{e: ids[e]==f} contrib[e]`` in plain PyTorch ops, for
+    contrib [E] or [E, C] and ids in [0, num_rows) in any order: a stable
+    sort of the ids, then each id's run summed in entry order from 0 one
+    run at a time (``segment_reduce``'s CPU loop, whatever the thread
+    count), column by column: the order of the reference's CPU scatter
+    (``jax.ops.segment_sum``)."""
+    out = contrib.new_zeros((num_rows,) + tuple(contrib.shape[1:]))
+    if contrib.numel() == 0:
+        return out
+    feature, order = torch.sort(ids, stable=True)
+    runs, counts = torch.unique_consecutive(feature, return_counts=True)
+    out[runs.long()] = torch.segment_reduce(contrib[order], "sum",
+                                            lengths=counts, axis=0)
+    return out
+
+
+def vector_columns(contrib, first_apart: bool = False) -> int:
+    """How many leading columns of ``contrib`` ``sorted_segment_sum`` sums
+    as vectors (``index_put_``'s order on a 1-D tensor, or on one column):
+    all of an [E] or [E, 1] call, none of an [E, C] call; with
+    ``first_apart``, column 0 (and the other one too, if it is alone)."""
+    cols = 1 if contrib.dim() == 1 else contrib.shape[1]
+    if cols == 1 or (first_apart and cols == 2):
+        return cols
+    return 1 if first_apart else 0
+
+
+def _sorted_sum_cost(contrib, ids, num_rows: int, first_apart: bool = False):
+    """``coo_segment_sum``'s count: the ids read once, the sort left out."""
+    return _seg_sum_cost(contrib, ids, num_rows)
+
+
+@costed(_sorted_sum_cost)
+def sorted_segment_sum(contrib, ids, num_rows: int,
+                       first_apart: bool = False):
+    """``g[f] = Σ_{e: ids[e]==f} contrib[e]`` for f in [0, num_rows), the
+    ids in any order.
+
+    contrib [E] or [E, C] f32 (row-major) and ids [E] int32 or int64 in
+    [0, num_rows), on one device; returns [num_rows] or [num_rows, C] f32.
+    On a CUDA tensor: one stable sort of the ids (``torch.sort``: the
+    sorted ids, and the entries' positions in that order), then
+    csrc/sorted_segment_sum.cu launched once on them, reading each entry's
+    row of contrib through the positions. Every CTA takes
+    ``SORTED_TILE`` sorted entries whatever the runs' lengths, every output
+    row is written once (zeros where no entry falls), and no float is
+    added with an atomic: the same bits on every run and stream.
+
+    Each column is summed in the order ``index_put_`` with
+    ``accumulate=True`` gives it, so the bits are those of the
+    ``index_put_`` route: an [E] (or [E, 1]) call as a vector (32 lane
+    sums, a shuffle-down tree, the tail in order: the kernel's note), the
+    columns of an [E, C] call in entry order. ``first_apart`` sums column
+    0 of [E, 1 + K] as the [E] call on it and the other K as the [E, K]
+    call on them (:func:`vector_columns`): FM's packed gw beside dv. On
+    integer-valued contributions every order gives the bits of
+    :func:`sorted_segment_sum_plain`, which runs on a CPU tensor.
+    """
+    if contrib.device.type == "cpu":
+        return sorted_segment_sum_plain(contrib, ids, num_rows)
+    check(contrib.device.type == "cuda", "unsupported device %s",
+          contrib.device)
+    check(contrib.dim() == 1 or (contrib.dim() == 2 and contrib.shape[1] > 0),
+          "contrib must be [E] or [E, C] with C > 0, got shape %s",
+          tuple(contrib.shape))
+    check(not first_apart or (contrib.dim() == 2 and contrib.shape[1] > 1),
+          "first_apart needs [E, C] with C > 1, got shape %s",
+          tuple(contrib.shape))
+    check(0 < num_rows < 2**31 - 1, "num_rows out of range: %d", num_rows)
+    entries = contrib.shape[0]
+    check(entries < 2**31, "too many entries: %d", entries)
+    dev = contrib.device
+    _check_input(contrib, "contrib", torch.float32, contrib.shape, dev)
+    check(ids.dtype in (torch.int32, torch.int64),
+          "ids must be int32 or int64, got %s", ids.dtype)
+    _check_input(ids, "ids", ids.dtype, (entries,), dev)
+    sorted_ids, order = torch.sort(ids.to(torch.int32), stable=True)
+    out = torch.empty((num_rows,) + tuple(contrib.shape[1:]),
+                      dtype=torch.float32, device=dev)
+    cols = 1 if contrib.dim() == 1 else contrib.shape[1]
+    with torch.cuda.device(dev):
+        rc = _lib().dmlc_sorted_segment_sum(
+            contrib.data_ptr(), sorted_ids.data_ptr(), order.data_ptr(),
+            entries, num_rows, cols, vector_columns(contrib, first_apart),
+            SORTED_TILE, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launch_check(rc, "sorted_segment_sum")
+    count_launch(sorted_segment_sum)
+    return out
+
+
+sorted_segment_sum.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +634,7 @@ def empty_launches(n: int, device) -> None:
 KERNELS = {
     "fused_linear_grads": fused_linear_grads,
     "coo_segment_sum": coo_segment_sum,
+    "sorted_segment_sum": sorted_segment_sum,
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_bwd": flash_attention_bwd,
     "tokenize_boundaries": tokenize_boundaries,

@@ -15,14 +15,16 @@ a ``device/csr.ShardedCSRBatch``: the section's entries only, its local
 offsets, its rows' slice of the output.
 
 Determinism: nothing here adds floats with atomics, and
-``feature_segment_sum`` repeats its bits on both routes. On CUDA it uses
-``index_put_`` with ``accumulate=True``, which sorts the entries by feature
-id and reduces each run of one id in a fixed order (PyTorch's ``index_put_with_sort`` path;
-chip_smoke.py checks the same bits run after run). On the CPU, where
-``index_put_`` adds over threads in an order that changes from run to run,
-it sorts the entries by feature id (stably) and sums each feature's run
-in entry order from 0, the order of the reference's CPU scatter
-(``jax.ops.segment_sum``).
+``feature_segment_sum`` repeats its bits on both routes
+(``ops/kernels.sorted_segment_sum``). Both sort the entries by feature id
+once (stably). On CUDA one kernel launch then sums the sorted entries,
+read through the sort's permutation, a fixed number of entries a CTA
+whatever the runs' lengths, each column in the order ``index_put_`` with
+``accumulate=True`` gave it before (a vector's runs in 32 lane sums and a
+tree, the columns of [E, C] in entry order), so the bits are the old
+route's. On the CPU each feature's run is summed in entry order from 0,
+the order of the reference's CPU scatter (``jax.ops.segment_sum``). On
+integer-valued contributions the two routes give the same bits.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from dmlc_tpu_torch.ops.kernels import coo_segment_sum, coo_segment_sum_plain
+from dmlc_tpu_torch.ops.kernels import (coo_segment_sum,
+                                        coo_segment_sum_plain,
+                                        sorted_segment_sum)
 from dmlc_tpu_torch.utils.logging import check
 
 
@@ -71,23 +75,15 @@ def spmv_kernel(values, indices, row_ids, weight_vec, num_rows: int):
     return coo_segment_sum(contrib, row_ids, num_rows)
 
 
-def feature_segment_sum(contrib, indices, num_features: int):
-    """g[f] = Σ_{e: indices[e]==f} contrib[e] for contrib [E] or [E, K];
-    returns [num_features] or [num_features, K], the same bits on every run
-    (module docstring): each feature's entries are summed in one fixed
-    order, on the CPU in entry order from 0, column by column."""
-    out = contrib.new_zeros((num_features,) + tuple(contrib.shape[1:]))
-    if contrib.device.type != "cpu":
-        return out.index_put_((indices.long(),), contrib, accumulate=True)
-    if contrib.numel() == 0:
-        return out
-    # the CPU route: each feature's run in entry order, summed from 0 one
-    # run at a time (segment_reduce's CPU loop), whatever the thread count
-    feature, order = torch.sort(indices, stable=True)
-    ids, counts = torch.unique_consecutive(feature, return_counts=True)
-    out[ids.long()] = torch.segment_reduce(contrib[order], "sum",
-                                           lengths=counts, axis=0)
-    return out
+def feature_segment_sum(contrib, indices, num_features: int,
+                        first_apart: bool = False):
+    """g[f] = Σ_{e: indices[e]==f} contrib[e] for contrib [E] or [E, C];
+    returns [num_features] or [num_features, C], the same bits on every run
+    (module docstring): ``kernels.sorted_segment_sum``, one sort and one
+    kernel launch on the card. ``first_apart`` sums column 0 of [E, 1 + K]
+    as the [E] call on it would and the rest as the [E, K] call (FM's gw
+    packed beside dv)."""
+    return sorted_segment_sum(contrib, indices, num_features, first_apart)
 
 
 def spmv_transpose(values, indices, row_ids, row_grads, num_features: int):

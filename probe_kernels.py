@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a card and nvcc::
     python3 probe_kernels.py fused-breakdown [--csrc DIR]
     python3 probe_kernels.py seg-times [--tree DIR]
     python3 probe_kernels.py seg-variants [--csrc DIR]
+    python3 probe_kernels.py feature-sum
 
 ``fused-breakdown`` builds timing-only variants of
 ``fused_linear_grads.cu`` (from ``DIR``, by default this checkout's
@@ -40,8 +41,16 @@ at ``DIR`` (its ``dmlc_tpu_torch`` first on the path) at the main path's
 shapes: the padded Criteo batch (8192 rows of 39 entries in a 327,680-entry
 bucket), the full bucket (40 entries a row), and both at FM's 17 columns;
 and ``index_add_`` beside each. Run it in two checkouts in turns to compare
-their kernels on one card. Each mode prints the card's name and power
-limit, then one JSON line.
+their kernels on one card.
+
+``feature-sum`` times the feature-direction sum at one step of the
+criteo-fm cell (``chip_smoke.feature_sum_row``: 638,976 Zipf ids of
+1,000,001, as [E], [E, 8] and [E, 9]) ``TURNS`` times in turns: the route,
+``sorted_segment_sum`` (a stable sort, then one kernel reading each
+entry's row through the permutation), beside the sort alone and
+``index_put_`` accumulate.
+
+Each mode prints the card's name and power limit, then one JSON line.
 """
 
 from __future__ import annotations
@@ -513,10 +522,26 @@ def seg_times() -> dict:
     return out
 
 
+def feature_sum_times() -> dict:
+    import torch
+
+    import chip_smoke as cs
+    from dmlc_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    flush = torch.empty(1 << 28, dtype=torch.float32, device=dev)
+    out = {}
+    for _ in range(TURNS):
+        for cols in (0,) + cs.FEATURE_SUM_COLS:
+            out.setdefault(str(max(cols, 1)), []).append(
+                cs.feature_sum_row(kernels, dev, flush, cols))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("mode", choices=("fused-breakdown", "seg-times",
-                                         "seg-variants"))
+                                         "seg-variants", "feature-sum"))
     parser.add_argument("--csrc", type=Path,
                         default=ROOT / "dmlc_tpu_torch" / "ops" / "csrc")
     parser.add_argument("--tree", type=Path, default=ROOT)
@@ -538,6 +563,8 @@ def main() -> int:
         result = fused_breakdown(args.csrc.resolve())
     elif args.mode == "seg-variants":
         result = {"seg_variants_ms": seg_variant_times(args.csrc.resolve())}
+    elif args.mode == "feature-sum":
+        result = {"feature_sum_ms": feature_sum_times()}
     else:
         result = {"seg_times_ms": seg_times(), "tree": str(tree)}
     print(json.dumps(result))

@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (FLASH_CASES, FM_COLS, FM_SEG_COLS, SEG_WIDE_COLS,
-                         TF32_FAULT_MIN_T, TOKEN_SIZES, criteo_batch,
-                         drive_recovery, flash_case, hold_seg_schedule,
-                         hold_seg_sum, hold_seg_sum_cols, one_call_ops,
-                         read_lost_tile, require_one_kernel,
-                         seg_sum_edge_cases, token_chunk, write_criteo)
+from chip_smoke import (CELL_FEATURES, FEATURE_SUM_COLS, FLASH_CASES,
+                         FM_COLS, FM_PACKED_COLS, FM_SEG_COLS, SEG_WIDE_COLS,
+                         TF32_FAULT_MIN_T, TOKEN_SIZES, cell_feature_ids,
+                         criteo_batch, drive_recovery, feature_sum_cases,
+                         flash_case, hold_feature_sum, hold_seg_schedule,
+                         hold_seg_sum, hold_seg_sum_cols, index_put_route,
+                         one_call_ops, read_lost_tile, require_one_kernel,
+                         seg_sum_edge_cases, sorted_sum_order, token_chunk,
+                         write_criteo)
 from dmlc_tpu_torch.data import create_parser, create_row_block_iter
 from dmlc_tpu_torch.device import BatchSpec, DeviceFeed
 from dmlc_tpu_torch.models import LinearLearner
@@ -282,8 +285,8 @@ def test_flash_path_trains_through_the_kernels(cuda):
     got = [out.detach()] + [x.grad.clone() for x in leaves]
     assert {n: kernels.KERNELS[n].launches for n in kernels.KERNELS} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
-        "flash_attention_fwd": 1, "flash_attention_bwd": 1,
-        "tokenize_boundaries": 0}
+        "sorted_segment_sum": 0, "flash_attention_fwd": 1,
+        "flash_attention_bwd": 1, "tokenize_boundaries": 0}
     for x in leaves:
         x.grad = None
     out = make_ulysses_attention(causal=True)(*leaves)
@@ -403,6 +406,8 @@ def test_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path, layout):
         path, batch_size=128, epochs=2, layout=layout, num_features=30)
     name = "fused_linear_grads" if layout == "dense" else "coo_segment_sum"
     assert kernels.KERNELS[name].launches == 2 * 8
+    assert kernels.sorted_segment_sum.launches == (2 * 8 if layout == "csr"
+                                                   else 0)
     np.testing.assert_allclose(history, cpu, rtol=1e-5)
 
 
@@ -714,6 +719,112 @@ def test_feature_segment_sum_columns_repeat_their_bits(cuda):
         rtol=1e-5, atol=1e-5)
 
 
+FEATURE_SUM_CASES = {name: (ids, nf) for name, ids, nf
+                     in feature_sum_cases()}
+
+
+def _fm_scale(rng, entries, cols):
+    """Contributions at FM's scale: values in [0, 1) times 0.1 N(0, 1)."""
+    return (rng.rand(entries, 1) * 0.1 * rng.randn(entries, cols)).astype(
+        np.float32)
+
+
+def _exact_sum(contrib, ids, num_features):
+    """The sums in float64 on the CPU, from float32 contributions."""
+    return torch.zeros((num_features,) + tuple(contrib.shape[1:]),
+                       dtype=torch.float64).index_add_(
+        0, ids.cpu().long(), contrib.cpu().double())
+
+
+@pytest.mark.parametrize("cols", FEATURE_SUM_COLS)
+def test_sorted_segment_sum_at_the_cell_shape(cuda, cols):
+    """``sorted_segment_sum``, the route of ``feature_segment_sum``, at one
+    step of the criteo-fm cell (638,976 Zipf ids of 1,000,001, the
+    commonest holding 1.29 % of the entries), as dv's [E, 8] and as FM's
+    packed [E, 9] (gw apart). Integer data: the CPU route's bits, the same
+    bits twice and on a second stream, one launch a call. Float data at
+    FM's scale: the same bits over three runs; the bits of the kernel's
+    order (``sorted_sum_order``) and of the ``index_put_`` route before
+    it; the row columns (dv) the CPU route's bits, the vector column (gw)
+    within rtol 1e-5 / atol 1e-5 of the float64 sum; +0.0 at every
+    untouched feature."""
+    ids = cell_feature_ids(3)
+    counts = np.bincount(ids, minlength=CELL_FEATURES)
+    assert counts.max() >= 0.0128 * len(ids)
+    hold_feature_sum(kernels, cuda, "criteo-fm step", ids, CELL_FEATURES,
+                     cols)
+    apart = cols == FM_PACKED_COLS
+    contrib = torch.tensor(_fm_scale(np.random.RandomState(cols), len(ids),
+                                     cols), device=cuda)
+    ids_t = torch.tensor(ids, device=cuda)
+    before = kernels.sorted_segment_sum.launches
+    runs = [kernels.sorted_segment_sum(contrib, ids_t, CELL_FEATURES, apart)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert kernels.sorted_segment_sum.launches == before + 3
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert torch.equal(runs[0], index_put_route(contrib, ids_t,
+                                                CELL_FEATURES, apart))
+    got = runs[0].cpu()
+    vc = kernels.vector_columns(contrib, apart)
+    assert got.numpy().tobytes() == sorted_sum_order(
+        contrib.cpu().numpy(), ids, CELL_FEATURES, vc).tobytes()
+    cpu = kernels.sorted_segment_sum_plain(contrib.cpu(), ids_t.cpu(),
+                                           CELL_FEATURES)
+    assert torch.equal(got[:, vc:], cpu[:, vc:])
+    np.testing.assert_allclose(
+        got[:, :vc].numpy(),
+        _exact_sum(contrib[:, :vc], ids_t, CELL_FEATURES).numpy(),
+        rtol=1e-5, atol=1e-5)
+    untouched = torch.tensor(counts == 0)
+    assert untouched.sum() > 0
+    assert not got[untouched].view(torch.int32).any()
+
+
+def test_sorted_segment_sum_1d_keeps_index_puts_bits(cuda):
+    """At the criteo-fm cell's step, as the csr fit's gradient ([E]): the
+    bits of ``index_put_`` with ``accumulate=True``, the route before,
+    whose order the kernel keeps (the plain reference of the FM cells
+    takes w's gradient through it)."""
+    ids = torch.tensor(cell_feature_ids(5), device=cuda)
+    contrib = torch.tensor(_fm_scale(np.random.RandomState(5), len(ids), 1),
+                           device=cuda)[:, 0].contiguous()
+    got = kernels.sorted_segment_sum(contrib, ids, CELL_FEATURES)
+    assert torch.equal(got, index_put_route(contrib, ids, CELL_FEATURES))
+
+
+def test_fm_packed_sum_is_the_two_calls(cuda):
+    """FM's packed [E, 9] call at the criteo-fm cell's step, gw apart, on
+    float data: column 0 bit-equal to the [E] call on it (the csr fit's
+    order: gw keeps the linear fit's bits), columns 1..8 to the [E, 8]
+    call on them (dv's)."""
+    ids = torch.tensor(cell_feature_ids(4), device=cuda)
+    contrib = torch.tensor(_fm_scale(np.random.RandomState(4), len(ids), 9),
+                           device=cuda)
+    got = kernels.sorted_segment_sum(contrib, ids, CELL_FEATURES, True)
+    gw = kernels.sorted_segment_sum(contrib[:, 0].contiguous(), ids,
+                                    CELL_FEATURES)
+    gv = kernels.sorted_segment_sum(contrib[:, 1:].contiguous(), ids,
+                                    CELL_FEATURES)
+    assert torch.equal(got[:, 0], gw)
+    assert torch.equal(got[:, 1:], gv)
+
+
+@pytest.mark.parametrize("cols", (0,) + FEATURE_SUM_COLS)
+@pytest.mark.parametrize("case", sorted(FEATURE_SUM_CASES))
+def test_sorted_segment_sum_edge_cases(cuda, case, cols):
+    """No entries, one id holding every entry, a run over more than 32
+    tiles, ids in no order with untouched features between and after
+    them; [E] (``cols`` 0), [E, 8] and [E, 9]: on integer data the CPU
+    route's bits, the same bits twice and on a second stream, one launch
+    a call."""
+    ids, nf = FEATURE_SUM_CASES[case]
+    got = hold_feature_sum(kernels, cuda, case, ids, nf, cols)
+    untouched = torch.tensor(np.bincount(ids, minlength=nf) == 0,
+                             device=cuda)
+    assert not got[untouched].view(torch.int32).any()
+
+
 def test_fm_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path):
     from dmlc_tpu_torch.models import (FMLearner, fm_params_from_numpy,
                                        fm_params_to_numpy, init_fm_params)
@@ -743,6 +854,7 @@ def test_fm_fit_on_the_card_launches_one_kernel_a_step(cuda, tmp_path):
             feed.close()
         if device == "cuda":
             assert kernels.coo_segment_sum.launches == 2 * 8
+            assert kernels.sorted_segment_sum.launches == 2 * 8
     np.testing.assert_allclose(fits["cuda"], fits["cpu"], rtol=1e-5)
 
 

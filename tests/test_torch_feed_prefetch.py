@@ -354,8 +354,23 @@ def test_env_names_and_the_auto_depth(tmp_path, monkeypatch):
         feed.close()
 
 
+#: feed threads already running when the test began: an earlier test in
+#: the same process may leave one (the JAX package's feed names its
+#: producer the same, and its preempted fit does not join it)
+_EARLIER = set()
+
+
+@pytest.fixture(autouse=True)
+def _earlier_feed_threads():
+    _EARLIER.clear()
+    _EARLIER.update(t for t in threading.enumerate()
+                    if t.name == "device-feed")
+
+
 def _feed_threads():
-    return [t for t in threading.enumerate() if t.name == "device-feed"]
+    """The feed threads this test started that are still running."""
+    return [t for t in threading.enumerate()
+            if t.name == "device-feed" and t not in _EARLIER]
 
 
 class _FailingParser:

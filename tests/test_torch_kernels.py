@@ -128,12 +128,14 @@ def test_plain_route_counts_no_launch():
     kernels.fused_linear_grads(*args, torch.tensor(0.0))
     kernels.coo_segment_sum(torch.ones(4), torch.zeros(4, dtype=torch.int32),
                             2)
+    kernels.sorted_segment_sum(torch.ones(4, 2),
+                               torch.tensor([1, 0, 1, 1]), 3)
     kernels.tokenize_boundaries(torch.tensor(list(b"1 2:3\n"),
                                              dtype=torch.uint8))
     assert {k: fn.launches for k, fn in kernels.KERNELS.items()} == {
         "fused_linear_grads": 0, "coo_segment_sum": 0,
-        "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-        "tokenize_boundaries": 0}
+        "sorted_segment_sum": 0, "flash_attention_fwd": 0,
+        "flash_attention_bwd": 0, "tokenize_boundaries": 0}
 
 
 def test_launch_counts_lose_nothing_under_threads():
